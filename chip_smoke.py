@@ -27,17 +27,22 @@ any failure propagates and the exit code is not 0:
                   byte-exact, also at tolerance 2 with quality masking and
                   short reads) and on a 4096-barcode cellular panel (K7);
                   the uncertain flags of K1, K7 and the whole step held to
-                  the plain version's (check_flags), K4 twice for
-                  determinism, the GPU-measured TPQ epsilon, per-kernel
-                  device times of kernel, plain version and, where one
-                  PyTorch call computes the same function, that call; then
-                  every kernel of the whitelist's decode step (K3, K7 at
-                  737,280 barcodes, K4 over 737,281 bins, K5's int32
-                  index), where the bound flags nearly every row and the
-                  decisions are held on all rows (at most
-                  WIDE_DISAGREE_LIMIT differ), K7 timed once each; and K8
-                  at the whitelist over P = 2 and 4 shards in one process,
-                  held to K7 and to its plain version, per shard timed
+                  the plain version's (check_flags), K4 twice and against
+                  its plain version byte for byte, the GPU-measured TPQ
+                  epsilon, per-kernel device times of kernel, plain
+                  version and, where one PyTorch call computes the same
+                  function, that call; K4 on its edge cases (k4_edge_checks:
+                  one bin, the last bin, argmax apart from decoded, extreme
+                  confidences, no valid row, forced rows, N = 0, N not a
+                  multiple of a block's share, 737,281 bins) and its
+                  shared-memory threshold sweep; then every kernel of the
+                  whitelist's decode step (K3, K7 at 737,280 barcodes, K4
+                  over 737,281 bins, timed, K5's int32 index), where the
+                  bound flags nearly every row and the decisions are held
+                  on all rows (at most WIDE_DISAGREE_LIMIT differ), K7
+                  timed once each; and K8 at the whitelist over P = 2 and
+                  4 shards in one process, held to K7 and to its plain
+                  version, per shard timed
   4. decisions    the hybrid port (streamed engine, forked render workers)
                   identical to the strict f64 engine: on 200k flagship
                   reads, on 200k MDD-flagship reads and on 20k reads of a
@@ -58,7 +63,10 @@ any failure propagates and the exit code is not 0:
                   same run over NCCL
   7. result       no module of jax or pheniqs_tpu in sys.modules, the card
                   line, the kernels JSON line (with each kernel's bound from
-                  its bytes and operations), then the last line
+                  its bytes and operations; K4's entry adds its peak
+                  allocation, its time, bound, plain time, yardstick and
+                  peak at the whitelist, and the threshold sweep), then the
+                  last line
                   {"ok": true, "device": {"platform": "gpu", ...}}
 
 Imports nothing of JAX and nothing of the JAX package. Work files live in
@@ -452,23 +460,23 @@ def classify_pair(dec, instrument, codes, quals, lengths, qcfail, short, out, bo
 
 
 def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: float = 0.0, panels=None,
-                instrument=None, bounded: bool = True) -> dict:
+                instrument=None, bounded: bool = True, time_k4: bool = False) -> dict:
     """Every kernel of one instrument's decode step against its plain
     version on a j4 batch of `n` reads: K3 byte-exact, each decoder's
     classify kernel (classify_pair; unbounded past LARGE_PANEL_B barcodes
-    unless `bounded`), K4 twice byte-identical and against the plain
-    version (integer columns exact, confidence sums rtol 1e-5), K5
-    byte-exact, and the whole step: the uncertain byte held to the plain
-    version's, the same decision bytes off the margins (when not
-    `bounded`, on every row but at most WIDE_DISAGREE_LIMIT of them).
-    Returns K1's and K7's one-call times and, with `timed`, each kernel's
-    and the step's device times."""
+    unless `bounded`), K4 twice byte-identical and equal to the plain
+    version byte for byte on every column (k4_hold), K5 byte-exact, and
+    the whole step: the uncertain byte held to the plain version's, the
+    same decision bytes off the margins (when not `bounded`, on every row
+    but at most WIDE_DISAGREE_LIMIT of them). Returns K1's and K7's
+    one-call times and, with `timed`, each kernel's and the step's device
+    times (K4's alone with `time_k4`)."""
     import torch
 
     from pheniqs_tpu_torch.device import wire
     from pheniqs_tpu_torch.device.instrument import LARGE_PANEL_B, compile_instrument
     from pheniqs_tpu_torch.device.step import DecodeStep
-    from pheniqs_tpu_torch.kernels import Decisions, counters, mdd, pack, pamld, unpack
+    from pheniqs_tpu_torch.kernels import Decisions, mdd, pack, pamld, unpack
 
     cuda = torch.device("cuda")
     if instrument is None:
@@ -540,23 +548,14 @@ def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: flo
                 f" plain {plain_ms:.4f} ms ({clock})")
         qcfail = row["qcfail"]
 
-    first = counters.counters(instrument, kernel_rows, tokens.pad, tokens.forced, True)
-    second = counters.counters(instrument, kernel_rows, tokens.pad, tokens.forced, True)
-    plain_counts = counters.counters_plain(instrument, kernel_rows, tokens.pad, tokens.forced, True)
-    torch.cuda.synchronize()
-    if not torch.equal(first.view(torch.int32), second.view(torch.int32)):
-        raise AssertionError(f"{label}: K4 is not deterministic: two launches differ")
-    offset = 0
-    for _, name, size in wire.counter_layout(instrument):
-        a, b = first[offset : offset + size], plain_counts[offset : offset + size]
-        if name in ("accumulated_confidence", "accumulated_pf_confidence"):
-            ok = torch.allclose(a, b, rtol=1e-5, atol=0.0)
-        else:
-            ok = torch.equal(a, b)
-        if not ok:
-            raise AssertionError(f"{label}: K4 {name} disagrees with the plain version")
-        offset += size
-    say(f"[kernels] {label}: K4 two launches byte-identical ({first.numel()} counters), K4 = plain")
+    first = k4_hold(label, instrument, kernel_rows, tokens.pad, tokens.forced)
+    say(f"[kernels] {label}: K4 two launches byte-identical ({first.numel()} counters), K4 = plain byte for byte")
+    if timed or time_k4:
+        results["counters"] = k4_measure(instrument, kernel_rows, tokens.pad, tokens.forced)
+        k4 = results["counters"]
+        say(f"[kernels] {label} K4 N={n}, {first.numel()} counters: kernel {k4['ms']:.4f} ms, plain"
+            f" {k4['plain_ms']:.4f} ms, index_add_ yardstick {k4['library_ms']:.4f} ms (device time);"
+            f" peak allocation of one call {k4['peak_bytes']} B")
 
     packed = pack.pack_outputs(instrument, kernel_rows, tokens.forced, True)
     plain_packed = pack.pack_outputs_plain(instrument, kernel_rows, tokens.forced, True)
@@ -564,16 +563,6 @@ def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: flo
     if not torch.equal(packed, plain_packed):
         raise AssertionError(f"{label}: K5 blob differs from the plain version")
     if timed:
-        counted = [k for k, dec in enumerate(instrument.decoders) if dec.algorithm in ("pamld", "mdd")]
-        rows = [getattr(kernel_rows, f)[counted] for f in (
-            "decoded", "argmax", "distance", "branch", "confidence", "qcfail", "uncertain")]
-        results["counters"] = {
-            "max_abs_err": float((first - plain_counts).abs().max()),
-            "ms": device_ms(lambda: counters.counters(instrument, kernel_rows, tokens.pad, tokens.forced, True)),
-            "plain_ms": device_ms(lambda: counters.counters_plain(instrument, kernel_rows, tokens.pad, tokens.forced, True)),
-            "bytes": nbytes(*rows, tokens.pad, tokens.forced, first),
-            "library_ms": segment_sums_ms(instrument, kernel_rows, counted),
-        }
         results["pack_outputs"] = {
             "max_abs_err": 0.0,
             "ms": device_ms(lambda: pack.pack_outputs(instrument, kernel_rows, tokens.forced, True)),
@@ -616,25 +605,242 @@ def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: flo
     return results
 
 
-def segment_sums_ms(instrument, rows, counted) -> float:
-    """The library yardstick of K4: per counted decoder one
-    ``index_add_`` of its eight (N,) statistics, stacked (N, 8), into
-    (B + 1, 8) bins keyed by the decoded index (device time, summed)."""
+def segment_sums_ms(instrument, rows) -> float:
+    """The library yardstick of K4, the same sums K4 makes: for every
+    decoder one ``index_add_`` of its decoded-keyed columns (count and pf
+    count; the distances for PAMLD and MDD; the confidences for PAMLD),
+    stacked (N, k), into (B + 1, k) f32 bins keyed by the decoded index,
+    and for a PAMLD decoder a second of its (low confidence, noise) pair
+    keyed by the argmax (device time, summed over the calls)."""
     import torch
 
+    from pheniqs_tpu_torch.device.wire import counter_names
+
     total = 0.0
-    for k in counted:
+    for k, dec in enumerate(instrument.decoders):
         pf = (~rows.qcfail[k]).to(torch.float32)
         distance = rows.distance[k].to(torch.float32)
         confidence = rows.confidence[k]
-        stacked = torch.stack([
-            torch.ones_like(pf), pf, distance, pf * distance, confidence, pf * confidence,
-            (rows.branch[k] == 1).to(torch.float32), (rows.branch[k] == 2).to(torch.float32),
-        ], dim=1)
+        columns = [torch.ones_like(pf), pf, distance, pf * distance, confidence, pf * confidence]
+        stacked = torch.stack(columns[: min(6, len(counter_names(dec)))], dim=1)
         index = rows.decoded[k].to(torch.int64)
-        bins = torch.zeros((instrument.decoders[k].barcode_count + 1, 8), device=stacked.device)
+        bins = torch.zeros((dec.barcode_count + 1, stacked.shape[1]), device=stacked.device)
         total += device_ms(lambda: bins.index_add_(0, index, stacked))
+        if dec.algorithm == "pamld":
+            filters = torch.stack([(rows.branch[k] == 1), (rows.branch[k] == 2)], dim=1).to(torch.float32)
+            by_argmax = rows.argmax[k].to(torch.int64)
+            pair = torch.zeros((dec.barcode_count + 1, 2), device=stacked.device)
+            total += device_ms(lambda: pair.index_add_(0, by_argmax, filters))
     return total
+
+
+def k4_bytes(instrument, n: int, want_uncertain: bool = True) -> int:
+    """The bytes K4 must move for `n` rows: each decision row it reads
+    (qcfail of every decoder; decoded and distance from PAMLD and MDD, as a
+    naive decoder's rows all fall in its one bin; argmax, branch and
+    confidence from PAMLD; the uncertain rows of PAMLD decoders), pad and
+    forced read once, the counters written once."""
+    from pheniqs_tpu_torch.kernels.counters import decoder_table
+
+    moved = 2 * n + 4 * decoder_table(instrument).total
+    for dec in instrument.decoders:
+        moved += n
+        if dec.algorithm in ("pamld", "mdd"):
+            moved += 8 * n
+        if dec.algorithm == "pamld":
+            moved += 9 * n + (n if want_uncertain else 0)
+    return moved
+
+
+def k4_measure(instrument, rows, pad, forced) -> dict:
+    """K4's kernels-line entry on one batch: device time of the kernel and
+    its plain version, the library yardstick, the bytes of its bound, and
+    its peak allocation in one call (torch.cuda.max_memory_allocated over
+    the call, its output included)."""
+    import torch
+
+    from pheniqs_tpu_torch.kernels import counters
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    mine = counters.counters(instrument, rows, pad, forced, True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    plain = counters.counters_plain(instrument, rows, pad, forced, True)
+    return {
+        "max_abs_err": float((mine - plain).abs().max()) if mine.numel() else 0.0,
+        "ms": device_ms(lambda: counters.counters(instrument, rows, pad, forced, True)),
+        "plain_ms": device_ms(lambda: counters.counters_plain(instrument, rows, pad, forced, True)),
+        "bytes": k4_bytes(instrument, pad.shape[0]),
+        "library_ms": segment_sums_ms(instrument, rows),
+        "peak_bytes": peak,
+    }
+
+
+#: K4's cases: name -> (decoders as (algorithm, barcodes, width), rows)
+K4_FLAGSHIP = (("pamld", 96, 16), ("pamld", 384, 16), ("naive", 0, 0))
+K4_CASES = {
+    "flagship": (K4_FLAGSHIP, 4096),
+    "mdd": ((("mdd", 96, 16), ("pamld", 384, 16), ("naive", 0, 0)), 4096),
+    "naive only": ((("naive", 0, 0),), 4096),
+    "one bin": ((("pamld", 384, 16), ("mdd", 96, 16)), 4096),
+    "last bin": ((("pamld", 384, 16), ("mdd", 96, 16)), 4096),
+    "argmax differs": ((("pamld", 96, 16),), 4096),
+    "extreme confidences": ((("pamld", 96, 16),), 4096),
+    "all invalid": (K4_FLAGSHIP, 4096),
+    "forced": (K4_FLAGSHIP, 4096),
+    "empty": (K4_FLAGSHIP, 0),
+    "ragged": (K4_FLAGSHIP, 4096 + 37),
+}
+
+
+def k4_case(name: str, n: int | None = None, seed: int = 5, decoders=None):
+    """The decisions of one K4 case, made with numpy from `seed`:
+    (instrument, arrays), the instrument a stand-in with the decoders'
+    algorithm, barcode count and width, the arrays (D, n) decoded, argmax,
+    distance, branch, confidence, qcfail (chained), uncertain and (n,) pad
+    (the last 16 rows) and forced. Rows are drawn as K1 and K6 write them
+    (decoded = argmax where the branch passes, else 0); the case's name
+    bends them: every row in one bin; rows in the last bin; decoded drawn
+    apart from argmax; confidences of 1 - 2^-24 and 1e-8; every row
+    padding; a third of the rows forced and a fifth uncertain."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    specs, rows = K4_CASES.get(name, (decoders, n))
+    decoders = decoders or specs
+    n = rows if n is None else n
+    rng = np.random.default_rng(seed)
+    d = len(decoders)
+    arrays = {key: np.zeros((d, n), dtype) for key, dtype in (
+        ("decoded", np.int32), ("argmax", np.int32), ("distance", np.int32), ("branch", np.int8),
+        ("confidence", np.float32), ("qcfail", bool), ("uncertain", bool))}
+    qcfail = rng.random(n) < 0.05
+    for k, (algorithm, barcodes, width) in enumerate(decoders):
+        qcfail = qcfail | (rng.random(n) < 0.02)
+        arrays["qcfail"][k] = qcfail
+        if algorithm == "naive":
+            continue
+        argmax = rng.integers(1, barcodes + 1, n)
+        if name == "one bin":
+            argmax[:] = 7
+        elif name == "last bin":
+            argmax = np.where(rng.random(n) < 0.5, barcodes, argmax)
+        branch = rng.choice(4, n, p=[0.8, 0.1, 0.06, 0.04])
+        if name == "extreme confidences":
+            branch[:] = 0
+        decoded = np.where(branch == 0, argmax, 0)
+        if name == "argmax differs":
+            decoded = rng.integers(0, barcodes + 1, n)
+        arrays["argmax"][k] = argmax
+        arrays["decoded"][k] = decoded
+        arrays["branch"][k] = branch
+        arrays["distance"][k] = rng.integers(0, min(width, 4) + 1, n)
+        if algorithm == "pamld":
+            confidence = np.where(branch == 0, rng.uniform(0.95, 1.0, n), rng.uniform(0.0, 0.95, n))
+            if name == "extreme confidences":
+                confidence = rng.choice(np.array([1 - 2.0**-24, 1e-8]), n)
+            arrays["confidence"][k] = confidence
+            arrays["uncertain"][k] = rng.random(n) < (0.2 if name == "forced" else 0.01)
+    arrays["pad"] = np.zeros(n, bool)
+    arrays["pad"][max(0, n - 16):] = True
+    if name == "all invalid":
+        arrays["pad"][:] = True
+    arrays["forced"] = rng.random(n) < (1 / 3 if name == "forced" else 0.005)
+    instrument = SimpleNamespace(decoders=[
+        SimpleNamespace(algorithm=algorithm, barcode_count=barcodes, width=width)
+        for algorithm, barcodes, width in decoders
+    ])
+    return instrument, arrays
+
+
+def k4_tensors(arrays: dict, device):
+    """(Decisions, pad, forced) of a k4_case's arrays on `device`."""
+    import torch
+
+    from pheniqs_tpu_torch.kernels import Decisions
+
+    t = {key: torch.from_numpy(value).to(device) for key, value in arrays.items()}
+    rows = Decisions(**{key: t[key] for key in (
+        "decoded", "argmax", "distance", "branch", "confidence", "qcfail", "uncertain")})
+    return rows, t["pad"], t["forced"]
+
+
+def k4_hold(label: str, instrument, rows, pad, forced, want_uncertain: bool = True):
+    """K4 on the card, twice, against its plain version on the same
+    tensors: every counter byte-identical across the two launches and to
+    the plain version, and one launch counted a call."""
+    import torch
+
+    from pheniqs_tpu_torch.kernels import counters
+
+    before = counters.launches
+    first = counters.counters(instrument, rows, pad, forced, want_uncertain)
+    second = counters.counters(instrument, rows, pad, forced, want_uncertain)
+    plain = counters.counters_plain(instrument, rows, pad, forced, want_uncertain)
+    torch.cuda.synchronize()
+    if counters.launches != before + 2:
+        raise AssertionError(f"{label}: K4 counted {counters.launches - before} launches for two calls")
+    if not torch.equal(first.view(torch.int32), second.view(torch.int32)):
+        raise AssertionError(f"{label}: K4 is not deterministic: two launches differ")
+    if not torch.equal(first.view(torch.int32), plain.view(torch.int32)):
+        raise AssertionError(f"{label}: K4 differs from its plain version on {int((first != plain).sum())} counters")
+    return first
+
+
+def k4_edge_checks(large: int = N_KERNEL) -> int:
+    """K4 held to its plain version byte for byte, two launches equal, on
+    every K4_CASES case, on "one bin" and "ragged" at `large` rows (+ 37:
+    not a multiple of a block's or a warp's share), with and without the
+    uncertain mask, and over the whitelist's 737,281 bins. Returns the
+    number of cases."""
+    import torch
+
+    cuda = torch.device("cuda")
+    cases = [(name, None) for name in K4_CASES] + [("one bin", large), ("ragged", large + 37)]
+    for name, n in cases:
+        instrument, arrays = k4_case(name, n)
+        for want_uncertain in (True, False):
+            k4_hold(f"K4 case {name}", instrument, *k4_tensors(arrays, cuda), want_uncertain)
+    instrument, arrays = k4_case("whitelist bins", large, decoders=(
+        ("pamld", 96, 16), ("pamld", 737_280, 16), ("naive", 0, 0)))
+    out = k4_hold("K4 over 737,281 bins", instrument, *k4_tensors(arrays, cuda))
+    say(f"[k4] byte-identical to the plain version and across two launches on {len(cases)} cases"
+        f" ({', '.join(name for name, _ in cases)}) and over 737,281 bins ({out.numel()} counters)")
+    return len(cases) + 1
+
+
+def k4_threshold_sweep(n: int = N_KERNEL) -> list:
+    """K4's device time on one synthetic PAMLD decoder of B barcodes at
+    `n` rows, with its histogram in shared memory and with every row added
+    straight into global atomics, at B + 1 across the shared-memory limit
+    (counters.SHARED_LIMIT set to the most a block may take, then to 0,
+    and put back). Returns (B, shared ms, global ms) per B."""
+    import torch
+
+    from pheniqs_tpu_torch.kernels import counters
+
+    cuda = torch.device("cuda")
+    chosen = counters.SHARED_LIMIT
+    rows = []
+    try:
+        for barcodes in (96, 384, 1024, 2048, 3072, 4096, 4800):
+            instrument, arrays = k4_case("sweep", n, decoders=(("pamld", barcodes, 16),))
+            tensors = k4_tensors(arrays, cuda)
+            times = []
+            for limit in (counters.SHARED_MAX, 0):
+                counters.SHARED_LIMIT = limit
+                times.append(device_ms(lambda: counters.counters(instrument, *tensors, True)))
+            counters.SHARED_LIMIT = counters.SHARED_MAX
+            shared = counters.decoder_table(instrument).rows[0][5]
+            rows.append((barcodes, *times))
+            say(f"[k4] B={barcodes} N={n}: shared histogram ({shared} B) {times[0]:.4f} ms,"
+                f" global atomics {times[1]:.4f} ms (device time)")
+    finally:
+        counters.SHARED_LIMIT = chosen
+    return rows
 
 
 def kernel_checks(n: int = N_KERNEL, timed: bool = True) -> dict:
@@ -698,11 +904,11 @@ class Whitelist:
 def whitelist_checks(whitelist: Whitelist, n: int = N_KERNEL) -> dict:
     """Every kernel of the whitelist's decode step against its plain
     version (step_checks, unbounded): K3, K1 on the sample panel, K7 at
-    737,280 barcodes, K4 over 737,281 bins and K5's int32 decoded index.
-    Returns K7's max |diff| and one-call times."""
-    results = step_checks("whitelist flagship", whitelist.ontology, n, seed=737, timed=False,
-                          panels=whitelist.panels, instrument=whitelist.instrument, bounded=False)
-    return results["pamld_chunked"]
+    737,280 barcodes, K4 over 737,281 bins (timed: k4_measure) and K5's
+    int32 decoded index. Returns K7's max |diff| and one-call times, and
+    K4's entry."""
+    return step_checks("whitelist flagship", whitelist.ontology, n, seed=737, timed=False,
+                       panels=whitelist.panels, instrument=whitelist.instrument, bounded=False, time_k4=True)
 
 
 def k8_checks(whitelist: Whitelist, n: int = N_KERNEL) -> dict:
@@ -1014,8 +1220,25 @@ def main() -> int:
                 "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
             return 0
         measured = kernel_checks()
+        k4_edge_checks()
+        sweep = k4_threshold_sweep()
         whitelist = Whitelist()
-        measured["pamld_chunked"] = whitelist_checks(whitelist)
+        wide = whitelist_checks(whitelist)
+        measured["pamld_chunked"] = wide["pamld_chunked"]
+        k4_wide = wide["counters"]
+        measured["counters"]["extra"] = {
+            "peak_bytes": measured["counters"]["peak_bytes"],
+            "whitelist_ms": k4_wide["ms"],
+            "whitelist_plain_ms": k4_wide["plain_ms"],
+            "whitelist_bound_ms": bound(k4_wide)[0],
+            "whitelist_library_ms": k4_wide["library_ms"],
+            "whitelist_peak_bytes": k4_wide["peak_bytes"],
+            "threshold_sweep": [{"barcodes": b, "shared_ms": s, "global_ms": g} for b, s, g in sweep],
+        }
+        say(f"[kernels] {card} | counters at the whitelist (737,281 bins, N={N_KERNEL}): kernel"
+            f" {k4_wide['ms']:.4f} ms, plain {k4_wide['plain_ms']:.4f} ms, bound {bound(k4_wide)[0]:.4f} ms"
+            f" ({bound(k4_wide)[1]}), index_add_ yardstick {k4_wide['library_ms']:.4f} ms, peak allocation"
+            f" {k4_wide['peak_bytes']} B")
         measured["pamld_panel_sharded"] = k8_checks(whitelist)
         for name in KERNELS:
             m = measured[name]
@@ -1069,6 +1292,7 @@ def main() -> int:
                 "bound_ms": bound(measured[name])[0],
                 "bound_by": bound(measured[name])[1],
                 "library_ms": measured[name]["library_ms"],
+                **measured[name].get("extra", {}),
             }
             for name, (source, replaces) in KERNELS.items()
         ]

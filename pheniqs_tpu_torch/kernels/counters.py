@@ -2,15 +2,22 @@
 
 ``counters`` reduces the stacked per-read decisions of every decoder to
 the flat f32 counter vector in ``device.wire.counter_layout`` order, over
-the rows valid = !pad && !uncertain_any. On CUDA each decoder is one
-launch of the deterministic two-pass kernel (fixed-order per-chunk sums,
-then a fixed-order sum of the chunk partials: no float atomics, so two runs
-give the same bytes); on the CPU the plain version below is the torch
-port of ``pheniqs_tpu.device.step._counters`` (``index_add_`` in place of
-the one-hot contraction).
+the rows valid = !pad && !uncertain_any. Every column is summed in
+integers, so the result does not depend on the order of the adds: the
+six integer columns as they are, the two confidence columns in 64-bit
+fixed point (q = rint(c * 2^40), converted once as float(sum) * 2^-40).
+On CUDA that is one accumulate kernel over (reads x decoders) and one
+finalize kernel per batch, whatever the number of decoders; on the CPU
+the plain version below does the same arithmetic with int64
+``index_add_``, so the kernel equals it byte for byte. Both agree with
+``pheniqs_tpu.device.step._counters`` (f32 one-hot contraction): integer
+columns exactly, confidence sums within N * 2^-41 + 1/2 ulp of the true
+sum while ``check_limits`` holds.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -18,11 +25,66 @@ from ..device.wire import counter_names
 from . import Decisions, uncertain_mask
 from .pamld import BRANCH_LOW_CONFIDENCE, BRANCH_NOISE, BRANCH_PASS
 
-#: launches of the CUDA kernel in this process
+#: launches of the CUDA kernel in this process (one per batch: the
+#: accumulate kernel and its finalize)
 launches = 0
 
-_CHUNK = 1024
 _KIND = {"pamld": 2, "mdd": 1}
+#: the fixed-point scale of the confidence sums
+CONFIDENCE_SCALE = 2.0**40
+#: the largest shared-memory histogram a decoder may take, in bytes;
+#: larger panels add straight into global atomics. Measured by
+#: chip_smoke.py's k4_threshold_sweep (csrc/counters.cu has its times):
+#: shared is faster through 3072 barcodes, level at 4096, slower at 4800
+SHARED_LIMIT = 192 * 1024
+#: the most dynamic shared memory a block may take on the H100
+SHARED_MAX = 227 * 1024
+#: bytes of one bin of a decoder's shared histogram: a 4-byte slot per
+#: column, and two 8-byte fixed-point sums for a PAMLD decoder
+_WIDE_BIN_BYTES = 16
+
+
+@dataclass(frozen=True)
+class DecoderTable:
+    """The kernel's per-decoder table: one row (layout offset, bins, kind,
+    columns, first fixed-point sum or -1, shared-histogram bytes or 0) per
+    decoder; ``total`` counters in all, ``wide`` fixed-point sums,
+    ``shared_bytes`` the largest shared histogram."""
+
+    rows: tuple[tuple[int, int, int, int, int, int], ...]
+    total: int
+    wide: int
+    shared_bytes: int
+
+
+def decoder_table(instrument) -> DecoderTable:
+    rows = []
+    offset = wide = 0
+    for dec in instrument.decoders:
+        b1 = dec.barcode_count + 1
+        cols = len(counter_names(dec))
+        kind = _KIND.get(dec.algorithm, 0)
+        histogram = b1 * (4 * cols + (_WIDE_BIN_BYTES if kind == 2 else 0))
+        rows.append((offset, b1, kind, cols, wide if kind == 2 else -1,
+                     histogram if histogram <= SHARED_LIMIT else 0))
+        offset += b1 * cols
+        if kind == 2:
+            wide += 2 * b1
+    return DecoderTable(tuple(rows), offset, wide, max((row[5] for row in rows), default=0))
+
+
+def check_limits(instrument, n: int):
+    """Raise ValueError where a batch of `n` rows could leave the range in
+    which the integer sums are exact: a fixed-point confidence sum reaching
+    2^63 (n * 2^40), or an integer column reaching 2^24, past which its f32
+    value would round (n rows, each adding at most the decoder's width of
+    distance)."""
+    if n * CONFIDENCE_SCALE >= 2.0**63:
+        raise ValueError(f"counters: {n} rows could overflow the 64-bit fixed-point confidence sums")
+    for dec in instrument.decoders:
+        most = max(1, dec.width) if dec.algorithm in _KIND else 1
+        if n * most >= 2**24:
+            raise ValueError(f"counters: {n} rows could take a {dec.algorithm} decoder's counters past 2^24")
 
 
 def uncertain_any(instrument, decisions: Decisions, forced, want_uncertain: bool):
@@ -35,41 +97,35 @@ def uncertain_any(instrument, decisions: Decisions, forced, want_uncertain: bool
     return result
 
 
+def _bins(b1: int, index: torch.Tensor, columns: list[torch.Tensor]) -> list[torch.Tensor]:
+    """(b1,) int64 sums of each (N,) int64 column keyed by `index`."""
+    stacked = torch.zeros((b1, len(columns)), dtype=torch.int64, device=index.device)
+    stacked.index_add_(0, index.long(), torch.stack(columns, dim=1))
+    return [stacked[:, k] for k in range(len(columns))]
+
+
 def _decoder_counters_plain(dec, row: dict, valid: torch.Tensor) -> list[torch.Tensor]:
     b1 = dec.barcode_count + 1
-    decoded = row["decoded"].long()
-    branch = row["branch"]
-    pf = (~row["qcfail"]).to(torch.float32)
-    ones = torch.ones_like(pf)
-    columns = [ones, pf]
+    pf = valid & ~row["qcfail"]
+    columns = [valid.long(), pf.long()]
     if dec.algorithm in ("pamld", "mdd"):
-        distance = row["distance"].to(torch.float32)
-        mask = ((row["decoded"] > 0) & (row["distance"] > 0)).to(torch.float32)
-        columns += [distance * mask, distance * mask * pf]
+        counted = valid & (row["decoded"] > 0) & (row["distance"] > 0)
+        distance = torch.where(counted, row["distance"], 0).long()
+        columns += [distance, torch.where(pf, distance, 0)]
+    out = [s.to(torch.float32) for s in _bins(b1, row["decoded"], columns)]
     if dec.algorithm == "pamld":
-        passed = (branch == BRANCH_PASS).to(torch.float32)
-        confidence = row["confidence"]
-        columns += [confidence * passed, confidence * passed * pf]
-    weights = torch.stack(columns, dim=1) * valid[:, None]
-    stacked = torch.zeros((b1, len(columns)), dtype=torch.float32, device=pf.device)
-    stacked.index_add_(0, decoded, weights)
-    out = [stacked[:, k] for k in range(len(columns))]
-    if dec.algorithm == "pamld":
-        filters = torch.stack(
-            [
-                (branch == BRANCH_LOW_CONFIDENCE).to(torch.float32),
-                (branch == BRANCH_NOISE).to(torch.float32),
-            ],
-            dim=1,
-        ) * valid[:, None]
-        by_argmax = torch.zeros((b1, 2), dtype=torch.float32, device=pf.device)
-        by_argmax.index_add_(0, row["argmax"].long(), filters)
-        out += [by_argmax[:, 0], by_argmax[:, 1]]
+        branch = row["branch"]
+        passed = valid & (branch == BRANCH_PASS) & (row["confidence"] != 0)
+        q = torch.where(passed, torch.round(row["confidence"] * CONFIDENCE_SCALE).long(), 0)
+        sums = _bins(b1, row["decoded"], [q, torch.where(pf, q, 0)])
+        out += [s.to(torch.float32) * (1.0 / CONFIDENCE_SCALE) for s in sums]
+        filters = [(valid & (branch == BRANCH_LOW_CONFIDENCE)).long(), (valid & (branch == BRANCH_NOISE)).long()]
+        out += [s.to(torch.float32) for s in _bins(b1, row["argmax"], filters)]
     return out
 
 
 def counters_plain(instrument, decisions: Decisions, pad, forced, want_uncertain: bool):
-    valid = (~pad & ~uncertain_any(instrument, decisions, forced, want_uncertain)).to(torch.float32)
+    valid = ~pad & ~uncertain_any(instrument, decisions, forced, want_uncertain)
     parts = []
     for k, dec in enumerate(instrument.decoders):
         parts.extend(_decoder_counters_plain(dec, decisions.row(k), valid))
@@ -78,52 +134,46 @@ def counters_plain(instrument, decisions: Decisions, pad, forced, want_uncertain
     return torch.cat(parts)
 
 
-def counter_size(instrument) -> int:
-    return sum(
-        (dec.barcode_count + 1) * len(counter_names(dec)) for dec in instrument.decoders
-    )
+_TABLES: dict = {}
 
 
-def _launch(lib, instrument, decisions: Decisions, pad, forced, want_uncertain, out, stream):
-    """Run the kernel once per decoder (no device checks, no count);
-    returns the number of launches."""
-    from .build import check
-
-    d, n = decisions.decoded.shape
-    mask = uncertain_mask(instrument, want_uncertain)
-    chunks = -(-n // _CHUNK)
-    b1_max = max(dec.barcode_count + 1 for dec in instrument.decoders)
-    partial = torch.empty(max(chunks, 1) * b1_max * 8, dtype=torch.float32, device=out.device)
-    offset = 0
-    for k, dec in enumerate(instrument.decoders):
-        b1 = dec.barcode_count + 1
-        cols = len(counter_names(dec))
-        status = lib.phq_counters(
-            n, b1, _KIND.get(dec.algorithm, 0), cols,
-            decisions.decoded[k].data_ptr(), decisions.argmax[k].data_ptr(),
-            decisions.distance[k].data_ptr(), decisions.branch[k].data_ptr(),
-            decisions.confidence[k].data_ptr(), decisions.qcfail[k].data_ptr(),
-            pad.data_ptr(), forced.data_ptr() if want_uncertain else None,
-            decisions.uncertain.data_ptr(), mask, d, partial.data_ptr(),
-            out.data_ptr() + 4 * offset, stream,
-        )
-        check(status, "counters")
-        offset += b1 * cols
-    return len(instrument.decoders)
+def _device_table(table: DecoderTable, device) -> torch.Tensor:
+    """The table's rows as an int32 tensor on `device`, made once."""
+    key = (table.rows, str(device))
+    if key not in _TABLES:
+        _TABLES[key] = torch.tensor(table.rows, dtype=torch.int32).reshape(-1).to(device)
+    return _TABLES[key]
 
 
 def counters(instrument, decisions: Decisions, pad, forced, want_uncertain: bool):
     """K4: the flat (L,) f32 counter vector of this batch."""
+    check_limits(instrument, pad.shape[0])
     if pad.device.type == "cpu":
         return counters_plain(instrument, decisions, pad, forced, want_uncertain)
     if pad.device.type != "cuda":
         raise ValueError(f"counters: unsupported device {pad.device}")
     global launches
-    from .build import library
+    from .build import check, library
 
-    if len(instrument.decoders) > 32:
+    d, n = decisions.decoded.shape
+    if d > 32:
         raise NotImplementedError("counters: more than 32 decoders")
-    out = torch.empty(counter_size(instrument), dtype=torch.float32, device=pad.device)
-    stream = torch.cuda.current_stream(pad.device).cuda_stream
-    launches += _launch(library(), instrument, decisions, pad, forced, want_uncertain, out, stream)
-    return out
+    rows = [getattr(decisions, f) for f in ("decoded", "argmax", "distance", "branch", "confidence", "qcfail", "uncertain")]
+    if not all(t.is_contiguous() and t.device == pad.device for t in rows + [pad, forced]):
+        raise ValueError("counters: the decision rows, pad and forced must be contiguous and on one device")
+    table = decoder_table(instrument)
+    if table.total == 0:
+        return torch.zeros(0, dtype=torch.float32, device=pad.device)
+    # the fixed-point sums, then the counters (integers, made f32 in place)
+    scratch = torch.empty(table.wide + (table.total + 1) // 2, dtype=torch.int64, device=pad.device)
+    status = library().phq_counters(
+        n, d, table.total, table.wide, table.shared_bytes, _device_table(table, pad.device).data_ptr(),
+        decisions.decoded.data_ptr(), decisions.argmax.data_ptr(), decisions.distance.data_ptr(),
+        decisions.branch.data_ptr(), decisions.confidence.data_ptr(), decisions.qcfail.data_ptr(),
+        pad.data_ptr(), forced.data_ptr() if want_uncertain else None, decisions.uncertain.data_ptr(),
+        uncertain_mask(instrument, want_uncertain), scratch.data_ptr(),
+        torch.cuda.current_stream(pad.device).cuda_stream,
+    )
+    check(status, "counters")
+    launches += 1
+    return scratch[table.wide :].view(torch.float32)[: table.total]

@@ -8,9 +8,8 @@ observation_features on the card (the same integer and f32 operations as
 their plain versions); K1's uncertain flags equal to the plain version's
 (chip_smoke.check_flags: no row may differ below 10^5 rows), its integer
 outputs exact and confidences rtol 1e-5 on rows neither run flags
-uncertain (the sigma sums are added in another order); K4 byte-identical across two launches,
-integer columns exact against the plain version, confidence sums rtol
-1e-5 (sum order)."""
+uncertain (the sigma sums are added in another order); K4 byte-identical across two launches
+and to its plain version (integer and fixed-point sums)."""
 
 import numpy as np
 import pytest
@@ -31,6 +30,15 @@ def test_kernels_match_plain_versions(cuda):
     import chip_smoke
 
     chip_smoke.kernel_checks(n=16384, timed=False)
+
+
+@pytest.mark.cuda
+def test_counters_kernel_matches_plain(cuda):
+    """K4 byte-identical to its plain version and across two launches, on
+    every chip_smoke.K4_CASES case, at 131,072 rows and over 737,281 bins."""
+    from chip_smoke import K4_CASES, k4_edge_checks
+
+    assert k4_edge_checks() == len(K4_CASES) + 3
 
 
 @pytest.mark.cuda
