@@ -5,6 +5,9 @@
     python3 chip_smoke.py --nccl     # on a host with >= 2 cards: only the
                                      # PHENIQS_TP run over NCCL and its strict
                                      # reference
+    python3 chip_smoke.py --times T  # only the tile loop's device times, the
+                                     # package imported from tree T, a copy
+                                     # of another commit inside this checkout
 
 It drives four paths of the port, all on the flagship read layout
 (150 + 8 + 8 + 26 nt, RTA3 qualities): the flagship (PAMLD 96 sample
@@ -26,20 +29,26 @@ any failure propagates and the exit code is not 0:
                   layout and the general gather), on the MDD flagship (K6
                   byte-exact, also at tolerance 2 with quality masking and
                   short reads) and on a 4096-barcode cellular panel (K7);
-                  the uncertain flags of K1, K7 and the whole step held to
-                  the plain version's (check_flags), K4 twice and against
+                  K1 and K7 launched twice, byte-identical; the uncertain
+                  flags of K1, K7 and the whole step held to the plain
+                  version's (check_flags), K4 twice and against
                   its plain version byte for byte, the GPU-measured TPQ
                   epsilon, per-kernel device times of kernel, plain
                   version and, where one PyTorch call computes the same
                   function, that call; K4 on its edge cases (k4_edge_checks:
                   one bin, the last bin, argmax apart from decoded, extreme
                   confidences, no valid row, forced rows, N = 0, N not a
-                  multiple of a block's share, 737,281 bins) and its
-                  shared-memory threshold sweep; then every kernel of the
+                  multiple of a block's share, 737,281 bins, a batch K4
+                  sums in row slices) and its shared-memory threshold
+                  sweep; the tile loop as the card runs it (registers,
+                  spills and blocks/SM of each instance; the slices and
+                  waves of each panel, tile_loop_report); then every
+                  kernel of the
                   whitelist's decode step (K3, K7 at 737,280 barcodes, K4
                   over 737,281 bins, timed, K5's int32 index), where the
                   bound flags nearly every row and the decisions are held
-                  on all rows (at most WIDE_DISAGREE_LIMIT differ), K7
+                  on all rows (each differing row a near tie in f64, but
+                  for at most WIDE_DISAGREE_LIMIT of them), K7
                   timed once each; and K8 at the whitelist over P = 2 and
                   4 shards in one process, held to K7 and to its plain
                   version, per shard timed
@@ -65,8 +74,9 @@ any failure propagates and the exit code is not 0:
                   line, the kernels JSON line (with each kernel's bound from
                   its bytes and operations; K4's entry adds its peak
                   allocation, its time, bound, plain time, yardstick and
-                  peak at the whitelist, and the threshold sweep), then the
-                  last line
+                  peak at the whitelist, and the threshold sweep; K7's its
+                  slices, waves, blocks/SM and registers at the whitelist),
+                  then the last line
                   {"ok": true, "device": {"platform": "gpu", ...}}
 
 Imports nothing of JAX and nothing of the JAX package. Work files live in
@@ -109,10 +119,12 @@ FLAG_EXTRA_LIMIT = 1e-3
 RESOLVED_LIMIT = 1e-3
 #: at the whitelist's 737,280 barcodes the bound flags nearly every row,
 #: so kernel and plain version are held on every row: their decisions may
-#: differ on at most this share (a row whose best and runner-up, or whose
-#: confidence and threshold, lie within the rounding of 737,280 terms
-#: summed in two orders), and their confidences agree within
-#: WIDE_CONFIDENCE_RTOL where the decisions do and the rules force nothing
+#: differ on rows whose two best barcodes are a near tie in f64 (within the
+#: rounding of sigma's terms summed in two orders; near_tie_rows) and on at
+#: most this share of other rows (a confidence and its threshold within the
+#: rounding of 737,280 terms summed in two orders), and their confidences
+#: agree within WIDE_CONFIDENCE_RTOL where the decisions do and the rules
+#: force nothing
 WIDE_DISAGREE_LIMIT = 1e-4
 WIDE_CONFIDENCE_RTOL = 1e-4
 #: the most records of N_WHITELIST_STRICT whitelist reads on which the fast
@@ -310,6 +322,34 @@ def check_flags(what: str, mine, plain, forced, extra_limit: float = FLAG_EXTRA_
     return disagree, extra["kernel"]
 
 
+def near_tie_rows(what: str, dec, codes, quals, first, second, differs) -> str:
+    """The rows `differs` where two runs of one decoder disagree, each
+    witnessed in float64 (pamld.tie_gaps): a row whose two best barcodes
+    (0-based `first`, `second`) have posteriors within the window lambda *
+    2 d_sigma(read) of each other is a near tie, which two f32 orders of
+    sigma's terms may break either way (an exact tie where the f64 gap is
+    0). Every other differing row (a gap beyond the window, or the same
+    best barcode on both sides) counts against WIDE_DISAGREE_LIMIT of the
+    rows. Returns the line's report."""
+    import torch
+
+    from pheniqs_tpu_torch.kernels import pamld
+
+    n = differs.numel()
+    rows = (differs & (first != second) & (first >= 0) & (second >= 0)).nonzero()[:, 0]
+    gap, window = pamld.tie_gaps(dec, codes[rows], quals[rows], first[rows], second[rows])
+    near = gap <= window
+    exact = int((gap == 0).sum())
+    beyond = int(differs.sum()) - int(near.sum())
+    if beyond > int(n * WIDE_DISAGREE_LIMIT):
+        raise AssertionError(f"{what}: {beyond} of {n} rows differ beyond a near tie in f64"
+                             f" (at most {int(n * WIDE_DISAGREE_LIMIT)})")
+    ratio = float((gap / window)[near].max()) if bool(near.any()) else 0.0
+    return (f"{int(differs.sum())} rows differ: {exact} exact ties in f64, {int(near.sum()) - exact} more within"
+            f" lambda 2 d_sigma (largest gap {ratio:.3f} of the window), {beyond} beyond"
+            f" (at most {int(n * WIDE_DISAGREE_LIMIT)})")
+
+
 def flagship_blob(ontology, instrument, n: int, seed: int, short: float = 0.0, panels=None):
     """A j4 wire blob of `n` reads of the flagship layout drawn from the
     ontology's panels, packed as the engine packs it (codebook sensed from
@@ -398,13 +438,19 @@ def unpack_checks(n: int):
 def classify_pair(dec, instrument, codes, quals, lengths, qcfail, short, out, bounded=True) -> dict:
     """One decoder's classify kernel (K1, K7 or K6) against its plain
     version on the same tokens, each called once (CUDA-event times `ms`
-    and `plain_ms`). PAMLD: the uncertain flags held to each other
-    (check_flags); when `bounded`, integers exact and confidences rtol
-    1e-5 on rows neither run flags; else (a panel where the bound flags
-    nearly every row) on every row, decisions differing on at most
-    WIDE_DISAGREE_LIMIT of them and confidences rtol WIDE_CONFIDENCE_RTOL
-    where they agree and the row is not `short`. MDD: every output byte-identical. Returns
-    {max_abs_err (confidence), ms, plain_ms, line}."""
+    and `plain_ms`). PAMLD: launched twice, byte-identical; the uncertain
+    flags held to the plain version's (check_flags); when `bounded`,
+    integers exact and confidences rtol 1e-5 on rows neither run flags;
+    else (a panel where the bound flags nearly every row) on every row:
+    decisions differing from the plain version's only on near ties in f64
+    but for at most WIDE_DISAGREE_LIMIT of the rows (near_tie_rows), equal
+    on the rows neither flags, confidences rtol WIDE_CONFIDENCE_RTOL where
+    the decisions agree and the row is not `short`; and the same rules
+    against the tile loop's own arithmetic (pamld_classify_tile_order),
+    decisions differing on at most WIDE_DISAGREE_LIMIT of the rows. MDD:
+    every output byte-identical.
+    Returns {max_abs_err (confidence), ms, plain_ms, plain, differs_plain
+    (rows whose decisions differ from the plain version's), line}."""
     import torch
 
     from pheniqs_tpu_torch.kernels import mdd, pamld
@@ -416,7 +462,8 @@ def classify_pair(dec, instrument, codes, quals, lengths, qcfail, short, out, bo
         for key in ("decoded", "argmax", "distance", "branch", "confidence", "qcfail"):
             if not torch.equal(mine[key], plain[key]):
                 raise AssertionError(f"K6 {key} differs on {int((mine[key] != plain[key]).sum())} rows")
-        return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "plain": plain, "line": (
+        return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "plain": plain,
+                "differs_plain": torch.zeros(n, dtype=torch.bool, device=codes.device), "line": (
             f"byte-identical; decoded {float((plain['decoded'] > 0).float().mean()):.4%},"
             f" within tolerance {float((plain['distance'] > 0).float().mean()):.4%}"
         )}
@@ -424,24 +471,53 @@ def classify_pair(dec, instrument, codes, quals, lengths, qcfail, short, out, bo
     kwargs = dict(want_uncertain=True, eps=instrument.tpq_analytic_eps, short=short)
     mine, ms = once_ms(lambda: pamld.pamld_classify(
         dec, codes, quals, qcfail, tpq_constants=instrument.tpq_constants, out=out, **kwargs))
+    again = pamld.pamld_classify(dec, codes, quals, qcfail, tpq_constants=instrument.tpq_constants, **kwargs)
+    for key in mine:
+        if not torch.equal(mine[key], again[key]):
+            raise AssertionError(f"{name}: two launches differ in {key} on {int((mine[key] != again[key]).sum())} rows")
     plain, plain_ms = once_ms(lambda: pamld.pamld_classify_plain(dec, codes, quals, qcfail, **kwargs))
     disagree, extra = check_flags(name, mine["uncertain"], plain["uncertain"], short,
                                   FLAG_EXTRA_LIMIT if bounded else 1.0)
+    keys = ("decoded", "argmax", "distance", "branch", "qcfail")
+    differs_plain = torch.zeros_like(mine["uncertain"])
+    for key in keys:
+        differs_plain |= mine[key] != plain[key]
+    note = ""
     if bounded:
         held = ~(mine["uncertain"] | plain["uncertain"])
         rtol = 1e-5
     else:
+        # the plain version's contraction adds sigma's terms in another
+        # order than the tile loop, so two barcodes tied within the sums'
+        # rounding may rank apart: every row whose decisions differ is a
+        # near tie in f64, but for at most WIDE_DISAGREE_LIMIT of the rows
+        ties = near_tie_rows(f"{name} vs plain", dec, codes, quals, mine["argmax"].long() - 1,
+                             plain["argmax"].long() - 1, differs_plain)
+        settled = ~(mine["uncertain"] | plain["uncertain"])
+        for key in keys:
+            if not torch.equal(mine[key][settled], plain[key][settled]):
+                raise AssertionError(f"{name} {key} differs from the plain version on settled rows")
+        # and every row to the tile loop's own arithmetic in torch
+        twin = pamld.pamld_classify_tile_order(dec, codes, quals, qcfail, **kwargs)
         differs = torch.zeros_like(mine["uncertain"])
-        for key in ("decoded", "argmax", "distance", "branch", "qcfail"):
-            differs |= mine[key] != plain[key]
+        for key in keys:
+            differs |= mine[key] != twin[key]
         if int(differs.sum()) > int(n * WIDE_DISAGREE_LIMIT):
-            raise AssertionError(f"{name}: decisions differ on {int(differs.sum())} of {n} rows")
+            raise AssertionError(f"{name}: decisions differ from the tile-order version on {int(differs.sum())} of {n} rows")
+        same = ~differs & ~short
+        a, b = mine["confidence"][same], twin["confidence"][same]
+        if not torch.allclose(a, b, rtol=WIDE_CONFIDENCE_RTOL, atol=0.0):
+            raise AssertionError(f"{name} confidence beyond rtol {WIDE_CONFIDENCE_RTOL} of the tile-order version's")
+        twin_rel = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max()) if a.numel() else 0.0
         # confidences where the rules force nothing: a short or padding row
         # sits at about the same sigma from every barcode, and a sum of
-        # 737,280 near-equal terms rounds differently in the two orders
-        held = ~differs & ~short
+        # 737,280 near-equal terms rounds differently in two orders
+        held = ~differs_plain & ~short
         rtol = WIDE_CONFIDENCE_RTOL
-    for key in ("decoded", "argmax", "distance", "branch", "qcfail"):
+        note = (f"; against the plain version {ties}, settled rows {float(settled.float().mean()):.4%};"
+                f" against the tile-order version decisions differ on {int(differs.sum())} rows, confidence"
+                f" max relative {twin_rel:.3e}")
+    for key in keys:
         a, b = mine[key][held], plain[key][held]
         if not torch.equal(a, b):
             raise AssertionError(f"{name} {key} differs on {int((a != b).sum())} settled rows")
@@ -451,12 +527,13 @@ def classify_pair(dec, instrument, codes, quals, lengths, qcfail, short, out, bo
     err = float((a - b).abs().max()) if a.numel() else 0.0
     relative = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max()) if a.numel() else 0.0
     rows = "settled rows" if bounded else "unforced rows with the same decisions"
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "plain": plain, "line": (
-        f"{rows} {float(held.float().mean()):.4%}, flagged"
-        f" {float(mine['uncertain'].float().mean()):.4%} (short {float(short.float().mean()):.4%},"
-        f" beyond short {extra} rows), flag disagreement {disagree} of {n} rows,"
-        f" confidence max |diff| {err:.3e} (relative {relative:.3e}) on those rows"
-    )}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "plain": plain, "differs_plain": differs_plain,
+            "line": (
+                f"two launches byte-identical; {rows} {float(held.float().mean()):.4%}, flagged"
+                f" {float(mine['uncertain'].float().mean()):.4%} (short {float(short.float().mean()):.4%},"
+                f" beyond short {extra} rows), flag disagreement {disagree} of {n} rows,"
+                f" confidence max |diff| {err:.3e} (relative {relative:.3e}) on those rows{note}"
+            )}
 
 
 def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: float = 0.0, panels=None,
@@ -468,7 +545,8 @@ def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: flo
     version byte for byte on every column (k4_hold), K5 byte-exact, and
     the whole step: the uncertain byte held to the plain version's, the
     same decision bytes off the margins (when not `bounded`, on every row
-    but at most WIDE_DISAGREE_LIMIT of them). Returns K1's and K7's
+    but the classify kernels' own differences from their plain versions
+    and at most WIDE_DISAGREE_LIMIT more). Returns K1's and K7's
     one-call times and, with `timed`, each kernel's and the step's device
     times (K4's alone with `time_k4`)."""
     import torch
@@ -507,6 +585,7 @@ def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: flo
     kernel_rows = Decisions.zeros(len(instrument.decoders), n, cuda)
     qcfail = tokens.qcfail
     must_flag = tokens.forced.clone()
+    classify_differs = torch.zeros(n, dtype=torch.bool, device=cuda)
     slot = 0
     for k, dec in enumerate(instrument.decoders):
         row = kernel_rows.row(k)
@@ -522,6 +601,7 @@ def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: flo
         pair = classify_pair(dec, instrument, codes, quals, lengths, qcfail, short_rows, row,
                              bounded=bounded or not large)
         say(f"[kernels] {label} {dec.algorithm} B={dec.barcode_count} W={codes.shape[1]} N={n}: {pair['line']}")
+        classify_differs |= pair["differs_plain"]
         name = "mdd_classify" if dec.algorithm == "mdd" else "pamld_chunked" if large else "pamld_classify"
         ms, plain_ms = pair["ms"], pair["plain_ms"]
         if timed:
@@ -586,11 +666,16 @@ def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: flo
         if not (a[settled][:, exact] == b[settled][:, exact]).all():
             raise AssertionError(f"{label} decode step: kernel and plain decision bytes differ on settled rows")
     else:
-        differs = int((a[:, exact] != b[:, exact]).any(axis=1).sum())
-        if differs > int(n * WIDE_DISAGREE_LIMIT):
-            raise AssertionError(f"{label} decode step: decision bytes differ on {differs} of {n} rows")
-        say(f"[kernels] {label} decode step N={n}: decision bytes of kernels and plain differ on {differs}"
-            f" rows ({d2h['total']} bytes a read)")
+        # the step adds no difference beyond its classify kernels': their
+        # rows that differ from the plain versions (near ties, classify_pair)
+        differs = (a[:, exact] != b[:, exact]).any(axis=1)
+        beyond = int((differs & ~classify_differs.cpu().numpy()).sum())
+        if beyond > int(n * WIDE_DISAGREE_LIMIT):
+            raise AssertionError(f"{label} decode step: decision bytes differ on {beyond} of {n} rows beyond"
+                                 " the classify kernels' differences")
+        say(f"[kernels] {label} decode step N={n}: decision bytes of kernels and plain differ on {int(differs.sum())}"
+            f" rows, {beyond} beyond the classify kernels' differences from their plain versions"
+            f" ({d2h['total']} bytes a read)")
     if not torch.equal(flat, first):
         raise AssertionError(f"{label} decode step: counters differ from the stepwise kernels'")
     if timed:
@@ -695,6 +780,10 @@ K4_CASES = {
 }
 
 
+#: a batch past the rows one K4 launch sums on 16 nt decoders (2^24 / 16)
+K4_SLICED_ROWS = 2**20 + 1
+
+
 def k4_case(name: str, n: int | None = None, seed: int = 5, decoders=None):
     """The decisions of one K4 case, made with numpy from `seed`:
     (instrument, arrays), the instrument a stand-in with the decoders'
@@ -781,8 +870,10 @@ def k4_hold(label: str, instrument, rows, pad, forced, want_uncertain: bool = Tr
     second = counters.counters(instrument, rows, pad, forced, want_uncertain)
     plain = counters.counters_plain(instrument, rows, pad, forced, want_uncertain)
     torch.cuda.synchronize()
-    if counters.launches != before + 2:
-        raise AssertionError(f"{label}: K4 counted {counters.launches - before} launches for two calls")
+    slices = len(counters.row_slices(instrument, pad.shape[0]))
+    if counters.launches != before + 2 * slices:
+        raise AssertionError(f"{label}: K4 counted {counters.launches - before} launches for two calls"
+                             f" of {slices} row slices")
     if not torch.equal(first.view(torch.int32), second.view(torch.int32)):
         raise AssertionError(f"{label}: K4 is not deterministic: two launches differ")
     if not torch.equal(first.view(torch.int32), plain.view(torch.int32)):
@@ -794,9 +885,12 @@ def k4_edge_checks(large: int = N_KERNEL) -> int:
     """K4 held to its plain version byte for byte, two launches equal, on
     every K4_CASES case, on "one bin" and "ragged" at `large` rows (+ 37:
     not a multiple of a block's or a warp's share), with and without the
-    uncertain mask, and over the whitelist's 737,281 bins. Returns the
-    number of cases."""
+    uncertain mask, over the whitelist's 737,281 bins and on
+    K4_SLICED_ROWS rows, which K4 sums in row slices. Returns the number
+    of cases."""
     import torch
+
+    from pheniqs_tpu_torch.kernels import counters
 
     cuda = torch.device("cuda")
     cases = [(name, None) for name in K4_CASES] + [("one bin", large), ("ragged", large + 37)]
@@ -807,9 +901,15 @@ def k4_edge_checks(large: int = N_KERNEL) -> int:
     instrument, arrays = k4_case("whitelist bins", large, decoders=(
         ("pamld", 96, 16), ("pamld", 737_280, 16), ("naive", 0, 0)))
     out = k4_hold("K4 over 737,281 bins", instrument, *k4_tensors(arrays, cuda))
+    # past 2^24 / 16 rows on 16 nt decoders: two row slices, summed in float64
+    instrument, arrays = k4_case("row slices", K4_SLICED_ROWS, decoders=K4_FLAGSHIP)
+    sliced = k4_hold("K4 in row slices", instrument, *k4_tensors(arrays, cuda))
+    if sliced.dtype != torch.float64:
+        raise AssertionError(f"K4 in row slices returned {sliced.dtype}")
     say(f"[k4] byte-identical to the plain version and across two launches on {len(cases)} cases"
-        f" ({', '.join(name for name, _ in cases)}) and over 737,281 bins ({out.numel()} counters)")
-    return len(cases) + 1
+        f" ({', '.join(name for name, _ in cases)}), over 737,281 bins ({out.numel()} counters) and on"
+        f" {K4_SLICED_ROWS} rows in {len(counters.row_slices(instrument, K4_SLICED_ROWS))} row slices")
+    return len(cases) + 2
 
 
 def k4_threshold_sweep(n: int = N_KERNEL) -> list:
@@ -843,6 +943,37 @@ def k4_threshold_sweep(n: int = N_KERNEL) -> list:
     return rows
 
 
+def tile_loop_report(n: int, panels) -> dict:
+    """The tile loop as the card runs it (csrc/pamld.cu phq_pamld_info):
+    per instance (MAXW 16, 32, 64; classify, stage A, stage B) its
+    registers, local (spill) bytes and resident blocks per SM; threads,
+    reads and barcodes a step; and for each panel of `panels` at `n` reads
+    the slice plan: slices, blocks and waves. Returns the plan's keys of
+    the largest panel for the kernels line."""
+    import torch
+
+    from pheniqs_tpu_torch.kernels import pamld
+
+    cuda = torch.device("cuda")
+    for w in (16, 32, 64):
+        loop = pamld.tile_loop(w, cuda)
+        parts = ", ".join(f"{name} {blocks} blocks/SM, {registers} registers, {local} B local"
+                          for name, (blocks, registers, local) in loop.instances.items())
+        say(f"[kernels] tile loop MAXW={loop.maxw}: {loop.threads} threads x {loop.reads_per_block // loop.threads}"
+            f" reads a block, {loop.unroll} barcodes a step, tiles of {loop.tile} barcodes, {loop.sms} SMs; {parts}")
+    loop = pamld.tile_loop(16, cuda)
+    keys = {}
+    for barcodes in panels:
+        plan = pamld.plan_for(n, barcodes, 16, cuda)
+        slots = plan.slots if plan.slices > 1 else loop.sms * loop.instances["classify"][0]
+        waves = plan.read_blocks * plan.slices / slots
+        say(f"[kernels] B={barcodes} W=16 N={n}: {plan.slices} slices of {plan.tiles} tiles, {plan.read_blocks} x"
+            f" {plan.slices} blocks over {slots} resident slots, {waves:.2f} waves")
+        keys = {"slices": plan.slices, "waves": waves, "blocks_per_sm": slots // loop.sms,
+                "registers": loop.instances["stage B" if plan.slices > 1 else "classify"][1]}
+    return keys
+
+
 def kernel_checks(n: int = N_KERNEL, timed: bool = True) -> dict:
     """Each kernel against its plain version on the card, on the flagship
     (and a 1024-barcode cellular panel), the MDD flagship (and its
@@ -866,7 +997,7 @@ def kernel_checks(n: int = N_KERNEL, timed: bool = True) -> dict:
 
     results = step_checks("flagship", flagship_ontology(), n, seed=384, timed=timed)
     step_checks(f"flagship B={LARGE_PANEL_B}", flagship_ontology(cellular_barcodes=LARGE_PANEL_B),
-                n, seed=LARGE_PANEL_B, timed=False)
+                n, seed=LARGE_PANEL_B, timed=timed)
     mdd = step_checks("mdd flagship", mdd_flagship_ontology(), n, seed=96, timed=timed)
     if timed:
         results["mdd_classify"] = mdd["mdd_classify"]
@@ -911,6 +1042,22 @@ def whitelist_checks(whitelist: Whitelist, n: int = N_KERNEL) -> dict:
                        panels=whitelist.panels, instrument=whitelist.instrument, bounded=False, time_k4=True)
 
 
+def exact_row_min(dec, codes, quals, start: int, stop: int, chunk: int = 1024):
+    """The f64 row minimum of sigma over panel columns [start, stop): the
+    exact sums of the f32 terms F.G + qpos*U, in column chunks."""
+    import numpy as np
+    import torch
+
+    from pheniqs_tpu_torch.kernels import pamld
+
+    features = pamld.observation_features_plain(codes, quals).to(torch.float64)
+    best = torch.full((codes.shape[0],), float("inf"), dtype=torch.float64, device=codes.device)
+    for first in range(start, stop, chunk):
+        g = dec.likelihood_matrix[:, first : min(first + chunk, stop)].to(torch.float64)
+        best = torch.minimum(best, (features @ g).min(dim=1).values)
+    return best + (quals > 0).sum(dim=1).to(torch.float64) * float(np.float32(pamld.UNIFORM_BASE_QUALITY))
+
+
 def k8_checks(whitelist: Whitelist, n: int = N_KERNEL) -> dict:
     """K8 at the whitelist, in one process: the 737,280-barcode panel split
     into P = 2 and 4 shards on the card, every shard's stages launched here
@@ -920,12 +1067,15 @@ def k8_checks(whitelist: Whitelist, n: int = N_KERNEL) -> dict:
     differing on at most WIDE_DISAGREE_LIMIT of all rows, flags disagreeing
     on at most FLAG_DISAGREE_LIMIT of the rows, confidences within rtol
     1e-5 where settled (the totals are summed per shard, then across
-    shards); and to its plain version, the whole K8 on every row as K7 is
-    (WIDE_DISAGREE_LIMIT, WIDE_CONFIDENCE_RTOL) and each shard's merged
-    stages alone (shift rtol 1e-5, best index on all but
-    WIDE_DISAGREE_LIMIT of the rows). Per shard: the kernel's stages A + B
-    and the plain version's, one call each (CUDA events). Returns the
-    kernels-line entry of the P = 2 run (per shard)."""
+    shards); the whole K8 on every row as K7 is (classify_pair, unbounded:
+    to its plain version, near ties in f64 apart, and to the tile loop's
+    own arithmetic); and each shard's merged stages alone: the row minimum
+    of it and of the plain version each within d_sigma of the f64 one
+    (exact_row_min), the best index differing from the plain version's
+    only on near ties in f64 but for at most WIDE_DISAGREE_LIMIT of the
+    rows. Per shard: the kernel's stages A + B and the plain version's,
+    one call each (CUDA events). Returns the kernels-line entry of the
+    P = 2 run (per shard)."""
     import torch
 
     from pheniqs_tpu_torch.device import tp, wire
@@ -944,6 +1094,8 @@ def k8_checks(whitelist: Whitelist, n: int = N_KERNEL) -> dict:
     kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True,
                   eps=instrument.tpq_analytic_eps, short=short)
     k7, k7_ms = once_ms(lambda: pamld.pamld_classify(dec, codes, quals, qcfail, **kwargs))
+    twin = pamld.pamld_classify_tile_order(dec, codes, quals, qcfail, want_uncertain=True,
+                                           eps=instrument.tpq_analytic_eps, short=short)
     keys = ("decoded", "argmax", "distance", "branch", "qcfail")
     result = None
     for panels in K8_PANELS:
@@ -969,32 +1121,61 @@ def k8_checks(whitelist: Whitelist, n: int = N_KERNEL) -> dict:
         plain, plain_ms = once_ms(lambda: pamld.pamld_classify_sharded(
             dec, shards, codes, quals, qcfail, plain=True, **kwargs))
         check_flags(f"{label} vs plain", k8["uncertain"], plain["uncertain"], short, 1.0)
-        differs = torch.zeros_like(settled)
+        # every row as K7's (classify_pair): to the plain version, near ties
+        # in f64 apart, and to the tile loop's own arithmetic
+        differs_plain = torch.zeros_like(settled)
         for key in keys:
-            differs |= k8[key] != plain[key]
-        if int(differs.sum()) > int(n * WIDE_DISAGREE_LIMIT):
-            raise AssertionError(f"{label}: decisions differ from the plain version's on {int(differs.sum())} rows")
-        held = ~differs & ~short
+            differs_plain |= k8[key] != plain[key]
+        ties = near_tie_rows(f"{label} vs plain", dec, codes, quals, k8["argmax"].long() - 1,
+                             plain["argmax"].long() - 1, differs_plain)
+        held = ~differs_plain & ~short
         a, b = k8["confidence"][held], plain["confidence"][held]
         if not torch.allclose(a, b, rtol=WIDE_CONFIDENCE_RTOL, atol=0.0):
             raise AssertionError(f"{label}: confidence beyond rtol {WIDE_CONFIDENCE_RTOL} of the plain version's")
         err = float((a - b).abs().max())
+        differs = torch.zeros_like(settled)
+        for key in keys:
+            differs |= k8[key] != twin[key]
+        if int(differs.sum()) > int(n * WIDE_DISAGREE_LIMIT):
+            raise AssertionError(f"{label}: decisions differ from the tile-order version's on {int(differs.sum())} rows")
+        same_twin = ~differs & ~short
+        if not torch.allclose(k8["confidence"][same_twin], twin["confidence"][same_twin],
+                              rtol=WIDE_CONFIDENCE_RTOL, atol=0.0):
+            raise AssertionError(f"{label}: confidence beyond rtol {WIDE_CONFIDENCE_RTOL} of the tile-order version's")
+        settled = ~(k8["uncertain"] | plain["uncertain"])
+        for key in keys:
+            if not torch.equal(k8[key][settled], plain[key][settled]):
+                raise AssertionError(f"{label}: {key} differs from the plain version's on settled rows")
         say(f"[kernels] {label}: argmax = K7's on every row; decisions differ from K7's on {int((~same & ~short).sum())}"
-            f" unforced rows, flags on {disagree}; confidence vs K7 max relative {vs_k7:.3e}; vs plain"
-            f" decisions differ on {int(differs.sum())} rows, confidence max |diff| {err:.3e};"
-            f" whole K8 {k8_ms:.1f} ms (K7 {k7_ms:.1f} ms), plain {plain_ms:.1f} ms (one call each, CUDA events)")
+            f" unforced rows, flags on {disagree}; confidence vs K7 max relative {vs_k7:.3e}; vs plain {ties},"
+            f" confidence max |diff| {err:.3e}; vs the tile-order version decisions differ on {int(differs.sum())}"
+            f" rows; whole K8 {k8_ms:.1f} ms (K7 {k7_ms:.1f} ms), plain {plain_ms:.1f} ms (one call each, CUDA events)")
         shard = shards[0]
         (shift, merged), ms = once_ms(lambda: pamld.pamld_classify_sharded(
             dec, [shard], codes, quals, None, finish=False, **kwargs))
         (plain_shift, plain_merged), shard_plain_ms = once_ms(lambda: pamld.pamld_classify_sharded(
             dec, [shard], codes, quals, None, finish=False, plain=True, **kwargs))
-        if not torch.allclose(shift, plain_shift, rtol=1e-5, atol=0.0):
-            raise AssertionError(f"{label} shard 0: row minimum beyond rtol 1e-5 of the plain version's")
-        index_differs = int((merged["best0"] != plain_merged["best0"]).sum())
-        if index_differs > int(n * WIDE_DISAGREE_LIMIT):
-            raise AssertionError(f"{label} shard 0: best index differs from the plain version's on {index_differs} rows")
+        # the row minimum of each within d_sigma(read) of the f64 minimum of
+        # the same f32 terms, the bound the hybrid guarantee rests on (a
+        # relative tolerance does not fit: a near-perfect match's minimum is
+        # near 0, and the tile loop's sum M + C cancels two sums of about
+        # the read's quality sum)
+        exact = exact_row_min(dec, codes, quals, shard.base, shard.base + shard.count)
+        d_sigma = pamld.sigma_bound(codes.shape[1], 0.0, quals.to(torch.float64).sum(dim=1))
+        worst = {}
+        for side, value in (("kernel", shift), ("plain", plain_shift)):
+            worst[side] = float(((value.double() - exact).abs() / d_sigma).max())
+            if worst[side] > 1.0:
+                raise AssertionError(f"{label} shard 0: the {side} row minimum lies {worst[side]:.3f} d_sigma from"
+                                     " the f64 one")
+        beyond_rtol = int(((shift - plain_shift).abs() > 1e-5 * plain_shift.abs()).sum())
+        # the shard's best barcode of a read from another shard is one of
+        # many at the same distance: the two orders break those ties apart
+        index_ties = near_tie_rows(f"{label} shard 0 best index vs plain", dec, codes, quals, merged["best0"],
+                                   plain_merged["best0"], merged["best0"] != plain_merged["best0"])
         say(f"[kernels] {label} shard 0 ({shard.count} barcodes): stages A + B {ms:.1f} ms, plain {shard_plain_ms:.1f} ms"
-            f" (one call each, CUDA events); best index differs from plain on {index_differs} rows")
+            f" (one call each, CUDA events); row minimum within {worst['kernel']:.3e} d_sigma of the f64 one"
+            f" (plain {worst['plain']:.3e}; {beyond_rtol} rows beyond rtol 1e-5 of plain); best index: {index_ties}")
         if result is None:
             w = codes.shape[1]
             result = {"max_abs_err": err, "ms": ms, "plain_ms": shard_plain_ms, "library_ms": None,
@@ -1197,16 +1378,66 @@ def nccl_only(card: str, threads: int) -> int:
     return 0
 
 
+def kernel_times(card: str, tree: str):
+    """--times: the device time of one pamld_classify call (every launch
+    it makes) at N_KERNEL reads of the flagship, on its 96- and
+    384-barcode panels (K1), on a 1024-barcode cellular panel (K1) and on
+    a K7_PANEL one (K7), with the package imported from `tree`: two trees
+    compared in one call (parent, change, change, parent). One JSON line."""
+    import torch
+
+    from pheniqs_tpu_torch.device import wire
+    from pheniqs_tpu_torch.device.flagship import flagship_ontology
+    from pheniqs_tpu_torch.device.instrument import LARGE_PANEL_B, compile_instrument
+    from pheniqs_tpu_torch.device.step import DecodeStep
+    from pheniqs_tpu_torch.kernels import pamld, unpack
+
+    cuda = torch.device("cuda")
+    times = {}
+    for cellular in (384, LARGE_PANEL_B, K7_PANEL):
+        ontology = flagship_ontology(cellular_barcodes=cellular)
+        instrument = compile_instrument(ontology, cuda)
+        widths, *arrays = flagship_blob(ontology, instrument, N_KERNEL, seed=cellular)
+        blob, ccb, qcb = (torch.from_numpy(x).to(cuda) for x in arrays)
+        layout = DecodeStep(instrument, widths, wire.JOINT4, want_uncertain=True).layout
+        tokens = unpack.unpack_tokens_plain(instrument, layout, blob, ccb=ccb, qcb=qcb)
+        slot = 0
+        for dec in instrument.decoders:
+            if dec.algorithm not in ("pamld", "mdd"):
+                continue
+            codes, quals, _, short = tokens.observation(layout, slot)
+            slot += 1
+            if dec.algorithm == "pamld" and f"B={dec.barcode_count}" not in times:
+                times[f"B={dec.barcode_count}"] = device_ms(lambda: pamld.pamld_classify(
+                    dec, codes, quals, tokens.qcfail, tpq_constants=instrument.tpq_constants,
+                    want_uncertain=True, eps=instrument.tpq_analytic_eps, short=short))
+    say(json.dumps({"tree": tree, "card": card, "n": N_KERNEL, "device_ms": times}))
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description="Smoke run of the port on the GPU.")
+    parser.add_argument("--nccl", action="store_true", help="only the PHENIQS_TP run over NCCL (>= 2 cards)")
+    parser.add_argument("--times", metavar="TREE",
+                        help="only time the tile loop (kernel_times), the package imported from TREE")
+    args = parser.parse_args()
+    if args.times:
+        # a copy of another commit inside this checkout (.compare/ is
+        # ignored by git): its kernels build into its own _build/
+        tree = os.path.realpath(args.times)
+        if os.path.commonpath([tree, os.path.realpath(HERE)]) != os.path.realpath(HERE):
+            parser.error("--times TREE must lie inside this checkout")
+        sys.path.insert(0, tree)
     import torch
 
     import pheniqs_tpu_torch  # noqa: F401  (fails outside a checkout)
     from pheniqs_tpu_torch.device.flagship import flagship_ontology, mdd_flagship_ontology
+    from pheniqs_tpu_torch.device.instrument import LARGE_PANEL_B
 
-    parser = argparse.ArgumentParser(description="Smoke run of the port on the GPU.")
-    parser.add_argument("--nccl", action="store_true", help="only the PHENIQS_TP run over NCCL (>= 2 cards)")
-    args = parser.parse_args()
     card = environment()
+    if args.times:
+        build_kernels()
+        kernel_times(card, args.times)
+        return 0
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     threads = min(8, os.cpu_count() or 1)
@@ -1223,8 +1454,9 @@ def main() -> int:
         k4_edge_checks()
         sweep = k4_threshold_sweep()
         whitelist = Whitelist()
+        plan = tile_loop_report(N_KERNEL, (96, 384, LARGE_PANEL_B, K7_PANEL, whitelist.decoder.barcode_count))
         wide = whitelist_checks(whitelist)
-        measured["pamld_chunked"] = wide["pamld_chunked"]
+        measured["pamld_chunked"] = dict(wide["pamld_chunked"], extra=plan)
         k4_wide = wide["counters"]
         measured["counters"]["extra"] = {
             "peak_bytes": measured["counters"]["peak_bytes"],

@@ -1,6 +1,7 @@
 // K1 with K2 fused: the PAMLD classify of one decoder, per read, for a
-// panel of any size (K7 is the same kernel past 1024 barcodes), and K8,
-// the same tile loop over one shard of a panel split across ranks.
+// panel of any size; K7, the same tile loop past 1024 barcodes with the
+// panel split into slices across blocks; and K8, the same slices over one
+// shard of a panel split across ranks.
 //
 // Replaces the TPU program's pheniqs_tpu/device/classify.py:
 // pamld_classify_device (402-664: the likelihood contraction at 465-473,
@@ -10,46 +11,80 @@
 // its _posterior_chunked (240-332, reached at 444-451) with the row-gather
 // distance (575-582); observation_features (205-235) and
 // device/instrument.py:analytic_tpq (61-94) are folded into its prologue.
+// K8 replaces classify.py:_posterior_panel_sharded (335-399) with
+// device/tp.py:_local_posterior and tp_posterior (48-177).
 //
 // Bound on the H100: arithmetic on the CUDA cores. Per read it evaluates
 // sigma for all B barcodes twice (once for the row minimum, once for the
-// posterior), 2 compares and up to 2 f32 adds per (barcode, position):
-// about 4*B*W operations, 1.6 G for the flagship cellular panel
-// (B=384, W=16) and 6.2 T for a 737,280-barcode 16 nt whitelist per
-// 131072-read batch. The hybrid bound forbids the tensor cores here: sigma
-// must be an exact f32 sum (no TF32, no bf16 split), so the contraction
-// F.G of the reference is evaluated as the plain per-position sum it
-// stands for.
-// Design: one thread per read keeps its W observed codes and its two
-// feature terms per position in registers. The block loads the panel into
-// shared memory in tiles of up to 2048 barcodes (32 KB of codes at W=16,
-// plus their concentrations), read as warp-wide broadcasts; a panel of one
-// tile (every flagship panel) is loaded once, a larger one once per pass
-// (its codes, 11.8 MB at the whitelist, stay resident in the 50 MB L2).
-// Two passes over the panel, the row minimum first, then the posterior in
-// the frame of that minimum, rather than the reference's online rescale
-// once per 1024-barcode chunk: the same arithmetic (an online pass
-// evaluates each chunk twice too), no (N, B) sigma matrix in device
-// memory, no rescale error (the bound's gamma(2*ceil(B/1024)) term stays
-// a margin the kernel does not use), and a posterior that is bit-for-bit
-// the monolithic one at every B, whatever the tile. Ties resolve to the
-// first maximum (strict p > best update); the runner-up keeps duplicated
-// maxima, as _second_max does.
+// posterior): 4*N*B*(W+1) useful operations, 6.3 T for a 737,280-barcode
+// 16 nt whitelist per 131072-read batch, 98 ms at 67 TFLOP/s of f32. The
+// hybrid bound forbids the tensor cores here: sigma must be an exact f32
+// sum (no TF32, no bf16 split), so the contraction F.G of the reference is
+// evaluated as the plain per-position sum it stands for. The panel is no
+// limit: 11.8 MB at the whitelist, resident in the 50 MB L2, and a tile of
+// it costs ~10^3 cycles to copy against ~10^6 of arithmetic, so the tiles
+// are copied by the block's threads (no cp.async or TMA).
 //
-// K8 replaces classify.py:_posterior_panel_sharded (335-399) with
-// device/tp.py:_local_posterior and tp_posterior (48-177): the tile loop
-// runs over one shard's columns [base, base + local_b), split at the pass
-// boundary into launches (stage A the shard's row minimum, stage B its
-// partials in the frame of the merged minimum), with the merges across
-// shards between them (the port's device/tp.py, over a process group or
-// in one process); stage C is phq_pamld_finish on the merged posterior.
-// Padding columns (base + column >= B) are never visited, so they never
-// win. Bound as K1, per shard: about 4 * N * (B / P) * W operations.
+// What the design does about the arithmetic:
+//  - Slices. The grid is (read blocks x S slices); slice s takes a
+//    contiguous run of whole tiles of the panel (tiles [s*T/S, (s+1)*T/S)
+//    of T). S is derived from the shapes and the card (kernels/pamld.py
+//    slice_plan: the smallest S giving >= 4 waves of the resident block
+//    slots phq_pamld_info reports, each slice at least one tile), so a
+//    batch of any size fills the 132 SMs. Stage A (PHQ_MODE_SLICE_MIN)
+//    writes each slice's row minimum, stage B (PHQ_MODE_SLICE_POSTERIOR)
+//    takes the minimum over the slices in its prologue (exact in any order)
+//    and writes each slice's five partials in that frame, and the merge
+//    kernel (stage C) combines the slices in slice order by the rules of
+//    device/tp.py:reduce_partials (totals summed in slice order, MAX of the
+//    best, the first global index among its holders, MIN of sigma on the
+//    holder, MAX of the runner-up) and runs phq_pamld_finish. No atomics:
+//    two launches give the same bytes. K8 runs stages A and B on its shard
+//    with the same slices and the merge without the finish, before the
+//    merges across ranks. A panel of one tile (K1) runs both passes in one
+//    launch (PHQ_MODE_CLASSIFY), loading the tile once.
+//  - Packed compares. A read keeps its codes as 32-bit words, four
+//    positions each, holding a position's code only where it is A, C, G or
+//    T with q > 0 (elsewhere both feature terms are 0); a barcode row is
+//    read from shared memory in 16-byte broadcast loads, and one AND per
+//    word finds the matching positions of an all-strict barcode (a strict
+//    code has one bit). Only the matching positions' features are added.
+//  - Strictness folded per barcode. A tile load marks each barcode whose
+//    positions are all A, C, G or T. For such a barcode the strictness
+//    terms are the same W terms whatever the barcode, so the read sums them
+//    once with qpos*U: C = (sum of fs) + qpos*U, and sigma = M + C, M the
+//    match terms added in position order. A barcode with other codes takes
+//    the interleaved loop (per position the match, then the strictness
+//    term, then qpos*U). Either order sums the same at most 2W + 1 nonzero
+//    terms, and the hybrid bound (pheniqs_tpu/device/classify.py:57-84,
+//    gamma_{2W+2} * S_read) holds for any order of those terms: every
+//    summation tree of K terms errs by at most gamma_{K-1} times the sum of
+//    their magnitudes. Both passes call the same functions, and the row
+//    minimum of stage A is min(M) + C: rounding is monotone, so that is
+//    bit-equal to the least sigma of pass B.
+//  - Independent chains. Each thread takes PhqPamldShape::reads reads (2 at
+//    W <= 16) and each step of the barcode loop PHQ_PAMLD_UNROLL barcodes, so
+//    one shared-memory load feeds every read and each thread keeps several
+//    sigma sums in flight.
+// Kept from K1: an exact f32 sigma (products by 0 or 1 only, -fmad=false),
+// CUDA's expf, first-maximum ties (strict p > best), a runner-up that keeps
+// duplicated maxima (classify.py:_second_max), and padding columns never
+// visited.
 #include "common.cuh"
 #include <math.h>
 
 #define PHQ_PAMLD_THREADS 128
 #define PHQ_PAMLD_TILE_BYTES 32768
+// barcodes a step of the barcode loop takes
+#define PHQ_PAMLD_UNROLL 2
+
+// reads a thread takes: two while the register arrays stay small
+template <int MAXW>
+struct PhqPamldShape {
+  static constexpr int reads = MAXW <= 16 ? 2 : 1;
+  static constexpr int words = MAXW / 4;  // 32-bit words of a read or a barcode row
+  static constexpr int tile_b = PHQ_PAMLD_TILE_BYTES / MAXW;
+};
 
 struct PhqPamldParams {
   int n, B, W, ld_obs, short_stride;
@@ -94,24 +129,8 @@ static inline PhqPamldParams phq_pamld_params(const int* ints, const float* floa
   return p;
 }
 
-template <int MAXW>
-__device__ __forceinline__ float phq_sigma(
-    const uint8_t* e, int W, const int (&o)[MAXW], const float (&fm)[MAXW],
-    const float (&fs)[MAXW], float qpos_u) {
-  // F.G for one barcode in the order of the (5W, B) contraction: per
-  // position the match channel, then the strictness channel; every product
-  // is a feature times 0 or 1, so each term is exact and only the 2W + 1
-  // additions round (inside gamma(2W+2), classify.py:58-84)
-  float acc = 0.0f;
-#pragma unroll
-  for (int w = 0; w < MAXW; ++w) {
-    if (w < W) {
-      const int ew = e[w];
-      if (ew == o[w]) acc = acc + fm[w];
-      if (ew == 1 || ew == 2 || ew == 4 || ew == 8) acc = acc + fs[w];
-    }
-  }
-  return acc + qpos_u;
+__device__ __forceinline__ bool phq_strict(uint32_t c) {
+  return c == 1u || c == 2u || c == 4u || c == 8u;
 }
 
 // The 256-entry TPQ table in shared memory (needs a
@@ -125,45 +144,93 @@ __device__ __forceinline__ void phq_tpq_table(float* s_tpq, float* s_consts,
   }
 }
 
-// The per-read state a thread keeps in registers: the observed codes
-// and qualities, and the features (observation_features) fm = onehot4(o) *
-// (tpq - q), fs = strict(o) * (q - U), both gated on q > 0 (NUL convention).
+// The state a thread keeps for one read: its strict codes packed four to a
+// word (0 where the code is not A, C, G or T or q == 0), the match features
+// fm = tpq - q of those positions (observation_features; 0 elsewhere),
+// C = (sum of the strictness features fs = q - U, position order) + qpos*U,
+// and qpos*U alone for the interleaved loop.
 template <int MAXW>
 struct PhqRead {
-  int o[MAXW];
-  int qv[MAXW];
+  uint32_t code[PhqPamldShape<MAXW>::words];
   float fm[MAXW];
-  float fs[MAXW];
-  int qsum;
+  float c;
   float qpos_u;
 
   __device__ __forceinline__ void load(const PhqPamldParams& p, const uint8_t* oc,
                                        const uint8_t* oq, const float* s_tpq) {
     int qpos = 0;
-    qsum = 0;
+    float fs_sum = 0.0f;
+#pragma unroll
+    for (int k = 0; k < PhqPamldShape<MAXW>::words; ++k) code[k] = 0u;
 #pragma unroll
     for (int w = 0; w < MAXW; ++w) {
-      o[w] = 0;
-      qv[w] = 0;
       fm[w] = 0.0f;
-      fs[w] = 0.0f;
       if (w < p.W) {
-        const int c = oc[w];
+        const uint32_t cw = oc[w];
         const int q = oq[w];
-        o[w] = c;
-        qv[w] = q;
-        if ((c == 1 || c == 2 || c == 4 || c == 8) && q > 0) {
+        if (phq_strict(cw) && q > 0) {
           const float qf = (float)q;
+          code[w >> 2] |= cw << (8 * (w & 3));
           fm[w] = s_tpq[q] - qf;
-          fs[w] = qf - p.U;
+          fs_sum = fs_sum + (qf - p.U);
         }
         qpos += q > 0 ? 1 : 0;
-        qsum += q;
       }
     }
     qpos_u = (float)qpos * p.U;
+    c = fs_sum + qpos_u;
   }
 };
+
+// word k of a barcode row held as 16-byte vectors
+template <int K>
+__device__ __forceinline__ uint32_t phq_word(const uint4* e) {
+  const uint4 v = e[K >> 2];
+  return (K & 3) == 0 ? v.x : (K & 3) == 1 ? v.y : (K & 3) == 2 ? v.z : v.w;
+}
+
+// M: the match terms of an all-strict barcode row `e`, added in position
+// order (each a feature times 0 or 1: only the matching ones are added).
+template <int MAXW, int K>
+__device__ __forceinline__ float phq_match_from(const PhqRead<MAXW>& r, const uint4* e, int W,
+                                                float acc) {
+  if constexpr (K < PhqPamldShape<MAXW>::words) {
+    if (MAXW == 16 || 4 * K < W) {
+      const uint32_t x = phq_word<K>(e) & r.code[K];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (x & (0xFu << (8 * j))) acc = acc + r.fm[4 * K + j];
+      }
+    }
+    return phq_match_from<MAXW, K + 1>(r, e, W, acc);
+  } else {
+    return acc;
+  }
+}
+
+template <int MAXW>
+__device__ __forceinline__ float phq_match(const PhqRead<MAXW>& r, const uint4* e, int W) {
+  return phq_match_from<MAXW, 0>(r, e, W, 0.0f);
+}
+
+// sigma of a barcode with codes other than A, C, G and T: per position the
+// match term, then its strictness term (q - U, from the read's quality
+// byte `oq`), then qpos*U, as the (5W, B) contraction orders them.
+template <int MAXW>
+__device__ __forceinline__ float phq_sigma_mixed(const PhqRead<MAXW>& r, const uint8_t* e,
+                                                 const uint8_t* oq, const PhqPamldParams& p) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w) {
+    if (w < p.W) {
+      const uint32_t ew = e[w];
+      const uint32_t ow = (r.code[w >> 2] >> (8 * (w & 3))) & 0xFFu;
+      if (ew == ow) acc = acc + r.fm[w];
+      if (ow != 0u && phq_strict(ew)) acc = acc + ((float)oq[w] - p.U);
+    }
+  }
+  return acc + r.qpos_u;
+}
 
 // Running posterior of the second pass: prior-adjusted conditionals, their
 // sum, the first-max argmax (strict p > best) and the runner-up, which
@@ -190,15 +257,14 @@ struct PhqPosterior {
 
 // Everything after the posterior, for read i: the shifted noise term, the
 // decoded index, K2's Hamming and high-quality distance to the decoded
-// barcode `e` (a row of the panel), the noise and confidence branches, the
-// chained qcfail and, with want_uncertain, the derived per-read margins of
-// classify.py:625-663 in its f32 evaluation order (the port-measured TPQ
-// epsilon is in eps_w, the rescale term of the chunked posterior in
-// gamma_chunks).
-template <int MAXW>
+// barcode `e` (a row of the panel) from the read's code and quality rows,
+// the noise and confidence branches, the chained qcfail and, with
+// want_uncertain, the derived per-read margins of classify.py:625-663 in
+// its f32 evaluation order (the port-measured TPQ epsilon is in eps_w, the
+// rescale term of the chunked posterior in gamma_chunks).
 __device__ __forceinline__ void phq_pamld_finish(
-    const PhqPamldParams& p, int i, const PhqRead<MAXW>& r, const PhqPosterior& post,
-    float shift, const uint8_t* e, const uint8_t* qcfail_in,
+    const PhqPamldParams& p, int i, const PhqPosterior& post, float shift, const uint8_t* e,
+    const uint8_t* oc, const uint8_t* oq, const uint8_t* qcfail_in,
     const uint8_t* short_flags, int* decoded, int* argmax, int* distance,
     int8_t* branch, float* confidence, uint8_t* qcfail_out, uint8_t* uncertain) {
   const float noise_shifted = p.has_noise ? expf(p.log_noise - p.lam * shift) : 0.0f;
@@ -210,13 +276,13 @@ __device__ __forceinline__ void phq_pamld_finish(
 
   int raw_distance = 0;
   int raw_hq = 0;
-#pragma unroll
-  for (int w = 0; w < MAXW; ++w) {
-    if (w < p.W) {
-      const int mismatch = e[w] != r.o[w] ? 1 : 0;
-      raw_distance += mismatch;
-      raw_hq += (mismatch && r.qv[w] >= p.hq_threshold) ? 1 : 0;
-    }
+  int qsum = 0;
+  for (int w = 0; w < p.W; ++w) {
+    const int q = oq[w];
+    const int mismatch = e[w] != oc[w] ? 1 : 0;
+    raw_distance += mismatch;
+    raw_hq += (mismatch && q >= p.hq_threshold) ? 1 : 0;
+    qsum += q;
   }
   const int dist = decoded_any ? raw_distance : 0;
   const int hq_distance = decoded_any ? raw_hq : 0;
@@ -235,7 +301,7 @@ __device__ __forceinline__ void phq_pamld_finish(
   qcfail_out[i] = qc ? 1 : 0;
 
   if (p.want_uncertain) {
-    const float d_sigma = p.gamma_w * (2.0f * (float)r.qsum + p.term_w) + p.eps_w;
+    const float d_sigma = p.gamma_w * (2.0f * (float)qsum + p.term_w) + p.eps_w;
     const float rel_eps =
         p.safety * (((p.four_lam * d_sigma + p.gamma_b) + p.gamma_chunks) + p.eight_u);
     const float sigma_eps = p.safety * d_sigma + p.sigma_floor;
@@ -248,12 +314,14 @@ __device__ __forceinline__ void phq_pamld_finish(
   }
 }
 
-// The tensors of one launch. K1 and K7 read the whole panel from
-// `panel`/`conc` and write the decisions; K8's stages read one shard's
-// rows (`panel` + base * W, its concentrations from `conc`, B its real
-// columns) and write `shift` (stage A) or the five partial rows of
-// `partials` (stage B: total, best p, global best index, runner-up and
-// sigma of the best, each (N,), f32 but the int32 index).
+// The tensors of one launch. `panel`/`conc` are the columns the launch
+// walks (K8: its shard's, `base` their first global column); `shift` holds
+// S rows of row minima (stage A writes them; stage B and the merge read
+// `shift_rows` rows and take their minimum); `partials` holds S blocks of
+// the five partial rows (total, best p, global best index, runner-up and
+// sigma of the best, each (N,), f32 but the int32 index), which stage B
+// writes and the merge reads; the merge writes its five rows to `merged`
+// or, with the finish, the decisions.
 struct PhqPamldArgs {
   const uint8_t* obs_code;
   const uint8_t* obs_qual;
@@ -264,6 +332,7 @@ struct PhqPamldArgs {
   const float* tpq_consts;
   float* shift;
   int* partials;
+  int* merged;
   int* decoded;
   int* argmax;
   int* distance;
@@ -274,157 +343,303 @@ struct PhqPamldArgs {
   int base;
 };
 
-// What a launch of the tile loop does: the whole classify (K1, K7), or one
-// of K8's two passes over a panel shard, split at the pass boundary so
-// that the row minimum and the partials can be merged across shards
-// between them (pheniqs_tpu/device/classify.py:335-399).
+// What a launch of the tile loop does: the whole classify over a panel of
+// one slice (K1, and K7 where S = 1), or one of the two passes over S
+// slices of the columns (K7, K8's shards), split at the pass boundary so
+// that the slices' row minima, and in K8 the shards', are merged between
+// them (pheniqs_tpu/device/classify.py:335-399).
 #define PHQ_MODE_CLASSIFY 0
-#define PHQ_MODE_SHARD_MIN 1
-#define PHQ_MODE_SHARD_POSTERIOR 2
+#define PHQ_MODE_SLICE_MIN 1
+#define PHQ_MODE_SLICE_POSTERIOR 2
 
 // sigma of a padding column in the reference's sharded posterior: an empty
 // shard's row minimum
 #define PHQ_BIG_SIGMA 3.0e38f
+// the candidate index of a slice that does not hold the maximum
+#define PHQ_BIG_INDEX 0x40000000
+
+// Loads `count` barcode rows of W codes from `src` (global) into the tile:
+// each row as MAXW / 4 words (zero past W), the barcode's concentration
+// when `conc` is given, and whether all its codes are A, C, G or T.
+// Returns (to every thread) whether every barcode of the tile is.
+template <int MAXW>
+__device__ __forceinline__ bool phq_load_tile(const PhqPamldParams& p, const uint8_t* src,
+                                              const float* conc, int count, uint4* s_rows,
+                                              float* s_conc, uint8_t* s_strict) {
+  constexpr int WORDS = PhqPamldShape<MAXW>::words;
+  __syncthreads();  // every thread is done with the previous tile
+  const bool aligned = (p.W & 3) == 0;
+  bool all_strict = true;
+  for (int b = threadIdx.x; b < count; b += blockDim.x) {
+    const uint8_t* row = src + (size_t)b * p.W;
+    uint32_t words[WORDS];
+    bool strict = true;
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) {
+      uint32_t v = 0u;
+      if (4 * k < p.W) {
+        if (aligned) {
+          v = *(const uint32_t*)(row + 4 * k);
+        } else {
+          for (int j = 0; j < 4 && 4 * k + j < p.W; ++j) v |= (uint32_t)row[4 * k + j] << (8 * j);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (4 * k + j < p.W) strict = strict && phq_strict((v >> (8 * j)) & 0xFFu);
+        }
+      }
+      words[k] = v;
+    }
+#pragma unroll
+    for (int k = 0; k < WORDS / 4; ++k) {
+      s_rows[b * (WORDS / 4) + k] =
+          make_uint4(words[4 * k], words[4 * k + 1], words[4 * k + 2], words[4 * k + 3]);
+    }
+    s_strict[b] = strict ? 1 : 0;
+    all_strict = all_strict && strict;
+    if (conc != nullptr) s_conc[b] = conc[b];
+  }
+  return __syncthreads_and(all_strict ? 1 : 0) != 0;
+}
+
+// sigma of barcode b of the tile for read r
+template <int MAXW>
+__device__ __forceinline__ float phq_sigma(const PhqRead<MAXW>& r, const uint4* s_rows,
+                                           const uint8_t* s_strict, int b, const uint8_t* oq,
+                                           const PhqPamldParams& p) {
+  constexpr int V = PhqPamldShape<MAXW>::words / 4;
+  const uint4* e = s_rows + b * V;
+  if (s_strict[b]) return phq_match<MAXW>(r, e, p.W) + r.c;
+  return phq_sigma_mixed<MAXW>(r, (const uint8_t*)e, oq, p);
+}
 
 template <int MAXW, int MODE>
 __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
-    PhqPamldParams p, PhqPamldArgs a, int tile_b) {
+    PhqPamldParams p, PhqPamldArgs a, int tile_b, int shift_rows) {
+  using Shape = PhqPamldShape<MAXW>;
+  constexpr int R = Shape::reads;
+  constexpr int V = Shape::words / 4;  // 16-byte vectors of a barcode row
+  constexpr int U = PHQ_PAMLD_UNROLL;
   PHQ_DYNAMIC_SMEM(smem);
-  float* s_tpq = (float*)smem;                      // 256
-  float* s_conc = s_tpq + 256;                      // tile_b
-  uint8_t* s_panel = (uint8_t*)(s_conc + tile_b);   // tile_b * W
+  float* s_tpq = (float*)smem;                                // 256
+  float* s_conc = s_tpq + 256;                                // tile_b, rounded up to 4
+  uint4* s_rows = (uint4*)(s_conc + ((tile_b + 3) & ~3));     // tile_b * V
+  uint8_t* s_strict = (uint8_t*)(s_rows + (size_t)tile_b * V);  // tile_b
   __shared__ float s_consts[24];
   phq_tpq_table(s_tpq, s_consts, a.tpq_consts);
   __syncthreads();
 
-  // every thread of the block takes part in the tile loads; a thread past
-  // the last read computes on the last read and writes nothing
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = i < p.n;
-  const int row = active ? i : p.n - 1;
-  PhqRead<MAXW> r;
-  r.load(p, a.obs_code + (size_t)row * p.ld_obs, a.obs_qual + (size_t)row * p.ld_obs, s_tpq);
+  // this block's slice of the columns: whole tiles [s*T/S, (s+1)*T/S)
+  const int tiles = (p.B + tile_b - 1) / tile_b;
+  const int col0 = (int)((long long)blockIdx.y * tiles / gridDim.y) * tile_b;
+  const int col1 = min((int)((long long)(blockIdx.y + 1) * tiles / gridDim.y) * tile_b, p.B);
 
-  // a panel of one tile is loaded once, for both passes
-  const bool resident = tile_b >= p.B;
-  // panel codes are copied as 32-bit words when rows are whole words
-  // (the tile start t0 * W is then a multiple of 4 as well)
-  const bool words = (p.W & 3) == 0;
-  const int first_pass = MODE == PHQ_MODE_SHARD_POSTERIOR ? 1 : 0;
-  const int last_pass = MODE == PHQ_MODE_SHARD_MIN ? 0 : 1;
-  float shift = MODE == PHQ_MODE_SHARD_POSTERIOR ? a.shift[row] : INFINITY;
-  PhqPosterior post;
+  // every thread takes part in the tile loads; a read past the last one is
+  // computed on the last read and writes nothing
+  const size_t n = (size_t)p.n;
+  int row[R];
+  PhqRead<MAXW> r[R];
+  float mmin[R], smin[R], shift[R];
+  PhqPosterior post[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int i = (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x;
+    row[k] = i < p.n ? i : p.n - 1;
+    r[k].load(p, a.obs_code + (size_t)row[k] * p.ld_obs, a.obs_qual + (size_t)row[k] * p.ld_obs,
+              s_tpq);
+    mmin[k] = INFINITY;
+    smin[k] = INFINITY;
+    shift[k] = INFINITY;
+    if (MODE == PHQ_MODE_SLICE_POSTERIOR) {
+      for (int s = 0; s < shift_rows; ++s) shift[k] = fminf(shift[k], a.shift[s * n + row[k]]);
+    }
+  }
+
+  // a slice of one tile is loaded once, for both passes
+  const bool resident = col1 - col0 <= tile_b;
+  const int first_pass = MODE == PHQ_MODE_SLICE_POSTERIOR ? 1 : 0;
+  const int last_pass = MODE == PHQ_MODE_SLICE_MIN ? 0 : 1;
+  bool all_strict = false;
   for (int pass = first_pass; pass <= last_pass; ++pass) {
-    for (int t0 = 0; t0 < p.B; t0 += tile_b) {
-      const int count = min(tile_b, p.B - t0);
+    for (int t0 = col0; t0 < col1; t0 += tile_b) {
+      const int count = min(tile_b, col1 - t0);
       if (pass == first_pass || !resident) {
-        __syncthreads();  // every thread is done with the previous tile
-        const uint8_t* src = a.panel + (size_t)t0 * p.W;
-        if (words) {
-          const uint32_t* src4 = (const uint32_t*)src;
-          uint32_t* dst4 = (uint32_t*)s_panel;
-          for (int t = threadIdx.x; t < (count * p.W) >> 2; t += blockDim.x) dst4[t] = src4[t];
-        } else {
-          for (int t = threadIdx.x; t < count * p.W; t += blockDim.x) s_panel[t] = src[t];
-        }
-        if (pass == 1 || resident) {
-          for (int t = threadIdx.x; t < count; t += blockDim.x) s_conc[t] = a.conc[t0 + t];
-        }
-        __syncthreads();
+        const bool conc = pass == 1 || (resident && MODE == PHQ_MODE_CLASSIFY);
+        all_strict = phq_load_tile<MAXW>(p, a.panel + (size_t)t0 * p.W,
+                                         conc ? a.conc + t0 : nullptr, count, s_rows, s_conc,
+                                         s_strict);
       }
       if (pass == 0) {
-        for (int b = 0; b < count; ++b) {
-          shift = fminf(shift, phq_sigma<MAXW>(s_panel + b * p.W, p.W, r.o, r.fm, r.fs, r.qpos_u));
+        if (all_strict) {
+          int b = 0;
+          for (; b + U <= count; b += U) {
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+#pragma unroll
+              for (int k = 0; k < R; ++k) {
+                mmin[k] = fminf(mmin[k], phq_match<MAXW>(r[k], s_rows + (b + u) * V, p.W));
+              }
+            }
+          }
+          for (; b < count; ++b) {
+#pragma unroll
+            for (int k = 0; k < R; ++k) {
+              mmin[k] = fminf(mmin[k], phq_match<MAXW>(r[k], s_rows + b * V, p.W));
+            }
+          }
+        } else {
+          for (int b = 0; b < count; ++b) {
+            const uint4* e = s_rows + b * V;
+            if (s_strict[b]) {
+#pragma unroll
+              for (int k = 0; k < R; ++k) mmin[k] = fminf(mmin[k], phq_match<MAXW>(r[k], e, p.W));
+            } else {
+#pragma unroll
+              for (int k = 0; k < R; ++k) {
+                const uint8_t* oq = a.obs_qual + (size_t)row[k] * p.ld_obs;
+                smin[k] = fminf(smin[k], phq_sigma_mixed<MAXW>(r[k], (const uint8_t*)e, oq, p));
+              }
+            }
+          }
         }
       } else {
-        for (int b = 0; b < count; ++b) {
-          const float s = phq_sigma<MAXW>(s_panel + b * p.W, p.W, r.o, r.fm, r.fs, r.qpos_u);
-          post.add(expf(p.lam * (s - shift)) * s_conc[b], s, t0 + b);
+        int b = 0;
+        if (all_strict) {
+          for (; b + U <= count; b += U) {
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              const float conc = s_conc[b + u];
+#pragma unroll
+              for (int k = 0; k < R; ++k) {
+                const float s = phq_match<MAXW>(r[k], s_rows + (b + u) * V, p.W) + r[k].c;
+                post[k].add(expf(p.lam * (s - shift[k])) * conc, s, t0 + b + u);
+              }
+            }
+          }
+        }
+        for (; b < count; ++b) {
+          const float conc = s_conc[b];
+#pragma unroll
+          for (int k = 0; k < R; ++k) {
+            const uint8_t* oq = a.obs_qual + (size_t)row[k] * p.ld_obs;
+            const float s = phq_sigma<MAXW>(r[k], s_rows, s_strict, b, oq, p);
+            post[k].add(expf(p.lam * (s - shift[k])) * conc, s, t0 + b);
+          }
         }
       }
     }
+    if (pass == 0) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) shift[k] = fminf(mmin[k] + r[k].c, smin[k]);
+    }
   }
-  if (!active) return;
-  if (MODE == PHQ_MODE_SHARD_MIN) {
-    a.shift[i] = fminf(shift, PHQ_BIG_SIGMA);
-    return;
+
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int i = (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x;
+    if (i >= p.n) continue;
+    if (MODE == PHQ_MODE_SLICE_MIN) {
+      a.shift[blockIdx.y * n + i] = fminf(shift[k], PHQ_BIG_SIGMA);
+    } else if (MODE == PHQ_MODE_SLICE_POSTERIOR) {
+      int* out = a.partials + blockIdx.y * 5 * n;
+      float* rows = (float*)out;
+      rows[i] = post[k].total;
+      rows[n + i] = post[k].best;
+      out[2 * n + i] = a.base + post[k].best0;
+      rows[3 * n + i] = post[k].second;
+      rows[4 * n + i] = post[k].sigma_best;
+    } else {
+      // K2 reads the decoded barcode's row from device memory
+      phq_pamld_finish(p, i, post[k], shift[k], a.panel + (size_t)post[k].best0 * p.W,
+                       a.obs_code + (size_t)i * p.ld_obs, a.obs_qual + (size_t)i * p.ld_obs,
+                       a.qcfail_in, a.short_flags, a.decoded, a.argmax, a.distance, a.branch,
+                       a.confidence, a.qcfail_out, a.uncertain);
+    }
   }
-  if (MODE == PHQ_MODE_SHARD_POSTERIOR) {
-    const size_t n = (size_t)p.n;
-    float* rows = (float*)a.partials;
-    rows[i] = post.total;
-    rows[n + i] = post.best;
-    a.partials[2 * n + i] = a.base + post.best0;
-    rows[3 * n + i] = post.second;
-    rows[4 * n + i] = post.sigma_best;
-    return;
-  }
-  // K2 reads the decoded barcode's row from device memory
-  phq_pamld_finish<MAXW>(p, i, r, post, shift, a.panel + (size_t)post.best0 * p.W,
-                         a.qcfail_in, a.short_flags, a.decoded, a.argmax, a.distance,
-                         a.branch, a.confidence, a.qcfail_out, a.uncertain);
 }
 
-// K8's stage C: everything after the posterior (phq_pamld_finish), from the
-// merged shift and partials of every shard; `a.panel` is the whole panel,
-// for K2's row of the decoded barcode.
-template <int MAXW>
-__global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_merged_kernel(
-    PhqPamldParams p, PhqPamldArgs a) {
-  __shared__ float s_tpq[256];
-  __shared__ float s_consts[24];
-  phq_tpq_table(s_tpq, s_consts, a.tpq_consts);
-  __syncthreads();
+// Stage C: per read, the `slices` blocks of partials merged in slice order
+// (device/tp.py:reduce_partials), in the frame of the minimum over the
+// `shift_rows` rows of `shift`; then, with `finish`, everything after the
+// posterior (phq_pamld_finish, `a.panel` the whole panel for K2's row),
+// else the merged five rows to `merged` (K8's shard, before the merge
+// across ranks).
+__global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_merge_kernel(
+    PhqPamldParams p, PhqPamldArgs a, int slices, int shift_rows, int finish) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
-  PhqRead<MAXW> r;
-  r.load(p, a.obs_code + (size_t)i * p.ld_obs, a.obs_qual + (size_t)i * p.ld_obs, s_tpq);
   const size_t n = (size_t)p.n;
   const float* rows = (const float*)a.partials;
+  const size_t block = 5 * n;
   PhqPosterior post;
-  post.total = rows[i];
   post.best = rows[n + i];
-  post.best0 = a.partials[2 * n + i];
-  post.second = rows[3 * n + i];
-  post.sigma_best = rows[4 * n + i];
-  phq_pamld_finish<MAXW>(p, i, r, post, a.shift[i], a.panel + (size_t)post.best0 * p.W,
-                         a.qcfail_in, a.short_flags, a.decoded, a.argmax, a.distance,
-                         a.branch, a.confidence, a.qcfail_out, a.uncertain);
+  for (int s = 1; s < slices; ++s) post.best = fmaxf(post.best, rows[s * block + n + i]);
+  post.best0 = PHQ_BIG_INDEX;
+  for (int s = 0; s < slices; ++s) {
+    if (rows[s * block + n + i] >= post.best) post.best0 = min(post.best0, a.partials[s * block + 2 * n + i]);
+  }
+  post.total = rows[i];
+  post.sigma_best = PHQ_BIG_SIGMA;
+  post.second = -INFINITY;
+  for (int s = 0; s < slices; ++s) {
+    if (s > 0) post.total = post.total + rows[s * block + i];
+    const bool holder = a.partials[s * block + 2 * n + i] == post.best0;
+    if (holder) post.sigma_best = fminf(post.sigma_best, rows[s * block + 4 * n + i]);
+    post.second = fmaxf(post.second, holder ? rows[s * block + 3 * n + i] : rows[s * block + n + i]);
+  }
+  if (!finish) {
+    float* out = (float*)a.merged;
+    out[i] = post.total;
+    out[n + i] = post.best;
+    a.merged[2 * n + i] = post.best0;
+    out[3 * n + i] = post.second;
+    out[4 * n + i] = post.sigma_best;
+    return;
+  }
+  float shift = INFINITY;
+  for (int s = 0; s < shift_rows; ++s) shift = fminf(shift, a.shift[s * n + i]);
+  phq_pamld_finish(p, i, post, shift, a.panel + (size_t)post.best0 * p.W,
+                   a.obs_code + (size_t)i * p.ld_obs, a.obs_qual + (size_t)i * p.ld_obs,
+                   a.qcfail_in, a.short_flags, a.decoded, a.argmax, a.distance, a.branch,
+                   a.confidence, a.qcfail_out, a.uncertain);
+}
+
+// dynamic shared memory of a tile of `tile_b` barcodes
+static size_t phq_pamld_smem(int maxw, int tile_b) {
+  return 256 * sizeof(float) + (size_t)((tile_b + 3) & ~3) * sizeof(float) +
+         (size_t)tile_b * maxw + (size_t)tile_b;
 }
 
 template <int MAXW, int MODE>
-static int phq_pamld_launch(const PhqPamldParams& p, const PhqPamldArgs& a,
-                            cudaStream_t stream) {
-  // tiles of 32 KB of codes, a multiple of 128 barcodes, at most 2048
-  int tile_b = (PHQ_PAMLD_TILE_BYTES / p.W) & ~127;
-  tile_b = tile_b < 128 ? 128 : (tile_b > 2048 ? 2048 : tile_b);
-  tile_b = tile_b < p.B ? tile_b : (p.B > 0 ? p.B : 1);
-  const size_t smem = 256 * sizeof(float) + (size_t)tile_b * sizeof(float) +
-                      (size_t)tile_b * p.W;
+static int phq_pamld_launch(const PhqPamldParams& p, const PhqPamldArgs& a, int slices,
+                            int shift_rows, cudaStream_t stream) {
+  using Shape = PhqPamldShape<MAXW>;
+  // a panel of one tile at most is resident: its tile is the panel
+  int tile_b = Shape::tile_b;
+  if (MODE == PHQ_MODE_CLASSIFY && p.B < tile_b) tile_b = p.B > 0 ? p.B : 1;
+  const size_t smem = phq_pamld_smem(MAXW, tile_b);
   // one name for the instance: a template argument list's comma would
   // split the launch macro's arguments
-  void (*kernel)(PhqPamldParams, PhqPamldArgs, int) = phq_pamld_kernel<MAXW, MODE>;
-  if (smem > 48 * 1024) {
-    cudaError_t status = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (status != cudaSuccess) return (int)status;
-  }
-  const int blocks = (p.n + PHQ_PAMLD_THREADS - 1) / PHQ_PAMLD_THREADS;
-  PHQ_LAUNCH(kernel, blocks, PHQ_PAMLD_THREADS, smem, stream)(p, a, tile_b);
+  void (*kernel)(PhqPamldParams, PhqPamldArgs, int, int) = phq_pamld_kernel<MAXW, MODE>;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int per_block = PHQ_PAMLD_THREADS * Shape::reads;
+  const dim3 grid((p.n + per_block - 1) / per_block, slices);
+  PHQ_LAUNCH(kernel, grid, PHQ_PAMLD_THREADS, smem, stream)(p, a, tile_b, shift_rows);
   return (int)cudaGetLastError();
 }
 
 template <int MODE>
-static int phq_pamld_dispatch(const PhqPamldParams& p, const PhqPamldArgs& a,
-                              cudaStream_t s) {
+static int phq_pamld_dispatch(const PhqPamldParams& p, const PhqPamldArgs& a, int slices,
+                              int shift_rows, cudaStream_t s) {
   if (p.n <= 0) return (int)cudaGetLastError();
-  if (p.W <= 16) return phq_pamld_launch<16, MODE>(p, a, s);
-  if (p.W <= 32) return phq_pamld_launch<32, MODE>(p, a, s);
-  if (p.W <= 64) return phq_pamld_launch<64, MODE>(p, a, s);
+  if (slices < 1 || (MODE == PHQ_MODE_CLASSIFY && slices != 1)) return (int)cudaErrorInvalidValue;
+  if (p.W <= 16) return phq_pamld_launch<16, MODE>(p, a, slices, shift_rows, s);
+  if (p.W <= 32) return phq_pamld_launch<32, MODE>(p, a, slices, shift_rows, s);
+  if (p.W <= 64) return phq_pamld_launch<64, MODE>(p, a, slices, shift_rows, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// K1 and K7: ints and floats as phq_pamld_params reads them
+// K1, and K7 over one slice: ints and floats as phq_pamld_params reads them
 PHQ_EXPORT int phq_pamld(
     const int* ints, const float* floats, const void* obs_code,
     const void* obs_qual, const void* qcfail_in, const void* short_flags,
@@ -447,15 +662,15 @@ PHQ_EXPORT int phq_pamld(
   a.confidence = (float*)confidence;
   a.qcfail_out = (uint8_t*)qcfail_out;
   a.uncertain = (uint8_t*)uncertain;
-  return phq_pamld_dispatch<PHQ_MODE_CLASSIFY>(p, a, (cudaStream_t)stream);
+  return phq_pamld_dispatch<PHQ_MODE_CLASSIFY>(p, a, 1, 0, (cudaStream_t)stream);
 }
 
-// K8's stages A (mode PHQ_MODE_SHARD_MIN: writes `shift`) and B
-// (PHQ_MODE_SHARD_POSTERIOR: reads the merged `shift`, writes `partials`)
-// over one shard: `panel` and `conc` point at the shard's first column,
-// ints[1] is its count of real columns and `base` its first global column.
-PHQ_EXPORT int phq_pamld_shard(
-    const int* ints, const float* floats, int mode, int base,
+// Stages A (mode PHQ_MODE_SLICE_MIN: writes `slices` rows of `shift`) and B
+// (PHQ_MODE_SLICE_POSTERIOR: reads `shift_rows` rows of `shift`, writes
+// `slices` blocks of `partials`) over the columns of `panel` and `conc`:
+// ints[1] is their count, `base` the global index of the first (K8's shard).
+PHQ_EXPORT int phq_pamld_slices(
+    const int* ints, const float* floats, int mode, int base, int slices, int shift_rows,
     const void* obs_code, const void* obs_qual, const void* panel,
     const void* conc, const void* tpq_consts, void* shift, void* partials,
     void* stream) {
@@ -469,41 +684,36 @@ PHQ_EXPORT int phq_pamld_shard(
   a.shift = (float*)shift;
   a.partials = (int*)partials;
   a.base = base;
-  if (mode == PHQ_MODE_SHARD_MIN) return phq_pamld_dispatch<PHQ_MODE_SHARD_MIN>(p, a, (cudaStream_t)stream);
-  if (mode == PHQ_MODE_SHARD_POSTERIOR) {
-    return phq_pamld_dispatch<PHQ_MODE_SHARD_POSTERIOR>(p, a, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode == PHQ_MODE_SLICE_MIN) return phq_pamld_dispatch<PHQ_MODE_SLICE_MIN>(p, a, slices, 0, s);
+  if (mode == PHQ_MODE_SLICE_POSTERIOR) {
+    return phq_pamld_dispatch<PHQ_MODE_SLICE_POSTERIOR>(p, a, slices, shift_rows, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <int MAXW>
-static int phq_pamld_merged_launch(const PhqPamldParams& p, const PhqPamldArgs& a,
-                                   cudaStream_t stream) {
-  const int blocks = (p.n + PHQ_PAMLD_THREADS - 1) / PHQ_PAMLD_THREADS;
-  PHQ_LAUNCH(phq_pamld_merged_kernel<MAXW>, blocks, PHQ_PAMLD_THREADS, 0, stream)(p, a);
-  return (int)cudaGetLastError();
-}
-
-// K8's stage C: the decisions from the merged `shift` and `partials`;
-// `panel` is the whole (B, W) panel.
-PHQ_EXPORT int phq_pamld_merged(
-    const int* ints, const float* floats, const void* obs_code,
-    const void* obs_qual, const void* qcfail_in, const void* short_flags,
-    const void* panel, const void* tpq_consts, const void* shift,
-    const void* partials, void* decoded, void* argmax, void* distance,
-    void* branch, void* confidence, void* qcfail_out, void* uncertain,
-    void* stream) {
+// Stage C: `slices` blocks of `partials` merged in slice order in the frame
+// of the minimum of `shift_rows` rows of `shift`; with `finish` the
+// decisions (`panel` the whole (B, W) panel), else the five merged rows to
+// `merged`.
+PHQ_EXPORT int phq_pamld_merge(
+    const int* ints, const float* floats, int slices, int shift_rows, int finish,
+    const void* obs_code, const void* obs_qual, const void* qcfail_in, const void* short_flags,
+    const void* panel, const void* shift, const void* partials, void* merged,
+    void* decoded, void* argmax, void* distance, void* branch, void* confidence,
+    void* qcfail_out, void* uncertain, void* stream) {
   const PhqPamldParams p = phq_pamld_params(ints, floats);
   if (p.n <= 0) return (int)cudaGetLastError();
+  if (slices < 1 || (finish && shift_rows < 1)) return (int)cudaErrorInvalidValue;
   PhqPamldArgs a = {};
   a.obs_code = (const uint8_t*)obs_code;
   a.obs_qual = (const uint8_t*)obs_qual;
   a.qcfail_in = (const uint8_t*)qcfail_in;
   a.short_flags = (const uint8_t*)short_flags;
   a.panel = (const uint8_t*)panel;
-  a.tpq_consts = (const float*)tpq_consts;
   a.shift = (float*)shift;
   a.partials = (int*)partials;
+  a.merged = (int*)merged;
   a.decoded = (int*)decoded;
   a.argmax = (int*)argmax;
   a.distance = (int*)distance;
@@ -511,10 +721,59 @@ PHQ_EXPORT int phq_pamld_merged(
   a.confidence = (float*)confidence;
   a.qcfail_out = (uint8_t*)qcfail_out;
   a.uncertain = (uint8_t*)uncertain;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (p.W <= 16) return phq_pamld_merged_launch<16>(p, a, s);
-  if (p.W <= 32) return phq_pamld_merged_launch<32>(p, a, s);
-  if (p.W <= 64) return phq_pamld_merged_launch<64>(p, a, s);
+  const int blocks = (p.n + PHQ_PAMLD_THREADS - 1) / PHQ_PAMLD_THREADS;
+  PHQ_LAUNCH(phq_pamld_merge_kernel, blocks, PHQ_PAMLD_THREADS, 0, (cudaStream_t)stream)(
+      p, a, slices, shift_rows, finish);
+  return (int)cudaGetLastError();
+}
+
+// registers, local (spill) bytes and resident blocks per SM of one instance
+template <int MAXW, int MODE>
+static int phq_pamld_instance(int* out) {
+  void (*kernel)(PhqPamldParams, PhqPamldArgs, int, int) = phq_pamld_kernel<MAXW, MODE>;
+  cudaFuncAttributes attributes;
+  cudaError_t status = cudaFuncGetAttributes(&attributes, kernel);
+  if (status != cudaSuccess) return (int)status;
+  int blocks = 0;
+  status = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, PHQ_PAMLD_THREADS,
+      phq_pamld_smem(MAXW, PhqPamldShape<MAXW>::tile_b));
+  if (status != cudaSuccess) return (int)status;
+  out[0] = blocks;
+  out[1] = attributes.numRegs;
+  out[2] = (int)attributes.localSizeBytes;
+  return 0;
+}
+
+template <int MAXW>
+static int phq_pamld_info_for(int* out) {
+  int device = 0;
+  cudaError_t status = cudaGetDevice(&device);
+  if (status == cudaSuccess) {
+    status = cudaDeviceGetAttribute(&out[3], cudaDevAttrMultiProcessorCount, device);
+  }
+  if (status != cudaSuccess) return (int)status;
+  out[0] = PhqPamldShape<MAXW>::tile_b;
+  out[1] = PHQ_PAMLD_THREADS;
+  out[2] = PHQ_PAMLD_THREADS * PhqPamldShape<MAXW>::reads;
+  out[4] = MAXW;
+  out[14] = PHQ_PAMLD_UNROLL;
+  int rc = phq_pamld_instance<MAXW, PHQ_MODE_CLASSIFY>(out + 5);
+  if (rc == 0) rc = phq_pamld_instance<MAXW, PHQ_MODE_SLICE_MIN>(out + 8);
+  if (rc == 0) rc = phq_pamld_instance<MAXW, PHQ_MODE_SLICE_POSTERIOR>(out + 11);
+  return rc;
+}
+
+// What the slice plan needs to know of the tile loop at observation width
+// W, in `out` (15 ints): barcodes a tile holds, threads and reads a block,
+// the card's SM count, the instance's MAXW, then for the classify, stage A
+// and stage B instances each (resident blocks per SM, registers, local
+// bytes a thread), and the barcodes a step of the barcode loop takes.
+PHQ_EXPORT int phq_pamld_info(int W, void* out) {
+  int* o = (int*)out;
+  if (W <= 16) return phq_pamld_info_for<16>(o);
+  if (W <= 32) return phq_pamld_info_for<32>(o);
+  if (W <= 64) return phq_pamld_info_for<64>(o);
   return (int)cudaErrorInvalidValue;
 }
 

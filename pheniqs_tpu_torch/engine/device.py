@@ -39,6 +39,7 @@ from ..device import wire
 from ..device.distributed import panel_group, tp_shape
 from ..device.instrument import compile_instrument, resolve_device
 from ..device.step import DecodeStep
+from ..kernels import check_kernel_limits
 from ..model.batch import ReadBatch
 from ..transform import SegmentBatch
 from .strict import ClassifierRuntime, StrictEngine
@@ -83,6 +84,9 @@ class TorchDeviceEngine(StrictEngine):
                 # kernels launch on the current device's streams and events
                 torch.cuda.set_device(self.device)
             self.instrument = compile_instrument(ontology, self.device)
+        if self.device.type == "cuda":
+            # refuse what a kernel has no path for before the first batch
+            check_kernel_limits(self.instrument)
         # classify order must match device.instrument.compile_instrument:
         # sample, molecular*, cellular* (reference transcode.h:51-65)
         self._runtimes: list[ClassifierRuntime] = []
@@ -289,7 +293,8 @@ class TorchDeviceEngine(StrictEngine):
         # start the pull now: by the time the lookahead window drains to
         # this batch its decisions are already in host memory
         host_blob = torch.empty(out_blob.shape, dtype=torch.uint8, pin_memory=True)
-        host_counters = torch.empty(flat.shape, dtype=torch.float32, pin_memory=True)
+        # f32, or float64 where K4 summed the batch in row slices
+        host_counters = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
         host_blob.copy_(out_blob, non_blocking=True)
         host_counters.copy_(flat, non_blocking=True)
         done = torch.cuda.Event()

@@ -10,7 +10,9 @@ tensor it launches its kernel (built from ``csrc/`` on first use) or
 raises. Each kernel's launches are counted in an integer of its module
 (``launches``; K1's on panels above 1024 barcodes, the TPU program's
 chunked posterior, in ``pamld.chunked_launches``; K8's stages in
-``pamld.panel_sharded_launches``).
+``pamld.panel_sharded_launches``). ``check_kernel_limits`` refuses, when
+an engine is built for a card, an instrument that some kernel has no path
+for yet.
 """
 
 from __future__ import annotations
@@ -18,6 +20,52 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from ..errors import ConfigurationError
+
+#: the most decoders K4 and K5 take (32-bit decoder masks)
+MAX_DECODERS = 32
+
+
+def kernel_limits(instrument) -> list[str]:
+    """One line for each limit of a kernel that `instrument` exceeds,
+    naming the limit and the decoder: the widths and segments K1/K7/K8 and
+    K6 hold in registers, K3's program size and K4's and K5's decoder
+    count. The plain versions have none of these limits."""
+    from .mdd import MAX_SEGMENTS, MAX_WIDTH
+    from .pamld import MAX_KERNEL_W
+    from .unpack import MAX_PROGRAM, token_layout
+
+    problems = []
+    for position, dec in enumerate(instrument.decoders):
+        name = f"decoder {position} ({dec.classifier_type} {dec.algorithm})"
+        width = sum(dec.segment_widths)
+        if dec.algorithm == "pamld" and dec.plans and width > MAX_KERNEL_W:
+            problems.append(f"{name}: observation width {width} exceeds the PAMLD kernels' {MAX_KERNEL_W} positions")
+        if dec.algorithm == "mdd" and dec.plans:
+            if len(dec.segment_widths) > MAX_SEGMENTS:
+                problems.append(f"{name}: {len(dec.segment_widths)} segments exceed the MDD kernel's {MAX_SEGMENTS}")
+            if width > MAX_WIDTH:
+                problems.append(f"{name}: observation width {width} exceeds the MDD kernel's {MAX_WIDTH} positions")
+    if len(instrument.decoders) > MAX_DECODERS:
+        problems.append(
+            f"{len(instrument.decoders)} decoders exceed the counter and pack kernels' {MAX_DECODERS}"
+        )
+    # the program's size depends on the number of wire segments, not on their widths
+    program = token_layout(instrument, [4] * len(instrument.used_segments), 6).program
+    if program.size > MAX_PROGRAM:
+        problems.append(
+            f"the token program of every decoder takes {program.size} ints, beyond the unpack kernel's {MAX_PROGRAM}"
+        )
+    return problems
+
+
+def check_kernel_limits(instrument):
+    """Raise ConfigurationError, naming each limit and decoder, when a
+    kernel has no path for `instrument` (kernel_limits)."""
+    problems = kernel_limits(instrument)
+    if problems:
+        raise ConfigurationError("the CUDA kernels cannot run this configuration: " + "; ".join(problems))
 
 
 def _launch_counters() -> dict:
@@ -73,6 +121,13 @@ class Decisions:
             qcfail=z(torch.bool),
             uncertain=z(torch.bool),
         )
+
+    def columns(self, start: int, stop: int) -> "Decisions":
+        """Reads [start, stop) of every decoder, contiguous."""
+        return Decisions(**{
+            name: getattr(self, name)[:, start:stop].contiguous()
+            for name in ("decoded", "argmax", "distance", "branch", "confidence", "qcfail", "uncertain")
+        })
 
     def row(self, k: int) -> dict:
         return {

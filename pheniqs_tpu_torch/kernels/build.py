@@ -43,8 +43,9 @@ _U = ctypes.c_uint
 SIGNATURES = {
     "phq_unpack_tokens": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "phq_pamld": (_P, _P) + (_P,) * 15,
-    "phq_pamld_shard": (_P, _P, _I, _I) + (_P,) * 8,
-    "phq_pamld_merged": (_P,) * 18,
+    "phq_pamld_slices": (_P, _P, _I, _I, _I, _I) + (_P,) * 8,
+    "phq_pamld_merge": (_P, _P, _I, _I, _I) + (_P,) * 16,
+    "phq_pamld_info": (_I, _P),
     "phq_mdd": (_P,) * 13,
     "phq_tpq_eval": (_P, _I, _P, _P, _P),
     "phq_features": (_P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P),

@@ -1,18 +1,25 @@
 """K4: the per-barcode statistics counters (csrc/counters.cu).
 
 ``counters`` reduces the stacked per-read decisions of every decoder to
-the flat f32 counter vector in ``device.wire.counter_layout`` order, over
+the flat counter vector in ``device.wire.counter_layout`` order, over
 the rows valid = !pad && !uncertain_any. Every column is summed in
 integers, so the result does not depend on the order of the adds: the
 six integer columns as they are, the two confidence columns in 64-bit
 fixed point (q = rint(c * 2^40), converted once as float(sum) * 2^-40).
 On CUDA that is one accumulate kernel over (reads x decoders) and one
-finalize kernel per batch, whatever the number of decoders; on the CPU
+finalize kernel per launch, whatever the number of decoders; on the CPU
 the plain version below does the same arithmetic with int64
 ``index_add_``, so the kernel equals it byte for byte. Both agree with
 ``pheniqs_tpu.device.step._counters`` (f32 one-hot contraction): integer
 columns exactly, confidence sums within N * 2^-41 + 1/2 ulp of the true
-sum while ``check_limits`` holds.
+sum.
+
+A launch sums at most ``slice_rows`` rows, so that its integer columns
+stay exact in f32 and its fixed-point sums below 2^63. A larger batch
+runs one launch per slice of rows, on either device, and the slices' f32
+vectors are added in float64 (integer columns exact, each slice's
+confidence sum within its own bound): the result is then float64, which
+the engine adds into its int64 and float64 accumulators as it does f32.
 """
 
 from __future__ import annotations
@@ -22,11 +29,12 @@ from dataclasses import dataclass
 import torch
 
 from ..device.wire import counter_names
-from . import Decisions, uncertain_mask
+from ..errors import ConfigurationError
+from . import MAX_DECODERS, Decisions, uncertain_mask
 from .pamld import BRANCH_LOW_CONFIDENCE, BRANCH_NOISE, BRANCH_PASS
 
-#: launches of the CUDA kernel in this process (one per batch: the
-#: accumulate kernel and its finalize)
+#: launches of the CUDA kernel in this process (one per batch, or per row
+#: slice of a larger one: the accumulate kernel and its finalize)
 launches = 0
 
 _KIND = {"pamld": 2, "mdd": 1}
@@ -73,18 +81,23 @@ def decoder_table(instrument) -> DecoderTable:
     return DecoderTable(tuple(rows), offset, wide, max((row[5] for row in rows), default=0))
 
 
-def check_limits(instrument, n: int):
-    """Raise ValueError where a batch of `n` rows could leave the range in
-    which the integer sums are exact: a fixed-point confidence sum reaching
-    2^63 (n * 2^40), or an integer column reaching 2^24, past which its f32
-    value would round (n rows, each adding at most the decoder's width of
-    distance)."""
-    if n * CONFIDENCE_SCALE >= 2.0**63:
-        raise ValueError(f"counters: {n} rows could overflow the 64-bit fixed-point confidence sums")
-    for dec in instrument.decoders:
-        most = max(1, dec.width) if dec.algorithm in _KIND else 1
-        if n * most >= 2**24:
-            raise ValueError(f"counters: {n} rows could take a {dec.algorithm} decoder's counters past 2^24")
+#: the most rows one launch may sum: n * 2^40 stays below 2^63
+MAX_SLICE_ROWS = 2**23 - 1
+
+
+def slice_rows(instrument) -> int:
+    """The most rows of a batch one launch of K4 may sum: each integer
+    column below 2^24, where f32 still holds it exactly (n rows, each
+    adding at most the decoder's width of distance), and the fixed-point
+    confidence sums below 2^63 (MAX_SLICE_ROWS)."""
+    most = max((max(1, dec.width) for dec in instrument.decoders if dec.algorithm in _KIND), default=1)
+    return min(MAX_SLICE_ROWS, (2**24 - 1) // most)
+
+
+def row_slices(instrument, n: int) -> list[tuple[int, int]]:
+    """(start, stop) of the row slices K4 sums one launch each."""
+    step = slice_rows(instrument)
+    return [(start, min(start + step, n)) for start in range(0, n, step)] or [(0, 0)]
 
 
 def uncertain_any(instrument, decisions: Decisions, forced, want_uncertain: bool):
@@ -125,6 +138,10 @@ def _decoder_counters_plain(dec, row: dict, valid: torch.Tensor) -> list[torch.T
 
 
 def counters_plain(instrument, decisions: Decisions, pad, forced, want_uncertain: bool):
+    return _sliced(_counters_plain, instrument, decisions, pad, forced, want_uncertain)
+
+
+def _counters_plain(instrument, decisions: Decisions, pad, forced, want_uncertain: bool):
     valid = ~pad & ~uncertain_any(instrument, decisions, forced, want_uncertain)
     parts = []
     for k, dec in enumerate(instrument.decoders):
@@ -132,6 +149,20 @@ def counters_plain(instrument, decisions: Decisions, pad, forced, want_uncertain
     if not parts:
         return torch.zeros(0, dtype=torch.float32, device=pad.device)
     return torch.cat(parts)
+
+
+def _sliced(launch, instrument, decisions: Decisions, pad, forced, want_uncertain: bool):
+    """`launch` once over a batch within slice_rows, else once per row
+    slice, the slices' f32 vectors added in float64."""
+    slices = row_slices(instrument, pad.shape[0])
+    if len(slices) == 1:
+        return launch(instrument, decisions, pad, forced, want_uncertain)
+    total = None
+    for start, stop in slices:
+        part = launch(instrument, decisions.columns(start, stop), pad[start:stop].contiguous(),
+                      forced[start:stop].contiguous(), want_uncertain).to(torch.float64)
+        total = part if total is None else total + part
+    return total
 
 
 _TABLES: dict = {}
@@ -146,21 +177,27 @@ def _device_table(table: DecoderTable, device) -> torch.Tensor:
 
 
 def counters(instrument, decisions: Decisions, pad, forced, want_uncertain: bool):
-    """K4: the flat (L,) f32 counter vector of this batch."""
-    check_limits(instrument, pad.shape[0])
+    """K4: the flat (L,) counter vector of this batch (f32; float64 when
+    the batch takes more than one row slice)."""
     if pad.device.type == "cpu":
         return counters_plain(instrument, decisions, pad, forced, want_uncertain)
     if pad.device.type != "cuda":
         raise ValueError(f"counters: unsupported device {pad.device}")
+    d = decisions.decoded.shape[0]
+    if d > MAX_DECODERS:
+        raise ConfigurationError(f"counters: {d} decoders exceed the kernel's {MAX_DECODERS}")
+    rows = [getattr(decisions, f) for f in ("decoded", "argmax", "distance", "branch", "confidence", "qcfail", "uncertain")]
+    if not all(t.is_contiguous() and t.device == pad.device for t in rows + [pad, forced]):
+        raise ValueError("counters: the decision rows, pad and forced must be contiguous and on one device")
+    return _sliced(_launch, instrument, decisions, pad, forced, want_uncertain)
+
+
+def _launch(instrument, decisions: Decisions, pad, forced, want_uncertain: bool):
+    """One launch of K4 over at most slice_rows rows, counted."""
     global launches
     from .build import check, library
 
     d, n = decisions.decoded.shape
-    if d > 32:
-        raise NotImplementedError("counters: more than 32 decoders")
-    rows = [getattr(decisions, f) for f in ("decoded", "argmax", "distance", "branch", "confidence", "qcfail", "uncertain")]
-    if not all(t.is_contiguous() and t.device == pad.device for t in rows + [pad, forced]):
-        raise ValueError("counters: the decision rows, pad and forced must be contiguous and on one device")
     table = decoder_table(instrument)
     if table.total == 0:
         return torch.zeros(0, dtype=torch.float32, device=pad.device)

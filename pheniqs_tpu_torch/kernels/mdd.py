@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..errors import ConfigurationError
+
 #: launches of the CUDA kernel in this process
 launches = 0
 
@@ -109,7 +111,7 @@ def mdd_classify(dec, obs_code, obs_qual, lengths, qcfail_in, *, out=None) -> di
     n, w = obs_code.shape
     segments = len(dec.segment_widths)
     if segments > MAX_SEGMENTS or w > MAX_WIDTH or w != sum(dec.segment_widths):
-        raise NotImplementedError(
+        raise ConfigurationError(
             f"MDD observation of {segments} segments, {w} positions: the kernel "
             f"takes up to {MAX_SEGMENTS} segments and {MAX_WIDTH} positions"
         )

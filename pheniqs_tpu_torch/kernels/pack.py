@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 
 from ..device.wire import d2h_layout
-from . import Decisions, uncertain_mask
+from ..errors import ConfigurationError
+from . import MAX_DECODERS, Decisions, uncertain_mask
 from .counters import uncertain_any
 
 #: launches of the CUDA kernel in this process
@@ -80,8 +81,10 @@ def pack_outputs(instrument, decisions: Decisions, forced, want_uncertain: bool)
     global launches
     from .build import library
 
-    if len(instrument.decoders) > 32:
-        raise NotImplementedError("pack_outputs: more than 32 decoders")
+    if len(instrument.decoders) > MAX_DECODERS:
+        raise ConfigurationError(
+            f"pack_outputs: {len(instrument.decoders)} decoders exceed the kernel's {MAX_DECODERS}"
+        )
     layout = d2h_layout(instrument, want_uncertain)
     n = decisions.decoded.shape[1]
     out = torch.empty(n * layout["total"], dtype=torch.uint8, device=decisions.decoded.device)

@@ -1,21 +1,28 @@
 """The PAMLD classify of one decoder: K1 with K2 fused (csrc/pamld.cu),
-one kernel for panels of any size, counted as K7 past 1024 barcodes, and
-K8, the same kernel's tile loop over the shards of a panel split across
-ranks (``pamld_classify_sharded``).
+one tile loop for panels of any size; K7, the same loop past 1024
+barcodes with the panel split into slices across blocks; and K8, the same
+slices over the shards of a panel split across ranks
+(``pamld_classify_sharded``).
 
 ``pamld_classify`` computes, per read, the PAMLD posterior over the panel
 and everything the decode step needs from it: decoded index, argmax,
 distance to the decoded barcode, branch, confidence, chained qcfail and
 (hybrid) the uncertain mask of the derived f32 bound. On a CUDA tensor it
-launches K1; on a CPU tensor it runs the plain version below, the
-torch port of ``pheniqs_tpu.device.classify.pamld_classify_device``: the
-monolithic posterior for B <= 1024, ``_posterior_chunked`` above it, and
-the row-gather distance (as exact as the TPU's match contraction).
-``posterior_panel_sharded_plain`` is the plain version of K8's posterior,
-``_posterior_panel_sharded``'s algebra over the shards one process holds.
+launches the kernel: one launch over a panel of one slice, else stage A
+(each slice's row minimum), stage B (each slice's partials) and the merge
+(stage C), with S slices from ``slice_plan``. On a CPU tensor it runs the
+plain version below, the torch port of
+``pheniqs_tpu.device.classify.pamld_classify_device``: the monolithic
+posterior for B <= 1024, ``_posterior_chunked`` above it, and the
+row-gather distance (as exact as the TPU's match contraction).
+``posterior_sliced_plain`` is the plain algebra of K7's slices,
+``posterior_panel_sharded_plain`` that of K8's shards
+(``_posterior_panel_sharded`` over the shards one process holds).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -23,15 +30,19 @@ import torch
 from ..device.instrument import (
     LARGE_PANEL_B,
     LN_PHRED_BASE,
+    STRICT_CODES,
     UNIFORM_BASE_QUALITY,
     analytic_tpq,
 )
+from ..errors import ConfigurationError
 
 #: launches of K1 in this process on panels of at most LARGE_PANEL_B barcodes
 launches = 0
-#: launches of K1 on larger panels (K7, the TPU's chunked posterior)
+#: launches of the tile loop on larger panels (K7, the TPU's chunked
+#: posterior): one over a panel of one slice, else stages A, B and C
 chunked_launches = 0
-#: launches of K8's stages on panel shards (A and B per shard, C per call)
+#: launches of K8's stages on panel shards (A and B per shard, the merge
+#: of a shard's slices where it has more than one, C per call)
 panel_sharded_launches = 0
 #: launches of the feature kernel (``observation_features`` on CUDA; the
 #: main path never runs it: K1 keeps the features in registers)
@@ -94,11 +105,19 @@ def chunk_gamma(barcode_count: int) -> float:
     return 2.0 * gamma(2 * chunks)
 
 
+def sigma_bound(w: int, eps: float, q_sum):
+    """d_sigma(read) of classify.py:57-84: how far an f32 sigma of a read
+    of width `w` and quality sum `q_sum` may lie from the exact one,
+    gamma_{2W+2} * (2 * q_sum + 13.74 * W), plus the TPQ epsilon per
+    position; it holds for any order of the sum's terms."""
+    return gamma(2 * w + 2) * (2.0 * q_sum + TERM_BOUND * w) + eps * w
+
+
 def _uncertain_margins(dec, w: int, eps: float, q_sum: torch.Tensor):
     """(rel_eps, sigma_eps) of the derived per-read bound, in the f32
     evaluation order of classify.py:629-646."""
     lam = float(abs(LN_PHRED_BASE))
-    d_sigma = gamma(2 * w + 2) * (2.0 * q_sum + TERM_BOUND * w) + eps * w
+    d_sigma = sigma_bound(w, eps, q_sum)
     rel_eps = HYBRID_SAFETY * (
         4.0 * lam * d_sigma
         + 2.0 * gamma(dec.barcode_count + 2)
@@ -269,6 +288,224 @@ def posterior_panel_sharded_plain(features, qpos_uniform, shards, adjusted_noise
             merged["second_p"])
 
 
+def posterior_sliced_plain(features, qpos_uniform, matrix, concentration, adjusted_noise, columns):
+    """K7's posterior over slices of the panel, `columns` the (start, stop)
+    of each (SlicePlan.columns): each slice's row minimum and, in the frame
+    of their minimum, its partials, merged in slice order by
+    device/tp.py:reduce_partials. (best0, best_p, sigma_p, sigma_decoded,
+    second_p)."""
+    from ..device.tp import PanelShard
+
+    b = matrix.shape[1]
+    slices = [
+        PanelShard(start, stop - start, b, None, matrix[:, start:stop], concentration[start:stop])
+        for start, stop in columns
+    ]
+    return posterior_panel_sharded_plain(features, qpos_uniform, slices, adjusted_noise)
+
+
+# --- the slice plan -------------------------------------------------------
+#: the waves of resident blocks a sliced launch aims at: the last wave's
+#: idle share is then at most a quarter of one
+SLICE_WAVES = 4
+
+
+@dataclass(frozen=True)
+class TileLoop:
+    """What the card says of the tile loop at one observation width
+    (csrc/pamld.cu phq_pamld_info): barcodes a tile holds, threads and reads
+    a block, the card's SM count, the instance's MAXW, per instance
+    (classify, stage A, stage B) its resident blocks per SM, registers and
+    local (spill) bytes a thread, and the barcodes a step of the barcode
+    loop takes."""
+
+    tile: int
+    threads: int
+    reads_per_block: int
+    sms: int
+    maxw: int
+    instances: dict
+    unroll: int
+
+    @property
+    def slots(self) -> int:
+        """Resident block slots of the card for the sliced stages."""
+        return self.sms * max(self.instances["stage A"][0], self.instances["stage B"][0])
+
+
+@dataclass(frozen=True)
+class SlicePlan:
+    """`slices` contiguous runs of whole tiles over `barcodes` columns for
+    `read_blocks` blocks of reads."""
+
+    slices: int
+    barcodes: int
+    tile: int
+    read_blocks: int
+    slots: int
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.barcodes // self.tile)
+
+    @property
+    def waves(self) -> float:
+        return self.read_blocks * self.slices / self.slots
+
+    def columns(self) -> list[tuple[int, int]]:
+        """(start, stop) of each slice: tiles [s*T/S, (s+1)*T/S), as the
+        kernel derives them from its block's slice index."""
+        t, s = self.tiles, self.slices
+        return [
+            (k * t // s * self.tile, min((k + 1) * t // s * self.tile, self.barcodes))
+            for k in range(s)
+        ]
+
+
+def slice_plan(n: int, barcodes: int, tile: int, reads_per_block: int, slots: int) -> SlicePlan:
+    """The smallest number of slices that gives SLICE_WAVES waves of the
+    card's `slots` resident blocks over the ceil(n / reads_per_block) blocks
+    of reads, with each slice at least one tile of the `barcodes` columns."""
+    read_blocks = max(1, -(-n // reads_per_block))
+    tiles = -(-barcodes // tile)
+    wanted = -(-SLICE_WAVES * slots // read_blocks)
+    return SlicePlan(max(1, min(tiles, wanted)), barcodes, tile, read_blocks, slots)
+
+
+_TILE_LOOPS: dict = {}
+
+
+def tile_loop(w: int, device) -> TileLoop:
+    """The tile loop's facts at observation width `w` on CUDA `device`
+    (asked once per instance and card)."""
+    from .build import check, library
+
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    maxw = 16 if w <= 16 else 32 if w <= 32 else 64
+    key = (maxw, index)
+    if key not in _TILE_LOOPS:
+        out = np.zeros(15, dtype=np.int32)
+        with torch.cuda.device(index):
+            check(library().phq_pamld_info(w, out.ctypes.data), "pamld_info")
+        tile, threads, reads, sms, maxw = (int(x) for x in out[:5])
+        instances = {
+            name: tuple(int(x) for x in out[5 + 3 * k : 8 + 3 * k])
+            for k, name in enumerate(("classify", "stage A", "stage B"))
+        }
+        _TILE_LOOPS[key] = TileLoop(tile, threads, reads, sms, maxw, instances, int(out[14]))
+    return _TILE_LOOPS[key]
+
+
+def plan_for(n: int, barcodes: int, w: int, device) -> SlicePlan:
+    """The slice plan of one launch of the tile loop on the card."""
+    loop = tile_loop(w, device)
+    return slice_plan(n, barcodes, loop.tile, loop.reads_per_block, loop.slots)
+
+
+def sigma_tile_order(obs_code: torch.Tensor, obs_qual: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """sigma (N, B) f32 of the reads against panel rows `codes` (B, W), added
+    in the tile loop's order (csrc/pamld.cu): the read keeps its A/C/G/T
+    codes with q > 0 (o'), fm = tpq - q and fs = q - U there, and C = (fs
+    summed in position order) + qpos*U; an all-A/C/G/T barcode's sigma is
+    M + C, M the matching fm in position order; any other barcode's the
+    interleaved sum (per position the match, then its strictness term)
+    plus qpos*U. A skipped term is +0.0, which leaves an f32 sum as it is,
+    so this is the kernel's sigma bit for bit."""
+    strict_codes = torch.tensor(STRICT_CODES, device=obs_code.device)
+    code = obs_code.to(torch.int32)
+    qual = obs_qual.to(torch.int32)
+    codes = codes.to(torch.int32)
+    kept = torch.isin(code, strict_codes) & (qual > 0)
+    o = torch.where(kept, code, 0)
+    q = qual.to(torch.float32)
+    fm = torch.where(kept, analytic_tpq(qual) - q, 0.0)
+    fs = torch.where(kept, q - UNIFORM_BASE_QUALITY, 0.0)
+    fs_sum = torch.zeros(code.shape[0], device=code.device)
+    for w in range(code.shape[1]):
+        fs_sum = fs_sum + fs[:, w]
+    qpos_u = (qual > 0).sum(dim=1).to(torch.float32) * UNIFORM_BASE_QUALITY
+    strict_e = torch.isin(codes, strict_codes)
+    all_strict = bool(strict_e.all())
+    match = torch.zeros((code.shape[0], codes.shape[0]), device=code.device)
+    mixed = None if all_strict else torch.zeros_like(match)
+    for w in range(code.shape[1]):
+        term = torch.where(codes[None, :, w] == o[:, None, w], fm[:, None, w], 0.0)
+        match += term
+        if mixed is not None:
+            mixed += term
+            mixed += torch.where(strict_e[None, :, w] & (o[:, None, w] != 0), fs[:, None, w], 0.0)
+    match += (fs_sum + qpos_u)[:, None]
+    if mixed is None:
+        return match
+    return torch.where(strict_e.all(dim=1)[None, :], match, mixed + qpos_u[:, None])
+
+
+def pamld_classify_tile_order(dec, obs_code, obs_qual, qcfail_in, *, want_uncertain=False, eps=0.0, short=None,
+                              chunk: int = 2048) -> dict:
+    """The tile loop's own arithmetic on any device: sigma_tile_order in
+    chunks of `chunk` barcodes, the row minimum, then the posterior in its
+    frame (the first maximum, the runner-up) and finish_plain. It differs
+    from the kernel only in the order the posterior's sum is added; the
+    reference formulation (pamld_classify_plain, a contraction F.G) adds
+    sigma in another order, which can move a low confidence by ~1e-5 of
+    itself."""
+    n = obs_code.shape[0]
+    device = obs_code.device
+
+    def chunks():
+        for start in range(0, dec.barcode_count, chunk):
+            yield start, sigma_tile_order(obs_code, obs_qual, dec.panel_codes_u8[start : start + chunk])
+
+    shift = torch.full((n,), BIG_SIGMA, dtype=torch.float32, device=device)
+    for _, sigma in chunks():
+        shift = torch.minimum(shift, sigma.min(dim=1).values)
+    total = torch.zeros(n, dtype=torch.float32, device=device)
+    best_p = torch.full((n,), -1.0, dtype=torch.float32, device=device)
+    second_p = torch.zeros(n, dtype=torch.float32, device=device)
+    sigma_best = torch.zeros(n, dtype=torch.float32, device=device)
+    best0 = torch.zeros(n, dtype=torch.int64, device=device)
+    for start, sigma in chunks():
+        p = torch.exp(LN_PHRED_BASE * (sigma - shift[:, None])) * dec.concentration[None, start : start + sigma.shape[1]]
+        total = total + p.sum(dim=1)
+        chunk_best = torch.argmax(p, dim=1)  # first maximum wins
+        chunk_best_p = torch.gather(p, 1, chunk_best[:, None])[:, 0]
+        better = chunk_best_p > best_p
+        second_p = torch.where(
+            better, torch.maximum(best_p, _second_max(p, chunk_best)), torch.maximum(second_p, chunk_best_p)
+        )
+        best_p = torch.where(better, chunk_best_p, best_p)
+        best0 = torch.where(better, start + chunk_best, best0)
+        sigma_best = torch.where(better, torch.gather(sigma, 1, chunk_best[:, None])[:, 0], sigma_best)
+    sigma_p = total + _noise_shifted(dec.noise * dec.random_barcode_probability, shift)
+    return finish_plain(dec, obs_code.to(torch.int32), obs_qual.to(torch.int32), qcfail_in,
+                        (best0, best_p, sigma_p, sigma_best, second_p), want_uncertain=want_uncertain, eps=eps,
+                        short=short)
+
+
+def tie_gaps(dec, obs_code, obs_qual, first, second):
+    """The float64 witness of a near tie between two barcodes of each read,
+    `first` and `second` (0-based panel indices): |ln p_first - ln
+    p_second| from the f64 sums of the same f32 terms (the exact sigma the
+    hybrid bound is measured from; the read's qpos*U cancels), and the
+    window lambda * 2 d_sigma(read) inside which two f32 sums of those
+    terms, each within d_sigma of exact in any order (sigma_bound without
+    the TPQ epsilon: the terms are the same), may rank the two either way.
+    A gap of 0 is a tie in exact arithmetic. Returns (gap, window), float64
+    (N,)."""
+    features = observation_features_plain(obs_code, obs_qual).to(torch.float64)
+    first, second = first.to(torch.int64), second.to(torch.int64)
+    sigma = [
+        (features * dec.likelihood_matrix[:, index].T.to(torch.float64)).sum(dim=1)
+        for index in (first, second)
+    ]
+    log_c = torch.log(dec.concentration.to(torch.float64))
+    gap = (LN_PHRED_BASE * (sigma[0] - sigma[1]) + log_c[first] - log_c[second]).abs()
+    lam = abs(LN_PHRED_BASE)
+    window = 2.0 * lam * sigma_bound(obs_code.shape[1], 0.0, obs_qual.to(torch.float64).sum(dim=1))
+    return gap, window
+
+
 def pamld_classify_plain(
     dec, obs_code, obs_qual, qcfail_in, *, want_uncertain=False, eps=0.0, short=None
 ) -> dict:
@@ -405,30 +642,70 @@ def empty_result(n: int, device) -> dict:
     }
 
 
-def _launch(lib, dec, obs_code, obs_qual, qcfail_in, short, tpq_constants,
-            want_uncertain, eps, out, stream):
-    """Run K1 (no device checks, no count). ``obs_code`` and ``obs_qual`` are uint8 with unit column stride
-    (views into the unpack outputs are fine); results go to the (N,)
-    tensors of ``out``."""
-    from .build import check
+def _outputs(out) -> tuple:
+    return tuple(out[key].data_ptr() for key in (
+        "decoded", "argmax", "distance", "branch", "confidence", "qcfail", "uncertain"))
 
-    n, w = obs_code.shape
-    ints, floats = _scalars(
-        dec, w, eps, want_uncertain, obs_code.stride(0),
-        short.stride(0) if short is not None else 0, n,
-    )
-    status = lib.phq_pamld(
-        ints.ctypes.data, floats.ctypes.data, obs_code.data_ptr(),
-        obs_qual.data_ptr(), qcfail_in.data_ptr(),
-        short.data_ptr() if short is not None else None,
-        dec.panel_codes_u8.data_ptr(), dec.concentration.data_ptr(),
-        tpq_constants.data_ptr(), out["decoded"].data_ptr(),
-        out["argmax"].data_ptr(), out["distance"].data_ptr(),
-        out["branch"].data_ptr(), out["confidence"].data_ptr(),
-        out["qcfail"].data_ptr(), out["uncertain"].data_ptr(), stream,
-    )
-    check(status, "pamld_classify")
-    return out
+
+class _TileLoopLaunch:
+    """The launches of the tile loop for one batch of one decoder: its
+    scalars, the observation and the caller's stream."""
+
+    def __init__(self, dec, obs_code, obs_qual, qcfail_in, short, tpq_constants, want_uncertain, eps):
+        from .build import library
+
+        self.lib = library()
+        self.obs = (obs_code.data_ptr(), obs_qual.data_ptr())
+        self.qcfail = qcfail_in.data_ptr() if qcfail_in is not None else None
+        self.short = short.data_ptr() if short is not None else None
+        self.tpq = tpq_constants.data_ptr()
+        n, w = obs_code.shape
+        self.ints, self.floats = _scalars(
+            dec, w, eps, want_uncertain, obs_code.stride(0), short.stride(0) if short is not None else 0, n,
+        )
+        self.stream = torch.cuda.current_stream(obs_code.device).cuda_stream
+
+    def classify(self, codes_u8, concentration, out):
+        """K1, or K7 over a panel of one slice: both passes, one launch."""
+        from .build import check
+
+        check(self.lib.phq_pamld(
+            self.ints.ctypes.data, self.floats.ctypes.data, *self.obs, self.qcfail, self.short,
+            codes_u8.data_ptr(), concentration.data_ptr(), self.tpq, *_outputs(out), self.stream,
+        ), "pamld_classify")
+
+    def stage(self, mode, columns, codes_u8, concentration, slices, shift, partials=None, base=0):
+        """Stage A (MODE_SLICE_MIN: each slice's row minimum into `shift`,
+        (slices, N)) or B (MODE_SLICE_POSTERIOR: the partials of each slice
+        into `partials`, (slices, 5, N), in the frame of the minimum over
+        the rows of `shift`) over `columns` columns of `codes_u8`."""
+        from .build import check
+
+        ints = self.ints.copy()
+        ints[1] = columns
+        check(self.lib.phq_pamld_slices(
+            ints.ctypes.data, self.floats.ctypes.data, mode, base, slices,
+            shift.shape[0] if shift.dim() == 2 else 1, *self.obs, codes_u8.data_ptr(),
+            concentration.data_ptr(), self.tpq, shift.data_ptr(),
+            partials.data_ptr() if partials is not None else None, self.stream,
+        ), "pamld_slices")
+
+    def merge(self, partials, shift=None, panel=None, out=None, merged=None):
+        """Stage C: the (S, 5, N) `partials` merged in slice order, then with
+        `out` the decisions (in the frame of the minimum over the rows of
+        `shift`; K2's row from the whole `panel`), else the merged (5, N)
+        rows into `merged`."""
+        from .build import check
+
+        finish = out is not None
+        check(self.lib.phq_pamld_merge(
+            self.ints.ctypes.data, self.floats.ctypes.data, partials.shape[0],
+            (shift.shape[0] if shift.dim() == 2 else 1) if finish else 0, int(finish), *self.obs,
+            self.qcfail if finish else None, self.short if finish else None,
+            panel.data_ptr() if finish else None, shift.data_ptr() if finish else None,
+            partials.data_ptr(), merged.data_ptr() if merged is not None else None,
+            *(_outputs(out) if finish else (None,) * 7), self.stream,
+        ), "pamld_merge")
 
 
 def pamld_classify(
@@ -453,34 +730,50 @@ def pamld_classify(
         return result
     if obs_code.device.type != "cuda":
         raise ValueError(f"pamld_classify: unsupported device {obs_code.device}")
-    global launches, chunked_launches
-    from .build import library
-
     _check_observation("pamld_classify", obs_code, obs_qual, qcfail_in, short)
-    n = obs_code.shape[0]
-    if out is None:
-        out = empty_result(n, obs_code.device)
-    stream = torch.cuda.current_stream(obs_code.device).cuda_stream
-    _launch(library(), dec, obs_code, obs_qual, qcfail_in, short, tpq_constants,
-            want_uncertain, eps, out, stream)
-    if dec.barcode_count > LARGE_PANEL_B:
-        chunked_launches += 1
-    else:
-        launches += 1
+    out = _classify_launches(dec, obs_code, obs_qual, qcfail_in, short, tpq_constants, want_uncertain, eps, out)
     if not want_uncertain:
         out = {k: v for k, v in out.items() if k != "uncertain"}
     return out
 
 
-#: K8's launch modes of the tile loop (csrc/pamld.cu)
-MODE_SHARD_MIN = 1
-MODE_SHARD_POSTERIOR = 2
+def _classify_launches(dec, obs_code, obs_qual, qcfail_in, short, tpq_constants, want_uncertain, eps, out):
+    """The tile loop's launches of one pamld_classify call, counted."""
+    global launches, chunked_launches
+    n, w = obs_code.shape
+    if out is None:
+        out = empty_result(n, obs_code.device)
+    run = _TileLoopLaunch(dec, obs_code, obs_qual, qcfail_in, short, tpq_constants, want_uncertain, eps)
+    plan = plan_for(n, dec.barcode_count, w, obs_code.device)
+    if plan.slices == 1:
+        run.classify(dec.panel_codes_u8, dec.concentration, out)
+        count = 1
+    else:
+        shift = torch.empty((plan.slices, n), dtype=torch.float32, device=obs_code.device)
+        partials = torch.empty((plan.slices, len(PARTIAL_ROWS), n), dtype=torch.int32, device=obs_code.device)
+        run.stage(MODE_SLICE_MIN, dec.barcode_count, dec.panel_codes_u8, dec.concentration, plan.slices, shift)
+        run.stage(MODE_SLICE_POSTERIOR, dec.barcode_count, dec.panel_codes_u8, dec.concentration,
+                  plan.slices, shift, partials)
+        run.merge(partials, shift, dec.panel_codes_u8, out)
+        count = 3
+    if dec.barcode_count > LARGE_PANEL_B:
+        chunked_launches += count
+    else:
+        launches += count
+    return out
+
+
+#: the sliced launch modes of the tile loop (csrc/pamld.cu)
+MODE_SLICE_MIN = 1
+MODE_SLICE_POSTERIOR = 2
 
 
 def _check_observation(name, obs_code, obs_qual, qcfail_in, short):
     n, w = obs_code.shape
     if w > MAX_KERNEL_W:
-        raise NotImplementedError(f"PAMLD observation width {w} exceeds the kernel's {MAX_KERNEL_W}")
+        raise ConfigurationError(
+            f"{name}: PAMLD observation width {w} exceeds the kernels' {MAX_KERNEL_W} positions"
+        )
     for label, t in (("obs_code", obs_code), ("obs_qual", obs_qual)):
         if t.dtype != torch.uint8 or t.stride(1) != 1 or t.stride(0) != obs_code.stride(0):
             raise ValueError(f"{name}: {label} must be uint8 rows of unit column stride")
@@ -499,15 +792,16 @@ def pamld_classify_sharded(
     `shards` the ones this process holds (device/tp.py PanelShard): with a
     process `group` its own shard, the merges collectives over the group's
     ranks; without, every shard, merged in process. Per shard stage A (the
-    row minimum) and, after the merge of the minima, stage B (the partials
-    in the merged frame); then the merge of the partials and, with
-    `finish`, stage C: the decisions of ``pamld_classify`` from the merged
-    posterior, with K2's row read from the whole ``dec.panel_codes``.
-    Without `finish` it returns the merged (shift, posterior by
-    PARTIAL_ROWS): a follower rank takes part in the merges and decides
-    nothing (``qcfail_in`` may be None). On CPU tensors, or with
-    `plain` on any device, it runs the plain version (panel_merged_plain
-    and finish_plain)."""
+    row minimum of each of its slices, slice_plan) and, after the merge of
+    the minima, stage B (each slice's partials in the merged frame) and the
+    merge of its slices in slice order; then the merge of the shards'
+    partials and, with `finish`, stage C: the decisions of
+    ``pamld_classify`` from the merged posterior, with K2's row read from
+    the whole ``dec.panel_codes``. Without `finish` it returns the merged
+    (shift, posterior by PARTIAL_ROWS): a follower rank takes part in the
+    merges and decides nothing (``qcfail_in`` may be None). On CPU tensors,
+    or with `plain` on any device, it runs the plain version
+    (panel_merged_plain and finish_plain)."""
     adjusted_noise = dec.noise * dec.random_barcode_probability
     if plain or obs_code.device.type == "cpu":
         codes = obs_code.to(torch.int32)
@@ -528,58 +822,54 @@ def pamld_classify_sharded(
         return result
     if obs_code.device.type != "cuda":
         raise ValueError(f"pamld_classify_sharded: unsupported device {obs_code.device}")
-    global panel_sharded_launches
-    from ..device.tp import merge_panel_partials, merge_panel_shift
-    from .build import check, library
-
     _check_observation("pamld_classify_sharded", obs_code, obs_qual, qcfail_in if finish else None, short)
     for shard in shards:
         if not (shard.codes_u8.is_contiguous() and shard.concentration.is_contiguous()):
             raise ValueError("pamld_classify_sharded: shard codes and concentrations must be contiguous")
+    out = _sharded_launches(dec, shards, obs_code, obs_qual, qcfail_in, short, tpq_constants, want_uncertain,
+                            eps, out, group, finish)
+    if finish and not want_uncertain:
+        out = {k: v for k, v in out.items() if k != "uncertain"}
+    return out
+
+
+def _sharded_launches(dec, shards, obs_code, obs_qual, qcfail_in, short, tpq_constants, want_uncertain, eps,
+                      out, group, finish):
+    """K8's launches and merges of one pamld_classify_sharded call,
+    counted."""
+    global panel_sharded_launches
+    from ..device.tp import merge_panel_partials, merge_panel_shift
+
     n, w = obs_code.shape
-    lib = library()
-    stream = torch.cuda.current_stream(obs_code.device).cuda_stream
-    ints, floats = _scalars(
-        dec, w, eps, want_uncertain, obs_code.stride(0), short.stride(0) if short is not None else 0, n,
-    )
-
-    def stage(mode, shard, shift, partials):
-        shard_ints = ints.copy()
-        shard_ints[1] = shard.count
-        status = lib.phq_pamld_shard(
-            shard_ints.ctypes.data, floats.ctypes.data, mode, shard.base, obs_code.data_ptr(),
-            obs_qual.data_ptr(), shard.codes_u8.data_ptr(), shard.concentration.data_ptr(),
-            tpq_constants.data_ptr(), shift.data_ptr(),
-            partials.data_ptr() if partials is not None else None, stream,
-        )
-        check(status, "pamld_classify_sharded")
-
-    shifts = torch.empty((len(shards), n), dtype=torch.float32, device=obs_code.device)
-    for k, shard in enumerate(shards):
-        stage(MODE_SHARD_MIN, shard, shifts[k], None)
+    device = obs_code.device
+    run = _TileLoopLaunch(dec, obs_code, obs_qual, qcfail_in, short, tpq_constants, want_uncertain, eps)
+    plans = [plan_for(n, shard.count, w, device) for shard in shards]
+    minima = []
+    for shard, plan in zip(shards, plans):
+        minima.append(torch.empty((plan.slices, n), dtype=torch.float32, device=device))
+        run.stage(MODE_SLICE_MIN, shard.count, shard.codes_u8, shard.concentration, plan.slices, minima[-1],
+                  base=shard.base)
         panel_sharded_launches += 1
-    shift = merge_panel_shift(shifts, group)
-    partials = torch.empty((len(shards), len(PARTIAL_ROWS), n), dtype=torch.int32, device=obs_code.device)
-    for k, shard in enumerate(shards):
-        stage(MODE_SHARD_POSTERIOR, shard, shift, partials[k])
-        panel_sharded_launches += 1
+    shift = merge_panel_shift(torch.cat(minima), group)
+    partials = torch.empty((len(shards), len(PARTIAL_ROWS), n), dtype=torch.int32, device=device)
+    for k, (shard, plan) in enumerate(zip(shards, plans)):
+        if plan.slices == 1:
+            run.stage(MODE_SLICE_POSTERIOR, shard.count, shard.codes_u8, shard.concentration, 1, shift,
+                      partials[k], base=shard.base)
+            panel_sharded_launches += 1
+            continue
+        local = torch.empty((plan.slices, len(PARTIAL_ROWS), n), dtype=torch.int32, device=device)
+        run.stage(MODE_SLICE_POSTERIOR, shard.count, shard.codes_u8, shard.concentration, plan.slices, shift,
+                  local, base=shard.base)
+        run.merge(local, merged=partials[k])
+        panel_sharded_launches += 2
     merged = merge_panel_partials(partials, group)
     if not finish:
         return shift, unpack_partials(merged)
     if out is None:
-        out = empty_result(n, obs_code.device)
-    status = lib.phq_pamld_merged(
-        ints.ctypes.data, floats.ctypes.data, obs_code.data_ptr(), obs_qual.data_ptr(),
-        qcfail_in.data_ptr(), short.data_ptr() if short is not None else None,
-        dec.panel_codes_u8.data_ptr(), tpq_constants.data_ptr(), shift.data_ptr(), merged.data_ptr(),
-        out["decoded"].data_ptr(), out["argmax"].data_ptr(), out["distance"].data_ptr(),
-        out["branch"].data_ptr(), out["confidence"].data_ptr(), out["qcfail"].data_ptr(),
-        out["uncertain"].data_ptr(), stream,
-    )
-    check(status, "pamld_classify_sharded")
+        out = empty_result(n, device)
+    run.merge(merged[None], shift, dec.panel_codes_u8, out)
     panel_sharded_launches += 1
-    if not want_uncertain:
-        out = {k: v for k, v in out.items() if k != "uncertain"}
     return out
 
 

@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..errors import ConfigurationError
 from ..iupac import BAM_REVERSE_COMPLEMENT
 
 from ..device.wire import JOINT4, _lane_bytes, _length_bytes, segment_offsets
@@ -32,7 +33,8 @@ launches = 0
 RAW = "raw"
 _WIRE_MODE = {6: 6, 2: 2, 4: 4, RAW: 8, JOINT4: 16}
 _HEADER = 24
-_MAX_SPEC = 2048
+#: the most ints of a token program the kernel holds in shared memory
+MAX_PROGRAM = 2048
 
 
 @dataclass
@@ -151,10 +153,6 @@ def _layout(decoders, widths: list[int], qual_bits) -> TokenLayout:
         header + sum(segments, []) + sum(plans, []) + sum(entries, []),
         dtype=np.int32,
     )
-    if program.size > _MAX_SPEC:
-        raise NotImplementedError(
-            f"unpack program of {program.size} ints exceeds the kernel's {_MAX_SPEC}"
-        )
     return TokenLayout(
         widths=list(widths),
         qual_bits=qual_bits,
@@ -340,6 +338,10 @@ def _launch(lib, layout: TokenLayout, program: torch.Tensor, blob, ccb, qcb, str
     """Run the kernel on `blob` (no device checks, no count)."""
     from .build import check
 
+    if program.numel() > MAX_PROGRAM:
+        raise ConfigurationError(
+            f"unpack_tokens: a token program of {program.numel()} ints exceeds the kernel's {MAX_PROGRAM}"
+        )
     n = blob.shape[0]
     tokens = _empty_tokens(layout, n, blob.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731

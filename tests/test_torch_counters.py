@@ -143,16 +143,79 @@ def test_decoder_table_follows_counter_layout(monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "n,width,raises",
-    [(131072, 16, False), (2**23 - 1, 1, False), (2**23, 1, True), (2**14, 1024, True), (2**14, 1023, False)],
+    "n,width,slices",
+    [(131072, 16, 1), (2**23 - 1, 1, 1), (2**23, 1, 2), (2**14, 1024, 2), (2**14, 1023, 1)],
 )
-def test_limits(n, width, raises):
+def test_limits(n, width, slices):
+    """K4's row slices: contiguous, covering the batch in order, each
+    within both limits (an integer column below 2^24, n < 2^23 for the
+    fixed-point sums), and as few as those limits allow."""
     instrument, _ = k4_case("limits", 0, decoders=(("mdd", 4, width), ("naive", 0, 0)))
     if width == 1:
         instrument.decoders[0].algorithm = "pamld"
-    if raises:
-        with pytest.raises(ValueError):
-            counters.check_limits(instrument, n)
-    else:
-        counters.check_limits(instrument, n)
+    plan = counters.row_slices(instrument, n)
+    assert len(plan) == slices
+    assert plan[0][0] == 0 and plan[-1][1] == n
+    assert all(stop == start for (_, stop), (start, _) in zip(plan, plan[1:]))
+    for start, stop in plan:
+        assert 0 < stop - start < 2**23 and (stop - start) * width < 2**24
 
+
+def test_counters_slice_a_batch_past_the_f32_limit():
+    """A batch of 2^20 + 1 rows on 16-nt decoders (the flagship's), past
+    the 2^24 at which an f32 integer column would round: K4 sums it in two
+    row slices, on the CPU as on the card, and returns float64. Its integer
+    columns equal an int64 numpy count, one distance bin past 2^24 and odd
+    among them; its confidence sums are within N * 2^-41 of the exact sum
+    plus half an f32 ulp of each slice's sum (one conversion per slice)."""
+    n = 2**20 + 1
+    instrument, arrays = k4_case("past the limit", n, decoders=(("pamld", 96, 16), ("pamld", 384, 16), ("naive", 0, 0)))
+    # every row of the cellular decoder in bin 7 at distance 16 but three
+    arrays["branch"][1] = 0
+    arrays["argmax"][1] = 7
+    arrays["decoded"][1] = np.where(arrays["branch"][1] == 0, 7, 0)
+    arrays["distance"][1] = 16
+    arrays["distance"][1][:3] = 15
+    arrays["uncertain"][:] = False
+    arrays["forced"][:] = False
+    arrays["pad"][:] = False
+    arrays["qcfail"][:] = False
+    assert counters.row_slices(instrument, n) == [(0, 2**20 - 1), (2**20 - 1, n)]
+    mine = counters.counters(instrument, *k4_tensors(arrays, "cpu"), True).numpy()
+    assert mine.dtype == np.float64
+    offset = 0
+    big = 0
+    for position, column, size in wire.counter_layout(instrument):
+        got = mine[offset : offset + size]
+        offset += size
+        dec = instrument.decoders[position]
+        valid = ~arrays["pad"]
+        pf = valid & ~arrays["qcfail"][position]
+        key = arrays["decoded"][position].astype(np.int64)
+        argmax = arrays["argmax"][position].astype(np.int64)
+        branch = arrays["branch"][position]
+        distance = np.where(valid & (key > 0) & (arrays["distance"][position] > 0), arrays["distance"][position], 0)
+        weights = {
+            "count": (key, valid), "pf_count": (key, pf), "accumulated_distance": (key, distance),
+            "accumulated_pf_distance": (key, np.where(pf, distance, 0)),
+            "low_confidence_count": (argmax, valid & (branch == 1)),
+            "low_conditional_confidence_count": (argmax, valid & (branch == 2)),
+        }
+        if column in CONFIDENCE:
+            passed = valid & (branch == 0) & (pf if column == "accumulated_pf_confidence" else True)
+            exact = np.zeros(size, np.float64)
+            np.add.at(exact, key[passed], arrays["confidence"][position][passed].astype(np.float64))
+            halves = np.zeros(size, np.float64)
+            for start, stop in counters.row_slices(instrument, n):
+                rows = passed & (np.arange(n) >= start) & (np.arange(n) < stop)
+                part = np.zeros(size, np.float64)
+                np.add.at(part, key[rows], arrays["confidence"][position][rows].astype(np.float64))
+                halves += np.spacing(part.astype(np.float32)).astype(np.float64) / 2
+            assert (np.abs(got - exact) <= n * 2.0**-41 + halves).all(), column
+            continue
+        index, weight = weights[column]
+        expected = np.zeros(size, np.int64)
+        np.add.at(expected, index, weight.astype(np.int64))
+        np.testing.assert_array_equal(got, expected.astype(np.float64), err_msg=f"{dec.algorithm} {column}")
+        big = max(big, int(expected.max()))
+    assert big > 2**24 and big % 2 == 1

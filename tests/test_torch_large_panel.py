@@ -2,7 +2,13 @@
 against the JAX reference and the float64 oracle, and the hybrid bound's
 rescale term.
 
+Also the arithmetic of the redesigned tile loop (csrc/pamld.cu) that the
+CPU can check: its sigma order, its slice plan and the slices' merge.
+
 Tolerances, each with its reason:
+  * the kernel's sigma order: within d_sigma(read) of the f64 sum of the
+    same f32 terms (the hybrid bound, which holds for any order);
+  * the sliced posterior: as the chunked one against JAX below;
   * decisions, distances, branches and qcfail: exact against the oracle
     and on every row neither side flags uncertain against JAX (a flagged
     row is re-resolved in f64 by the hybrid engine);
@@ -16,6 +22,8 @@ Tolerances, each with its reason:
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -27,10 +35,17 @@ from pheniqs_tpu.device import compile_instrument as jax_compile
 from pheniqs_tpu.device.step import make_decode_step
 from pheniqs_tpu_torch.device import classify, wire
 from pheniqs_tpu_torch.device.flagship import flagship_ontology, synthetic_batch
-from pheniqs_tpu_torch.device.instrument import LARGE_PANEL_B, carry_instrument, compile_instrument
+from pheniqs_tpu_torch.device.instrument import (
+    LARGE_PANEL_B,
+    STRICT_CODES,
+    _panel_matrices,
+    carry_instrument,
+    compile_instrument,
+)
 from pheniqs_tpu_torch.device.step import DecodeStep
 from pheniqs_tpu_torch.kernels import pamld
 from test_device_classify import make_pamld_ontology, random_panel, simulate_reads
+from test_torch_kernels import _confidence_f64
 
 
 def _t(a):
@@ -248,3 +263,164 @@ def test_large_panel_step_counters_match(large_step_case):
         else:
             np.testing.assert_array_equal(a, b, err_msg=name)
         offset += size
+
+
+# --- the redesigned tile loop (csrc/pamld.cu) ------------------------------
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.integers(0, 2**32 - 1), st.sampled_from([8, 16, 24]))
+def test_kernel_sigma_order_within_the_bound(seed, w):
+    """The tile loop's sigma order (pamld.sigma_tile_order: match terms,
+    then the read's strictness sum with qpos*U; or the interleaved loop for
+    a barcode with other codes) stays within d_sigma(read) of the f64 sum
+    of the same f32 terms, for random reads (N and IUPAC codes, qualities
+    0-41) and panels of strict and mixed barcodes."""
+    rng = np.random.default_rng(seed)
+    n, b = 24, 40
+    panel = np.array(STRICT_CODES, np.uint8)[rng.integers(4, size=(b, w))]
+    mixed = rng.random(b) < 0.3
+    panel[mixed, rng.integers(w, size=int(mixed.sum()))] = rng.choice([15, 3, 5, 12], size=int(mixed.sum()))
+    code = np.where(rng.random((n, w)) < 0.7, panel[rng.integers(b, size=n)],
+                    rng.choice([0, 1, 2, 4, 8, 15], size=(n, w))).astype(np.uint8)
+    qual = rng.integers(0, 42, size=(n, w)).astype(np.uint8)
+    mine = pamld.sigma_tile_order(_t(code), _t(qual), _t(panel)).numpy().astype(np.float64)
+    features = pamld.observation_features_plain(_t(code), _t(qual)).numpy().astype(np.float64)
+    g = _panel_matrices(panel, np.ones(b, np.float32), "cpu")[2].numpy().astype(np.float64)
+    qpos_u = (qual > 0).sum(axis=1) * np.float64(np.float32(pamld.UNIFORM_BASE_QUALITY))
+    exact = features @ g + qpos_u[:, None]
+    bound = pamld.sigma_bound(w, 0.0, torch.from_numpy(qual.astype(np.float32)).sum(dim=1)).numpy()
+    assert (np.abs(mine - exact) <= bound[:, None]).all()
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.integers(1, 2**18), st.integers(1, 800_000), st.sampled_from([512, 1024, 2048]),
+       st.sampled_from([128, 256]), st.integers(1, 1200))
+def test_slice_plan_covers_the_panel(n, barcodes, tile, reads_per_block, slots):
+    """The slice plan, a pure function of (N, B, tile, reads a block,
+    resident block slots): every column once, in order, in whole tiles,
+    each slice at least one tile; at least SLICE_WAVES waves where the
+    tiles allow, and the fewest slices that give them."""
+    plan = pamld.slice_plan(n, barcodes, tile, reads_per_block, slots)
+    columns = plan.columns()
+    assert len(columns) == plan.slices >= 1
+    assert columns[0][0] == 0 and columns[-1][1] == barcodes
+    for (_, stop), (start, _) in zip(columns, columns[1:]):
+        assert stop == start and start % tile == 0
+    assert all(stop > start for start, stop in columns)
+    tiles = -(-barcodes // tile)
+    assert plan.slices <= tiles and plan.read_blocks == -(-n // reads_per_block)
+    if plan.slices < tiles:
+        assert plan.waves >= pamld.SLICE_WAVES
+    if plan.slices > 1:
+        assert plan.read_blocks * (plan.slices - 1) / slots < pamld.SLICE_WAVES
+
+
+@pytest.mark.parametrize("barcodes,tile", [(1025, 256), (5000, 2048), (3000, 512)])
+def test_sliced_posterior_matches_chunked_and_jax(barcodes, tile):
+    """The plain posterior over the slices of a plan, merged in slice
+    order by reduce_partials (K7's algebra), against the port's chunked
+    posterior and JAX's _posterior_chunked on the same features: decisions
+    equal on the rows neither flags, confidences rtol 1e-5 there."""
+    rng = np.random.default_rng(barcodes)
+    panel = random_panel(rng, barcodes, 12)
+    instrument = compile_instrument({"sample": make_pamld_ontology(panel), "input segment cardinality": 1}, "cpu")
+    dec = instrument.decoders[0]
+    code, qual, _ = simulate_reads(rng, panel, 300, error_rate=0.08)
+    noise = rng.random(300) < 0.2
+    code[noise] = np.array(STRICT_CODES, np.uint8)[rng.integers(4, size=(int(noise.sum()), 12))]
+    qcfail = torch.from_numpy(rng.random(300) < 0.05)
+    features = pamld.observation_features_plain(_t(code), _t(qual))
+    qpos = (_t(qual) > 0).to(torch.float32).sum(dim=1) * pamld.UNIFORM_BASE_QUALITY
+    args = (features, qpos, dec.likelihood_matrix, dec.concentration, dec.noise * dec.random_barcode_probability)
+    plan = pamld.slice_plan(300, barcodes, tile, 256, 10_000)
+    assert plan.slices == -(-barcodes // tile) > 1 and barcodes % tile
+    sliced = pamld.posterior_sliced_plain(*args, plan.columns())
+    theirs = jax_classify._posterior_chunked(*(jnp.asarray(x.numpy()) for x in args[:4]), args[4])
+    posteriors = {
+        "sliced": sliced,
+        "chunked": pamld.posterior_chunked_plain(*args),
+        "jax": tuple(torch.from_numpy(np.asarray(x).copy()) for x in theirs),
+    }
+    eps = instrument.tpq_analytic_eps
+    results = {
+        name: pamld.finish_plain(dec, _t(code), _t(qual), qcfail, (post[0].to(torch.int64),) + tuple(post[1:]),
+                                 want_uncertain=True, eps=eps)
+        for name, post in posteriors.items()
+    }
+    mine = results["sliced"]
+    for name in ("chunked", "jax"):
+        other = results[name]
+        settled = ~(mine["uncertain"] | other["uncertain"])
+        assert settled.float().mean() > 0.5
+        for key in ("decoded", "argmax", "distance", "branch", "qcfail"):
+            assert torch.equal(mine[key][settled], other[key][settled]), (name, key)
+        np.testing.assert_allclose(mine["confidence"][settled].numpy(), other["confidence"][settled].numpy(),
+                                   rtol=1e-5, atol=0, err_msg=name)
+
+
+def _sigma_f64(dec, code, qual) -> torch.Tensor:
+    """sigma (N, B) from the float64 sums of the same f32 terms, F.G + qpos*U."""
+    features = pamld.observation_features_plain(_t(code), _t(qual)).to(torch.float64)
+    qpos_u = torch.from_numpy((qual > 0).sum(axis=1)) * float(np.float32(pamld.UNIFORM_BASE_QUALITY))
+    return features @ dec.likelihood_matrix.to(torch.float64) + qpos_u[:, None]
+
+
+@pytest.mark.parametrize("barcodes,width", [(1025, 12), (5000, 12), (3000, 10), (5000, 16)])
+def test_tile_order_matches_plain_and_jax(barcodes, width):
+    """pamld_classify_tile_order (the tile loop's own arithmetic, which
+    chip_smoke holds the kernel to on every row) against the plain version
+    (pamld_classify_plain) and JAX's _posterior_chunked, each finished by
+    finish_plain, on reads near the panel, random reads and reads of flat
+    qualities (exact ties): decisions equal on the rows neither flags; a
+    row whose decisions differ anywhere is a near tie in f64 (tie_gaps:
+    the two best barcodes within lambda * 2 d_sigma), with no other row
+    differing; confidences rtol 1e-5 of the f64 posterior of the same f32
+    terms, each, on settled rows; and rtol 1e-5 of each other there at W
+    <= 12. At W = 16 the tile order's sigma, M + C with M and C both of
+    about the read's quality sum, lies up to ~7e-6 of a low confidence
+    from exact where the contraction lies ~4e-6, so the two may differ by
+    more than 1e-5 of each other; each is held to the f64 value instead."""
+    rng = np.random.default_rng(barcodes + width)
+    n = 400
+    panel = random_panel(rng, barcodes, width)
+    instrument = compile_instrument({"sample": make_pamld_ontology(panel), "input segment cardinality": 1}, "cpu")
+    dec = instrument.decoders[0]
+    code, qual, _ = simulate_reads(rng, panel, n, error_rate=0.08)
+    noise = rng.random(n) < 0.3
+    code[noise] = np.array(STRICT_CODES, np.uint8)[rng.integers(4, size=(int(noise.sum()), width))]
+    qual[rng.random(n) < 0.3] = 30
+    qcfail = torch.from_numpy(rng.random(n) < 0.05)
+    kwargs = dict(want_uncertain=True, eps=instrument.tpq_analytic_eps)
+    twin = pamld.pamld_classify_tile_order(dec, _t(code), _t(qual), qcfail, **kwargs)
+    features = pamld.observation_features_plain(_t(code), _t(qual))
+    qpos = (_t(qual) > 0).to(torch.float32).sum(dim=1) * pamld.UNIFORM_BASE_QUALITY
+    theirs = jax_classify._posterior_chunked(
+        *(jnp.asarray(x.numpy()) for x in (features, qpos, dec.likelihood_matrix, dec.concentration)),
+        dec.noise * dec.random_barcode_probability,
+    )
+    post = tuple(torch.from_numpy(np.asarray(x).copy()) for x in theirs)
+    others = {
+        "plain": pamld.pamld_classify_plain(dec, _t(code), _t(qual), qcfail, **kwargs),
+        "jax": pamld.finish_plain(dec, _t(code), _t(qual), qcfail, (post[0].to(torch.int64),) + post[1:], **kwargs),
+    }
+    exact = _confidence_f64(dec, _sigma_f64(dec, code, qual)).numpy()
+    keys = ("decoded", "argmax", "distance", "branch", "qcfail")
+    for name, other in others.items():
+        settled = ~(twin["uncertain"] | other["uncertain"])
+        assert settled.float().mean() > 0.8
+        differs = torch.zeros(n, dtype=torch.bool)
+        for key in keys:
+            assert torch.equal(twin[key][settled], other[key][settled]), (name, key)
+            differs |= twin[key] != other[key]
+        rows = differs.nonzero()[:, 0]
+        gap, window = pamld.tie_gaps(dec, _t(code)[rows], _t(qual)[rows], twin["argmax"][rows] - 1,
+                                     other["argmax"][rows] - 1)
+        assert bool((twin["argmax"][rows] != other["argmax"][rows]).all()), name
+        assert bool((gap <= window).all()), (name, gap, window)
+        held = (settled & (twin["confidence"] > 0)).numpy()
+        for side in (twin, other):
+            np.testing.assert_allclose(side["confidence"].numpy()[held], exact[held], rtol=1e-5, atol=0, err_msg=name)
+        if width <= 12:
+            np.testing.assert_allclose(twin["confidence"].numpy()[held], other["confidence"].numpy()[held],
+                                       rtol=1e-5, atol=0, err_msg=name)
