@@ -5,7 +5,10 @@
     python3 chip_smoke.py --nccl     # on a host with >= 2 cards: only the
                                      # PHENIQS_TP run over NCCL and its strict
                                      # reference
-    python3 chip_smoke.py --times T  # only the tile loop's device times, the
+    python3 chip_smoke.py --times T  # only the tile loop's and the decode
+                                     # steps' device times, the plan's
+                                     # choice at batch sizes from 16384 to
+                                     # 262144 and K1's slice unit, the
                                      # package imported from tree T, a copy
                                      # of another commit inside this checkout
 
@@ -29,7 +32,11 @@ any failure propagates and the exit code is not 0:
                   layout and the general gather), on the MDD flagship (K6
                   byte-exact, also at tolerance 2 with quality masking and
                   short reads) and on a 4096-barcode cellular panel (K7);
-                  K1 and K7 launched twice, byte-identical; the uncertain
+                  K1 and K7 launched twice, byte-identical; the sliced K1
+                  held to its one-launch instance on the same batch
+                  (sliced_vs_one_launch: argmax, decoded and distance
+                  bit-equal, the rest apart only at the confidence
+                  threshold, counted); the uncertain
                   flags of K1, K7 and the whole step held to the plain
                   version's (check_flags), K4 twice and against
                   its plain version byte for byte, the GPU-measured TPQ
@@ -41,10 +48,9 @@ any failure propagates and the exit code is not 0:
                   multiple of a block's share, 737,281 bins, a batch K4
                   sums in row slices) and its shared-memory threshold
                   sweep; the tile loop as the card runs it (registers,
-                  spills and blocks/SM of each instance; the slices and
-                  waves of each panel, tile_loop_report); then every
-                  kernel of the
-                  whitelist's decode step (K3, K7 at 737,280 barcodes, K4
+                  spills and blocks/SM of each instance; the slices, cuts
+                  and waves of each panel, K1's included, tile_loop_report);
+                  then every kernel of the whitelist's decode step (K3, K7 at 737,280 barcodes, K4
                   over 737,281 bins, timed, K5's int32 index), where the
                   bound flags nearly every row and the decisions are held
                   on all rows (each differing row a near tie in f64, but
@@ -435,6 +441,39 @@ def unpack_checks(n: int):
     say(f"[kernels] K3 byte-exact on the 6/2/4/j4 wires with the general gather (N={n})")
 
 
+def sliced_vs_one_launch(dec, instrument, codes, quals, qcfail, short) -> str:
+    """The sliced K1 against its one-launch instance on the same batch
+    (pamld.against_one_launch): argmax, decoded and distance bit-equal on
+    every row, confidences within 2*gamma(B+2) + 8u, and branch, qcfail and
+    uncertain apart only on rows whose confidences straddle ct or an edge
+    of its uncertain margin (within pamld.EDGE_ULPS ulps); those rows are
+    counted. Returns the report."""
+    from pheniqs_tpu_torch.kernels import pamld
+
+    name = f"K1 B={dec.barcode_count}"
+    n = codes.shape[0]
+    held = pamld.against_one_launch(dec, codes, quals, qcfail, short, instrument.tpq_constants,
+                                    instrument.tpq_analytic_eps)
+    plan = held["plan"]
+    if plan.slices == 1:
+        raise AssertionError(f"{name} N={n}: the sliced plan keeps one slice ({plan})")
+    for key, rows in held["unequal"].items():
+        if rows:
+            raise AssertionError(f"{name}: sliced and one-launch {key} differ on {rows} rows")
+    if held["relative"] > held["tolerance"]:
+        raise AssertionError(f"{name}: sliced and one-launch confidences {held['relative']:.3e} apart"
+                             f" (at most {held['tolerance']:.3e})")
+    if held["unexplained"]:
+        raise AssertionError(f"{name}: sliced and one-launch branch/qcfail/uncertain differ on"
+                             f" {held['unexplained']} rows whose confidences are not within {pamld.EDGE_ULPS}"
+                             " ulps of ct or its margin")
+    return (f"sliced ({plan.slices} slices of {plan.cut}-barcode cuts, 3 launches) vs one launch: argmax, decoded"
+            f" and distance bit-equal on {n} rows; confidence differs on {held['moved']} rows, max relative"
+            f" {held['relative']:.3e} (at most {held['tolerance']:.3e}, {held['relative'] / pamld.U32:.1f} u);"
+            f" branch/qcfail/uncertain differ on {held['differs']} rows, each within {pamld.EDGE_ULPS} ulps of"
+            f" ct or its margin ({held['at_edge']} rows of moved confidence sit there)")
+
+
 def classify_pair(dec, instrument, codes, quals, lengths, qcfail, short, out, bounded=True) -> dict:
     """One decoder's classify kernel (K1, K7 or K6) against its plain
     version on the same tokens, each called once (CUDA-event times `ms`
@@ -450,7 +489,10 @@ def classify_pair(dec, instrument, codes, quals, lengths, qcfail, short, out, bo
     decisions differing on at most WIDE_DISAGREE_LIMIT of the rows. MDD:
     every output byte-identical.
     Returns {max_abs_err (confidence), ms, plain_ms, plain, differs_plain
-    (rows whose decisions differ from the plain version's), line}."""
+    (rows whose decisions differ from the plain version's), line}. K1's
+    sliced launches are also held to its one-launch instance on the same
+    tokens (sliced_vs_one_launch), whichever of the two the card's plan
+    takes."""
     import torch
 
     from pheniqs_tpu_torch.kernels import mdd, pamld
@@ -475,6 +517,9 @@ def classify_pair(dec, instrument, codes, quals, lengths, qcfail, short, out, bo
     for key in mine:
         if not torch.equal(mine[key], again[key]):
             raise AssertionError(f"{name}: two launches differ in {key} on {int((mine[key] != again[key]).sum())} rows")
+    one_launch = ""
+    if dec.barcode_count <= pamld.LARGE_PANEL_B:
+        one_launch = "; " + sliced_vs_one_launch(dec, instrument, codes, quals, qcfail, short)
     plain, plain_ms = once_ms(lambda: pamld.pamld_classify_plain(dec, codes, quals, qcfail, **kwargs))
     disagree, extra = check_flags(name, mine["uncertain"], plain["uncertain"], short,
                                   FLAG_EXTRA_LIMIT if bounded else 1.0)
@@ -532,7 +577,7 @@ def classify_pair(dec, instrument, codes, quals, lengths, qcfail, short, out, bo
                 f"two launches byte-identical; {rows} {float(held.float().mean()):.4%}, flagged"
                 f" {float(mine['uncertain'].float().mean()):.4%} (short {float(short.float().mean()):.4%},"
                 f" beyond short {extra} rows), flag disagreement {disagree} of {n} rows,"
-                f" confidence max |diff| {err:.3e} (relative {relative:.3e}) on those rows{note}"
+                f" confidence max |diff| {err:.3e} (relative {relative:.3e}) on those rows{note}{one_launch}"
             )}
 
 
@@ -947,9 +992,11 @@ def tile_loop_report(n: int, panels) -> dict:
     """The tile loop as the card runs it (csrc/pamld.cu phq_pamld_info):
     per instance (MAXW 16, 32, 64; classify, stage A, stage B) its
     registers, local (spill) bytes and resident blocks per SM; threads,
-    reads and barcodes a step; and for each panel of `panels` at `n` reads
-    the slice plan: slices, blocks and waves. Returns the plan's keys of
-    the largest panel for the kernels line."""
+    reads and barcodes a step, tiles and the slice unit; and for each panel
+    of `panels` at `n` reads the slice plan as pamld_classify runs it (K1's
+    panels too): slices, their cut (a whole tile or the unit), blocks,
+    resident slots and waves. Returns {B: the plan's keys} for the kernels
+    line."""
     import torch
 
     from pheniqs_tpu_torch.kernels import pamld
@@ -960,18 +1007,143 @@ def tile_loop_report(n: int, panels) -> dict:
         parts = ", ".join(f"{name} {blocks} blocks/SM, {registers} registers, {local} B local"
                           for name, (blocks, registers, local) in loop.instances.items())
         say(f"[kernels] tile loop MAXW={loop.maxw}: {loop.threads} threads x {loop.reads_per_block // loop.threads}"
-            f" reads a block, {loop.unroll} barcodes a step, tiles of {loop.tile} barcodes, {loop.sms} SMs; {parts}")
+            f" reads a block, {loop.unroll} barcodes a step, tiles of {loop.tile} barcodes, slices cut below a tile"
+            f" at {loop.unit}, {loop.sms} SMs; {parts}")
     loop = pamld.tile_loop(16, cuda)
-    keys = {}
+    plans = {}
     for barcodes in panels:
         plan = pamld.plan_for(n, barcodes, 16, cuda)
-        slots = plan.slots if plan.slices > 1 else loop.sms * loop.instances["classify"][0]
+        instance = "stage B" if plan.slices > 1 else "classify"
+        slots = loop.sms * loop.instances[instance][0]
         waves = plan.read_blocks * plan.slices / slots
-        say(f"[kernels] B={barcodes} W=16 N={n}: {plan.slices} slices of {plan.tiles} tiles, {plan.read_blocks} x"
-            f" {plan.slices} blocks over {slots} resident slots, {waves:.2f} waves")
-        keys = {"slices": plan.slices, "waves": waves, "blocks_per_sm": slots // loop.sms,
-                "registers": loop.instances["stage B" if plan.slices > 1 else "classify"][1]}
-    return keys
+        if plan.slices == 1:
+            layout = "one launch"
+        else:
+            cut = "whole tiles" if plan.cut == plan.tile else "units"
+            layout = f"{plan.slices} slices of {plan.cuts} {cut} of {plan.cut} barcodes"
+        say(f"[kernels] B={barcodes} W=16 N={n}: {layout}, {plan.read_blocks} x {plan.slices} blocks over {slots}"
+            f" resident slots ({instance}), {waves:.2f} waves, {1 if plan.slices == 1 else 3} launches")
+        plans[barcodes] = {"slices": plan.slices, "cut": plan.cut, "waves": waves, "blocks_per_sm": slots // loop.sms,
+                           "registers": loop.instances[instance][1]}
+        if plan.slices == 1 and barcodes <= loop.tile:
+            alternative = pamld.sliced_plan(n, barcodes, 16, cuda)
+            say(f"[kernels] B={barcodes} W=16 N={n}: one launch fills its slots as well as slices; sliced it would be"
+                f" {alternative.slices} slices of {alternative.cut} barcodes, {alternative.waves:.2f} waves")
+            plans[barcodes]["sliced"] = {"slices": alternative.slices, "cut": alternative.cut,
+                                         "waves": alternative.waves}
+    return plans
+
+
+def pamld_observations(ontology, n: int, seed: int):
+    """(instrument, [(dec, codes, quals, qcfail, short)] for each PAMLD
+    decoder) of a j4 batch of `n` reads of `ontology` on the card, unpacked
+    by K3's plain version."""
+    import torch
+
+    from pheniqs_tpu_torch.device import wire
+    from pheniqs_tpu_torch.device.instrument import compile_instrument
+    from pheniqs_tpu_torch.device.step import DecodeStep
+    from pheniqs_tpu_torch.kernels import unpack
+
+    cuda = torch.device("cuda")
+    instrument = compile_instrument(ontology, cuda)
+    widths, *arrays = flagship_blob(ontology, instrument, n, seed=seed)
+    blob, ccb, qcb = (torch.from_numpy(x).to(cuda) for x in arrays)
+    layout = DecodeStep(instrument, widths, wire.JOINT4, want_uncertain=True).layout
+    tokens = unpack.unpack_tokens_plain(instrument, layout, blob, ccb=ccb, qcb=qcb)
+    observations = []
+    slot = 0
+    for dec in instrument.decoders:
+        if dec.algorithm not in ("pamld", "mdd"):
+            continue
+        codes, quals, _, short = tokens.observation(layout, slot)
+        slot += 1
+        if dec.algorithm == "pamld":
+            observations.append((dec, codes, quals, tokens.qcfail, short))
+    return instrument, observations
+
+
+#: the slice counts of the cut sweep at B = 96 (each a divisor: slices of
+#: equal width), for the per-slice cost of a block's prologue
+SWEEP_SLICES = (1, 2, 3, 4, 6, 8, 12)
+
+
+def kernel_breakdown(fn, reps: int = 10) -> dict:
+    """Device milliseconds per call of `fn` by kernel, from torch.profiler
+    over `reps` calls: {kernel name without its arguments: ms}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for event in prof.key_averages():
+        if event.self_device_time_total > 0:
+            name = event.key.split("(")[0].replace("void ", "")
+            times[name] = times.get(name, 0.0) + event.self_device_time_total / 1000.0 / reps
+    return times
+
+
+def slice_cut_sweep(n: int = N_KERNEL) -> dict:
+    """What the slice unit of K1 trades, on the flagship's panels at `n`
+    reads (device time of one pamld_classify call, every launch it makes):
+    at B = 96 the panel in S slices of 96 / S barcodes for each S of
+    SWEEP_SLICES, and a line fitted over S >= 2: its slope is what one more
+    slice costs (the per-block prologue of every read block in stages A
+    and B: TPQ table, the reads' loads and features, the shift rows, the
+    tile load, the partials written; and stage C's reads of one more
+    slice), its intercept the arithmetic; then at B = 96 and 384 the plan
+    a unit of 16, 32, 48 or 64 barcodes would give; and the device time by
+    kernel of the one-launch instance and of the sliced plan at B = 96 and
+    384. Returns the times and the fit for the kernels line."""
+    import dataclasses
+
+    import numpy as np
+
+    from pheniqs_tpu_torch.device.flagship import flagship_ontology
+    from pheniqs_tpu_torch.kernels import pamld
+
+    instrument, observations = pamld_observations(flagship_ontology(), n, seed=384)
+    loop = pamld.tile_loop(16, instrument.device)
+    read_blocks = -(-n // loop.reads_per_block)
+    result = {"forced": [], "units": [], "by_kernel": {}}
+
+    def call(dec, codes, quals, qcfail, short, plan):
+        return lambda: pamld._classify_launches(
+            dec, codes, quals, qcfail, short, instrument.tpq_constants, True, instrument.tpq_analytic_eps, None,
+            plan=plan)
+
+    for dec, codes, quals, qcfail, short in observations:
+        b = dec.barcode_count
+        if b == 96:
+            for slices in SWEEP_SLICES:
+                plan = pamld.SlicePlan(slices, b, loop.tile, read_blocks, loop.slots, b // slices)
+                ms = device_ms(call(dec, codes, quals, qcfail, short, plan))
+                result["forced"].append({"slices": slices, "cut": b // slices, "waves": plan.waves, "ms": ms})
+                say(f"[kernels] cut sweep B={b} N={n}: {slices} slices of {b // slices} barcodes, {plan.waves:.2f}"
+                    f" waves, {ms:.4f} ms (device time)")
+            fit = [(r["slices"], r["ms"]) for r in result["forced"] if r["slices"] >= 2]
+            slope, intercept = np.polyfit([x for x, _ in fit], [y for _, y in fit], 1)
+            result["per_slice_ms"], result["arithmetic_ms"] = float(slope), float(intercept)
+            say(f"[kernels] cut sweep B={b} N={n}: a line over S >= 2 slices: {slope:.5f} ms a slice (the"
+                f" prologues of {read_blocks} read blocks in stages A and B, stage C's reads) + {intercept:.4f} ms")
+        for unit in (16, 32, 48, 64):
+            plan = pamld.slice_plan(n, b, loop.tile, loop.reads_per_block, loop.slots, unit)
+            ms = device_ms(call(dec, codes, quals, qcfail, short, plan))
+            result["units"].append({"barcodes": b, "unit": unit, "slices": plan.slices, "waves": plan.waves, "ms": ms})
+            say(f"[kernels] cut sweep B={b} N={n}: a unit of {unit} gives {plan.slices} slices, {plan.waves:.2f}"
+                f" waves, {ms:.4f} ms (device time)")
+        plan = pamld.sliced_plan(n, b, codes.shape[1], codes.device)
+        for label, chosen in (("one launch", dataclasses.replace(plan, slices=1)), ("sliced", plan)):
+            parts = kernel_breakdown(call(dec, codes, quals, qcfail, short, chosen))
+            result["by_kernel"][f"B={b} {label}"] = parts
+            say(f"[kernels] cut sweep B={b} N={n} {label} ({chosen.slices} slices), device time by kernel: "
+                + ", ".join(f"{name} {ms:.4f} ms" for name, ms in parts.items()))
+    return result
 
 
 def kernel_checks(n: int = N_KERNEL, timed: bool = True) -> dict:
@@ -1378,39 +1550,147 @@ def nccl_only(card: str, threads: int) -> int:
     return 0
 
 
+#: batch sizes of the plan's one-launch-or-slices sweep (slice_rule_times):
+#: the CLI's default batch (16384), the TP phase's 20,000 reads, and
+#: 0.24-1.94 waves of the one-launch instance's 528 slots (4 blocks/SM)
+RULE_READS = (16384, 20000, 32768, 65536, 98304, 131072, 196608, 262144)
+#: batch sizes at which a K8 shard of 2048 barcodes (PHENIQS_TP=1:2 over a
+#: 4096-barcode panel) is timed as planned and in whole tiles
+RULE_SHARD_READS = (16384, 20000)
+
+
+def slice_rule_times(takes_plan: bool) -> dict:
+    """What the tile loop's plan chooses between on a panel of one tile, as
+    the package imported from the tree plans it, device time of one call
+    (every launch it makes): K1 on the flagship's 96- and 384-barcode
+    panels at each batch size of RULE_READS (`plan`) and, where the tree
+    takes a plan (`takes_plan`: _classify_launches' `plan`), forced to one
+    launch (`one`) and to the slices below a tile (`sliced`,
+    pamld.sliced_plan); and one shard of 2048 barcodes of a 4096-barcode
+    cellular panel (K8 stages A and B and the shard's merge, as
+    PHENIQS_TP=1:2 runs it) at RULE_SHARD_READS, as planned and, where the
+    tree cuts below a tile, in whole tiles (one slice, the plan before the
+    unit). Returns {"K1 B=b N=n plan|one|sliced": ms, "K8 2048 N=n
+    plan|whole": ms}."""
+    import dataclasses
+
+    from pheniqs_tpu_torch.device import tp
+    from pheniqs_tpu_torch.device.flagship import flagship_ontology
+    from pheniqs_tpu_torch.kernels import pamld
+
+    times = {}
+    instrument, observations = pamld_observations(flagship_ontology(), max(RULE_READS), seed=16384)
+    for dec, codes, quals, qcfail, short in observations:
+        b = dec.barcode_count
+        for n in RULE_READS:
+            args = (dec, codes[:n], quals[:n], qcfail[:n], short[:n], instrument.tpq_constants, True,
+                    instrument.tpq_analytic_eps, None)
+            times[f"K1 B={b} N={n} plan"] = device_ms(lambda: pamld._classify_launches(*args))
+            if takes_plan:
+                sliced = pamld.sliced_plan(n, b, codes.shape[1], codes.device)
+                times[f"K1 B={b} N={n} one"] = device_ms(
+                    lambda: pamld._classify_launches(*args, plan=dataclasses.replace(sliced, slices=1)))
+                times[f"K1 B={b} N={n} sliced"] = device_ms(lambda: pamld._classify_launches(*args, plan=sliced))
+                say(f"[times] K1 B={b} N={n}: as planned {times[f'K1 B={b} N={n} plan']:.4f} ms"
+                    f" ({pamld.plan_for(n, b, codes.shape[1], codes.device).slices} slices), one launch"
+                    f" {times[f'K1 B={b} N={n} one']:.4f} ms, {sliced.slices} slices of {sliced.cut} barcodes"
+                    f" {times[f'K1 B={b} N={n} sliced']:.4f} ms")
+    instrument, observations = pamld_observations(flagship_ontology(cellular_barcodes=K7_PANEL),
+                                                  max(RULE_SHARD_READS), seed=K7_PANEL)
+    dec, codes, quals, qcfail, short = observations[1]
+    shard = [tp.shard_panel(dec, 0, 2)]
+    kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True, eps=instrument.tpq_analytic_eps)
+    planned = pamld.plan_for
+    for n in RULE_SHARD_READS:
+        def call():
+            return pamld.pamld_classify_sharded(dec, shard, codes[:n], quals[:n], None, finish=False,
+                                                short=short[:n], **kwargs)
+
+        times[f"K8 {shard[0].count} N={n} plan"] = device_ms(call)
+        if takes_plan:
+            loop = pamld.tile_loop(codes.shape[1], codes.device)
+            # the plan before the unit: slices of whole tiles only
+            pamld.plan_for = lambda n, barcodes, w, device: pamld.slice_plan(
+                n, barcodes, loop.tile, loop.reads_per_block, loop.slots, loop.tile)
+            try:
+                times[f"K8 {shard[0].count} N={n} whole"] = device_ms(call)
+            finally:
+                pamld.plan_for = planned
+            say(f"[times] K8 shard of {shard[0].count} N={n}: as planned"
+                f" ({planned(n, shard[0].count, codes.shape[1], codes.device).slices} slices)"
+                f" {times[f'K8 {shard[0].count} N={n} plan']:.4f} ms, whole tiles (1 slice)"
+                f" {times[f'K8 {shard[0].count} N={n} whole']:.4f} ms")
+    return times
+
+
 def kernel_times(card: str, tree: str):
-    """--times: the device time of one pamld_classify call (every launch
-    it makes) at N_KERNEL reads of the flagship, on its 96- and
-    384-barcode panels (K1), on a 1024-barcode cellular panel (K1) and on
-    a K7_PANEL one (K7), with the package imported from `tree`: two trees
-    compared in one call (parent, change, change, parent). One JSON line."""
+    """--times: with the package imported from `tree`, at N_KERNEL reads,
+    the device time of one pamld_classify call (every launch it makes) on
+    the flagship's 96- and 384-barcode panels (K1), on a 1024-barcode
+    cellular panel (K1) and on a K7_PANEL one (K7); the flagship's and the
+    MDD flagship's whole decode step; and, one call each with CUDA events,
+    K7 and K8 at P = 2 and 4 on a synthetic panel of the whitelist's size
+    (random codes from a seed); the plan's choice on panels of one tile
+    (slice_rule_times); and, where the tree takes a plan, K1's slice unit
+    (slice_cut_sweep). The steps are also timed with CUDA events over 10
+    and, three times, over 200 back-to-back calls: their launches, not the
+    card, bound them. Two trees are compared in one call (parent, change,
+    change, parent). One JSON line."""
+    import dataclasses
+    import inspect
+
+    import numpy as np
     import torch
 
-    from pheniqs_tpu_torch.device import wire
-    from pheniqs_tpu_torch.device.flagship import flagship_ontology
-    from pheniqs_tpu_torch.device.instrument import LARGE_PANEL_B, compile_instrument
+    from pheniqs_tpu_torch.device import tp, wire
+    from pheniqs_tpu_torch.device.flagship import flagship_ontology, mdd_flagship_ontology
+    from pheniqs_tpu_torch.device.instrument import LARGE_PANEL_B, _panel_matrices, compile_instrument
     from pheniqs_tpu_torch.device.step import DecodeStep
-    from pheniqs_tpu_torch.kernels import pamld, unpack
+    from pheniqs_tpu_torch.kernels import pamld
 
-    cuda = torch.device("cuda")
     times = {}
     for cellular in (384, LARGE_PANEL_B, K7_PANEL):
-        ontology = flagship_ontology(cellular_barcodes=cellular)
-        instrument = compile_instrument(ontology, cuda)
-        widths, *arrays = flagship_blob(ontology, instrument, N_KERNEL, seed=cellular)
-        blob, ccb, qcb = (torch.from_numpy(x).to(cuda) for x in arrays)
-        layout = DecodeStep(instrument, widths, wire.JOINT4, want_uncertain=True).layout
-        tokens = unpack.unpack_tokens_plain(instrument, layout, blob, ccb=ccb, qcb=qcb)
-        slot = 0
-        for dec in instrument.decoders:
-            if dec.algorithm not in ("pamld", "mdd"):
-                continue
-            codes, quals, _, short = tokens.observation(layout, slot)
-            slot += 1
-            if dec.algorithm == "pamld" and f"B={dec.barcode_count}" not in times:
+        instrument, observations = pamld_observations(flagship_ontology(cellular_barcodes=cellular), N_KERNEL,
+                                                      seed=cellular)
+        for dec, codes, quals, qcfail, short in observations:
+            if f"B={dec.barcode_count}" not in times:
                 times[f"B={dec.barcode_count}"] = device_ms(lambda: pamld.pamld_classify(
-                    dec, codes, quals, tokens.qcfail, tpq_constants=instrument.tpq_constants,
+                    dec, codes, quals, qcfail, tpq_constants=instrument.tpq_constants,
                     want_uncertain=True, eps=instrument.tpq_analytic_eps, short=short))
+    cuda = torch.device("cuda")
+    for label, ontology in (("flagship", flagship_ontology()), ("mdd flagship", mdd_flagship_ontology())):
+        instrument = compile_instrument(ontology, cuda)
+        widths, *arrays = flagship_blob(ontology, instrument, N_KERNEL, seed=96)
+        blob, ccb, qcb = (torch.from_numpy(x).to(cuda) for x in arrays)
+        step = DecodeStep(instrument, widths, wire.JOINT4, want_uncertain=True)
+        times[f"{label} step"] = device_ms(lambda: step(blob, ccb, qcb))
+        times[f"{label} step events"] = event_ms(lambda: step(blob, ccb, qcb))
+        times[f"{label} step events x200"] = [event_ms(lambda: step(blob, ccb, qcb), reps=200) for _ in range(3)]
+    # K7 and K8 at the whitelist's 737,280 x 16 nt, the flagship cellular
+    # decoder's parameters on a random panel
+    rng = np.random.default_rng(737)
+    panel = np.array([1, 2, 4, 8], np.uint8)[rng.integers(4, size=(737_280, 16))]
+    instrument, observations = pamld_observations(flagship_ontology(), N_KERNEL, seed=737)
+    dec, codes, _, qcfail, short = observations[1]
+    wide = dataclasses.replace(dec, barcode_count=panel.shape[0], **dict(zip(
+        ("panel_codes", "panel_codes_u8", "likelihood_matrix", "concentration"),
+        _panel_matrices(panel, np.full(panel.shape[0], 0.95 / panel.shape[0]), cuda))))
+    reads = torch.from_numpy(panel[rng.integers(panel.shape[0], size=N_KERNEL)]).to(cuda)
+    errors = torch.from_numpy(rng.random((N_KERNEL, 16)) < 0.05).to(cuda)
+    codes = torch.where(errors, torch.roll(reads, 1, dims=1), reads).contiguous()
+    quals = torch.from_numpy(rng.integers(2, 42, size=(N_KERNEL, 16)).astype(np.uint8)).to(cuda)
+    kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True, eps=instrument.tpq_analytic_eps,
+                  short=short)
+    pamld.pamld_classify(wide, codes, quals, qcfail, **kwargs)
+    times["K7 whitelist"] = once_ms(lambda: pamld.pamld_classify(wide, codes, quals, qcfail, **kwargs))[1]
+    for panels in K8_PANELS:
+        shards = [tp.shard_panel(wide, rank, panels) for rank in range(panels)]
+        times[f"K8 P={panels} shard"] = once_ms(lambda: pamld.pamld_classify_sharded(
+            wide, shards[:1], codes, quals, None, finish=False, **kwargs))[1]
+    takes_plan = "plan" in inspect.signature(pamld._classify_launches).parameters
+    times.update(slice_rule_times(takes_plan))
+    if takes_plan:
+        times["cut sweep"] = slice_cut_sweep()
     say(json.dumps({"tree": tree, "card": card, "n": N_KERNEL, "device_ms": times}))
 
 
@@ -1454,9 +1734,10 @@ def main() -> int:
         k4_edge_checks()
         sweep = k4_threshold_sweep()
         whitelist = Whitelist()
-        plan = tile_loop_report(N_KERNEL, (96, 384, LARGE_PANEL_B, K7_PANEL, whitelist.decoder.barcode_count))
+        plans = tile_loop_report(N_KERNEL, (96, 384, LARGE_PANEL_B, K7_PANEL, whitelist.decoder.barcode_count))
+        measured["pamld_classify"]["extra"] = {"plans": {str(b): plans[b] for b in (96, 384, LARGE_PANEL_B)}}
         wide = whitelist_checks(whitelist)
-        measured["pamld_chunked"] = dict(wide["pamld_chunked"], extra=plan)
+        measured["pamld_chunked"] = dict(wide["pamld_chunked"], extra=plans[whitelist.decoder.barcode_count])
         k4_wide = wide["counters"]
         measured["counters"]["extra"] = {
             "peak_bytes": measured["counters"]["peak_bytes"],

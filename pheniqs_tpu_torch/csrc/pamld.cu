@@ -27,22 +27,38 @@
 //
 // What the design does about the arithmetic:
 //  - Slices. The grid is (read blocks x S slices); slice s takes a
-//    contiguous run of whole tiles of the panel (tiles [s*T/S, (s+1)*T/S)
-//    of T). S is derived from the shapes and the card (kernels/pamld.py
-//    slice_plan: the smallest S giving >= 4 waves of the resident block
-//    slots phq_pamld_info reports, each slice at least one tile), so a
-//    batch of any size fills the 132 SMs. Stage A (PHQ_MODE_SLICE_MIN)
-//    writes each slice's row minimum, stage B (PHQ_MODE_SLICE_POSTERIOR)
-//    takes the minimum over the slices in its prologue (exact in any order)
-//    and writes each slice's five partials in that frame, and the merge
-//    kernel (stage C) combines the slices in slice order by the rules of
-//    device/tp.py:reduce_partials (totals summed in slice order, MAX of the
-//    best, the first global index among its holders, MIN of sigma on the
-//    holder, MAX of the runner-up) and runs phq_pamld_finish. No atomics:
-//    two launches give the same bytes. K8 runs stages A and B on its shard
-//    with the same slices and the merge without the finish, before the
-//    merges across ranks. A panel of one tile (K1) runs both passes in one
-//    launch (PHQ_MODE_CLASSIFY), loading the tile once.
+//    contiguous run of the panel's columns cut at multiples of `cut`
+//    barcodes (cuts [s*C/S, (s+1)*C/S) of C = ceil(B/cut)). The cut is a
+//    whole tile (PhqPamldShape::tile_b) where whole tiles give the waves,
+//    as at a whitelist; else PHQ_PAMLD_SLICE_UNIT, so that a panel of one
+//    tile, K1's, is sliced too. S and the cut come from the shapes and the
+//    card (kernels/pamld.py slice_plan: the smallest S giving >= 4 waves of
+//    the resident block slots phq_pamld_info reports, each slice at least
+//    one cut; one slice for a panel of one tile whose batch already fills
+//    3/4 of the one-launch instance's last wave, where slices would only
+//    add their prologues and the merge), so a batch of any size fills the
+//    132 SMs. Inside a slice
+//    the tiles are still loaded tile_b barcodes at a time (a slice narrower
+//    than a tile is one load, one __syncthreads). Stage A
+//    (PHQ_MODE_SLICE_MIN) writes each slice's row minimum, stage B
+//    (PHQ_MODE_SLICE_POSTERIOR) takes the minimum over the slices in its
+//    prologue (exact in any order) and writes each slice's five partials in
+//    that frame, and the merge kernel (stage C) combines the slices in
+//    slice order by the rules of device/tp.py:reduce_partials (totals
+//    summed in slice order, MAX of the best, the first global index among
+//    its holders, MIN of sigma on the holder, MAX of the runner-up) and
+//    runs phq_pamld_finish. No atomics: two launches give the same bytes.
+//    The merge gives the one-pass loop's best, index, runner-up and sigma
+//    of the best bit for bit (maxima and minima are exact in any order);
+//    only the posterior's total is summed in another tree, per slice and
+//    then over the slices, which the hybrid bound's gamma_b term covers:
+//    2*gamma_{B+2} bounds any summation tree of the B positive terms. K8
+//    runs stages A and B on its shard with the same slices and the merge
+//    without the finish, before the merges across ranks. A panel of one
+//    slice runs both passes in one launch (PHQ_MODE_CLASSIFY), loading its
+//    tile once; its prologue fetches the reads' bytes as words before the
+//    TPQ table's barriers and K2 compares four positions a step, which
+//    keep it at 4 blocks/SM on the H100 (W <= 16).
 //  - Packed compares. A read keeps its codes as 32-bit words, four
 //    positions each, holding a position's code only where it is A, C, G or
 //    T with q > 0 (elsewhere both feature terms are 0); a barcode row is
@@ -77,6 +93,13 @@
 #define PHQ_PAMLD_TILE_BYTES 32768
 // barcodes a step of the barcode loop takes
 #define PHQ_PAMLD_UNROLL 2
+// the least barcodes of a slice cut below a tile (a multiple of the
+// unroll): every slice repeats a block's prologue (the TPQ table, the
+// reads' loads and features, the tile load) in stages A and B, which on an
+// H100 costs about as much as a few dozen barcodes of arithmetic: 96
+// barcodes run fastest in 2 slices (chip_smoke.py's slice_cut_sweep;
+// PERF.md)
+#define PHQ_PAMLD_SLICE_UNIT 48
 
 // reads a thread takes: two while the register arrays stay small
 template <int MAXW>
@@ -144,6 +167,69 @@ __device__ __forceinline__ void phq_tpq_table(float* s_tpq, float* s_consts,
   }
 }
 
+// The tensors of one launch. `panel`/`conc` are the columns the launch
+// walks (K8: its shard's, `base` their first global column); `shift` holds
+// S rows of row minima (stage A writes them; stage B and the merge read
+// `shift_rows` rows and take their minimum); `partials` holds S blocks of
+// the five partial rows (total, best p, global best index, runner-up and
+// sigma of the best, each (N,), f32 but the int32 index), which stage B
+// writes and the merge reads; the merge writes its five rows to `merged`
+// or, with the finish, the decisions.
+struct PhqPamldArgs {
+  const uint8_t* obs_code;
+  const uint8_t* obs_qual;
+  const uint8_t* qcfail_in;
+  const uint8_t* short_flags;
+  const uint8_t* panel;
+  const float* conc;
+  const float* tpq_consts;
+  float* shift;
+  int* partials;
+  int* merged;
+  int* decoded;
+  int* argmax;
+  int* distance;
+  int8_t* branch;
+  float* confidence;
+  uint8_t* qcfail_out;
+  uint8_t* uncertain;
+  int base;
+};
+
+// Whether the observation rows and the panel can be read as 32-bit words:
+// W a multiple of 4 and every row 4-byte aligned, as the token layout's are.
+__device__ __forceinline__ bool phq_words(const PhqPamldParams& p, const PhqPamldArgs& a) {
+  return (p.W & 3) == 0 && (p.ld_obs & 3) == 0 && ((uintptr_t)a.obs_code & 3) == 0 &&
+         ((uintptr_t)a.obs_qual & 3) == 0 && ((uintptr_t)a.panel & 3) == 0;
+}
+
+// Four bytes of a row from position 4k on (zero past W): one 32-bit load
+// with `words`, else byte by byte.
+__device__ __forceinline__ uint32_t phq_row_word(const uint8_t* row, int k, int W, bool words) {
+  if (words) return *(const uint32_t*)(row + 4 * k);
+  uint32_t v = 0u;
+  for (int j = 0; j < 4 && 4 * k + j < W; ++j) v |= (uint32_t)row[4 * k + j] << (8 * j);
+  return v;
+}
+
+// A read's code and quality bytes as words, fetched before the block's
+// TPQ table is built so that their loads are in flight across its
+// barriers: a slice's prologue waits on them once per slice and stage.
+template <int MAXW>
+struct PhqRaw {
+  uint32_t codes[PhqPamldShape<MAXW>::words];
+  uint32_t quals[PhqPamldShape<MAXW>::words];
+
+  __device__ __forceinline__ void fetch(const PhqPamldParams& p, const uint8_t* oc, const uint8_t* oq,
+                                        bool words) {
+#pragma unroll
+    for (int k = 0; k < PhqPamldShape<MAXW>::words; ++k) {
+      codes[k] = 4 * k < p.W ? phq_row_word(oc, k, p.W, words) : 0u;
+      quals[k] = 4 * k < p.W ? phq_row_word(oq, k, p.W, words) : 0u;
+    }
+  }
+};
+
 // The state a thread keeps for one read: its strict codes packed four to a
 // word (0 where the code is not A, C, G or T or q == 0), the match features
 // fm = tpq - q of those positions (observation_features; 0 elsewhere),
@@ -156,25 +242,28 @@ struct PhqRead {
   float c;
   float qpos_u;
 
-  __device__ __forceinline__ void load(const PhqPamldParams& p, const uint8_t* oc,
-                                       const uint8_t* oq, const float* s_tpq) {
+  __device__ __forceinline__ void load(const PhqPamldParams& p, const PhqRaw<MAXW>& raw,
+                                       const float* s_tpq) {
     int qpos = 0;
     float fs_sum = 0.0f;
 #pragma unroll
-    for (int k = 0; k < PhqPamldShape<MAXW>::words; ++k) code[k] = 0u;
+    for (int k = 0; k < PhqPamldShape<MAXW>::words; ++k) {
+      code[k] = 0u;
 #pragma unroll
-    for (int w = 0; w < MAXW; ++w) {
-      fm[w] = 0.0f;
-      if (w < p.W) {
-        const uint32_t cw = oc[w];
-        const int q = oq[w];
-        if (phq_strict(cw) && q > 0) {
-          const float qf = (float)q;
-          code[w >> 2] |= cw << (8 * (w & 3));
-          fm[w] = s_tpq[q] - qf;
-          fs_sum = fs_sum + (qf - p.U);
+      for (int j = 0; j < 4; ++j) {
+        const int w = 4 * k + j;
+        fm[w] = 0.0f;
+        if (w < p.W) {
+          const uint32_t cw = (raw.codes[k] >> (8 * j)) & 0xFFu;
+          const int q = (int)((raw.quals[k] >> (8 * j)) & 0xFFu);
+          if (phq_strict(cw) && q > 0) {
+            const float qf = (float)q;
+            code[k] |= cw << (8 * j);
+            fm[w] = s_tpq[q] - qf;
+            fs_sum = fs_sum + (qf - p.U);
+          }
+          qpos += q > 0 ? 1 : 0;
         }
-        qpos += q > 0 ? 1 : 0;
       }
     }
     qpos_u = (float)qpos * p.U;
@@ -264,7 +353,7 @@ struct PhqPosterior {
 // rescale term of the chunked posterior in gamma_chunks).
 __device__ __forceinline__ void phq_pamld_finish(
     const PhqPamldParams& p, int i, const PhqPosterior& post, float shift, const uint8_t* e,
-    const uint8_t* oc, const uint8_t* oq, const uint8_t* qcfail_in,
+    const uint8_t* oc, const uint8_t* oq, bool words, const uint8_t* qcfail_in,
     const uint8_t* short_flags, int* decoded, int* argmax, int* distance,
     int8_t* branch, float* confidence, uint8_t* qcfail_out, uint8_t* uncertain) {
   const float noise_shifted = p.has_noise ? expf(p.log_noise - p.lam * shift) : 0.0f;
@@ -274,15 +363,22 @@ __device__ __forceinline__ void phq_pamld_finish(
   const int best_index = decoded_any ? post.best0 + 1 : 0;
   const float conf = post.best / sigma_p;
 
+  // four positions a step, as words where the rows allow (phq_words)
   int raw_distance = 0;
   int raw_hq = 0;
   int qsum = 0;
-  for (int w = 0; w < p.W; ++w) {
-    const int q = oq[w];
-    const int mismatch = e[w] != oc[w] ? 1 : 0;
-    raw_distance += mismatch;
-    raw_hq += (mismatch && q >= p.hq_threshold) ? 1 : 0;
-    qsum += q;
+#pragma unroll 4
+  for (int k = 0; 4 * k < p.W; ++k) {
+    const uint32_t differ = phq_row_word(e, k, p.W, words) ^ phq_row_word(oc, k, p.W, words);
+    const uint32_t quals = phq_row_word(oq, k, p.W, words);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int q = (int)((quals >> (8 * j)) & 0xFFu);
+      const int mismatch = 4 * k + j < p.W && ((differ >> (8 * j)) & 0xFFu) != 0u ? 1 : 0;
+      raw_distance += mismatch;
+      raw_hq += (mismatch && q >= p.hq_threshold) ? 1 : 0;
+      qsum += q;
+    }
   }
   const int dist = decoded_any ? raw_distance : 0;
   const int hq_distance = decoded_any ? raw_hq : 0;
@@ -313,35 +409,6 @@ __device__ __forceinline__ void phq_pamld_finish(
     uncertain[i] = u ? 1 : 0;
   }
 }
-
-// The tensors of one launch. `panel`/`conc` are the columns the launch
-// walks (K8: its shard's, `base` their first global column); `shift` holds
-// S rows of row minima (stage A writes them; stage B and the merge read
-// `shift_rows` rows and take their minimum); `partials` holds S blocks of
-// the five partial rows (total, best p, global best index, runner-up and
-// sigma of the best, each (N,), f32 but the int32 index), which stage B
-// writes and the merge reads; the merge writes its five rows to `merged`
-// or, with the finish, the decisions.
-struct PhqPamldArgs {
-  const uint8_t* obs_code;
-  const uint8_t* obs_qual;
-  const uint8_t* qcfail_in;
-  const uint8_t* short_flags;
-  const uint8_t* panel;
-  const float* conc;
-  const float* tpq_consts;
-  float* shift;
-  int* partials;
-  int* merged;
-  int* decoded;
-  int* argmax;
-  int* distance;
-  int8_t* branch;
-  float* confidence;
-  uint8_t* qcfail_out;
-  uint8_t* uncertain;
-  int base;
-};
 
 // What a launch of the tile loop does: the whole classify over a panel of
 // one slice (K1, and K7 where S = 1), or one of the two passes over S
@@ -415,7 +482,7 @@ __device__ __forceinline__ float phq_sigma(const PhqRead<MAXW>& r, const uint4* 
 
 template <int MAXW, int MODE>
 __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
-    PhqPamldParams p, PhqPamldArgs a, int tile_b, int shift_rows) {
+    PhqPamldParams p, PhqPamldArgs a, int tile_b, int cut, int shift_rows) {
   using Shape = PhqPamldShape<MAXW>;
   constexpr int R = Shape::reads;
   constexpr int V = Shape::words / 4;  // 16-byte vectors of a barcode row
@@ -426,31 +493,41 @@ __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
   uint4* s_rows = (uint4*)(s_conc + ((tile_b + 3) & ~3));     // tile_b * V
   uint8_t* s_strict = (uint8_t*)(s_rows + (size_t)tile_b * V);  // tile_b
   __shared__ float s_consts[24];
+  // every thread takes part in the tile loads; a read past the last one is
+  // computed on the last read and writes nothing. Its bytes are fetched
+  // first, in flight while the TPQ table is built.
+  const size_t n = (size_t)p.n;
+  const bool words = phq_words(p, a);
+  int row[R];
+  PhqRaw<MAXW> raw[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int i = (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x;
+    row[k] = i < p.n ? i : p.n - 1;
+    raw[k].fetch(p, a.obs_code + (size_t)row[k] * p.ld_obs, a.obs_qual + (size_t)row[k] * p.ld_obs, words);
+  }
   phq_tpq_table(s_tpq, s_consts, a.tpq_consts);
   __syncthreads();
 
-  // this block's slice of the columns: whole tiles [s*T/S, (s+1)*T/S)
-  const int tiles = (p.B + tile_b - 1) / tile_b;
-  const int col0 = (int)((long long)blockIdx.y * tiles / gridDim.y) * tile_b;
-  const int col1 = min((int)((long long)(blockIdx.y + 1) * tiles / gridDim.y) * tile_b, p.B);
+  // this block's slice of the columns: cuts [s*C/S, (s+1)*C/S) of the
+  // C = ceil(B/cut) runs of `cut` barcodes
+  const int units = (p.B + cut - 1) / cut;
+  const int col0 = (int)((long long)blockIdx.y * units / gridDim.y) * cut;
+  const int col1 = min((int)((long long)(blockIdx.y + 1) * units / gridDim.y) * cut, p.B);
 
-  // every thread takes part in the tile loads; a read past the last one is
-  // computed on the last read and writes nothing
-  const size_t n = (size_t)p.n;
-  int row[R];
   PhqRead<MAXW> r[R];
   float mmin[R], smin[R], shift[R];
   PhqPosterior post[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    const int i = (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x;
-    row[k] = i < p.n ? i : p.n - 1;
-    r[k].load(p, a.obs_code + (size_t)row[k] * p.ld_obs, a.obs_qual + (size_t)row[k] * p.ld_obs,
-              s_tpq);
+    r[k].load(p, raw[k], s_tpq);
     mmin[k] = INFINITY;
     smin[k] = INFINITY;
     shift[k] = INFINITY;
     if (MODE == PHQ_MODE_SLICE_POSTERIOR) {
+      // the minimum over the slices' rows, exact in any order: loads kept
+      // in flight together
+#pragma unroll 4
       for (int s = 0; s < shift_rows; ++s) shift[k] = fminf(shift[k], a.shift[s * n + row[k]]);
     }
   }
@@ -551,7 +628,7 @@ __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
     } else {
       // K2 reads the decoded barcode's row from device memory
       phq_pamld_finish(p, i, post[k], shift[k], a.panel + (size_t)post[k].best0 * p.W,
-                       a.obs_code + (size_t)i * p.ld_obs, a.obs_qual + (size_t)i * p.ld_obs,
+                       a.obs_code + (size_t)i * p.ld_obs, a.obs_qual + (size_t)i * p.ld_obs, words,
                        a.qcfail_in, a.short_flags, a.decoded, a.argmax, a.distance, a.branch,
                        a.confidence, a.qcfail_out, a.uncertain);
     }
@@ -599,7 +676,7 @@ __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_merge_kernel(
   float shift = INFINITY;
   for (int s = 0; s < shift_rows; ++s) shift = fminf(shift, a.shift[s * n + i]);
   phq_pamld_finish(p, i, post, shift, a.panel + (size_t)post.best0 * p.W,
-                   a.obs_code + (size_t)i * p.ld_obs, a.obs_qual + (size_t)i * p.ld_obs,
+                   a.obs_code + (size_t)i * p.ld_obs, a.obs_qual + (size_t)i * p.ld_obs, phq_words(p, a),
                    a.qcfail_in, a.short_flags, a.decoded, a.argmax, a.distance, a.branch,
                    a.confidence, a.qcfail_out, a.uncertain);
 }
@@ -611,31 +688,37 @@ static size_t phq_pamld_smem(int maxw, int tile_b) {
 }
 
 template <int MAXW, int MODE>
-static int phq_pamld_launch(const PhqPamldParams& p, const PhqPamldArgs& a, int slices,
+static int phq_pamld_launch(const PhqPamldParams& p, const PhqPamldArgs& a, int slices, int cut,
                             int shift_rows, cudaStream_t stream) {
   using Shape = PhqPamldShape<MAXW>;
-  // a panel of one tile at most is resident: its tile is the panel
+  // the tile holds at most the widest slice: a panel of one tile, or a
+  // slice of it, is loaded once
+  const int units = (p.B + cut - 1) / cut;
+  const long long widest = (long long)((units + slices - 1) / slices) * cut;
   int tile_b = Shape::tile_b;
-  if (MODE == PHQ_MODE_CLASSIFY && p.B < tile_b) tile_b = p.B > 0 ? p.B : 1;
+  if (widest < tile_b) tile_b = widest > 0 ? (int)widest : 1;
   const size_t smem = phq_pamld_smem(MAXW, tile_b);
   // one name for the instance: a template argument list's comma would
   // split the launch macro's arguments
-  void (*kernel)(PhqPamldParams, PhqPamldArgs, int, int) = phq_pamld_kernel<MAXW, MODE>;
+  void (*kernel)(PhqPamldParams, PhqPamldArgs, int, int, int) = phq_pamld_kernel<MAXW, MODE>;
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int per_block = PHQ_PAMLD_THREADS * Shape::reads;
   const dim3 grid((p.n + per_block - 1) / per_block, slices);
-  PHQ_LAUNCH(kernel, grid, PHQ_PAMLD_THREADS, smem, stream)(p, a, tile_b, shift_rows);
+  PHQ_LAUNCH(kernel, grid, PHQ_PAMLD_THREADS, smem, stream)(p, a, tile_b, cut, shift_rows);
   return (int)cudaGetLastError();
 }
 
 template <int MODE>
-static int phq_pamld_dispatch(const PhqPamldParams& p, const PhqPamldArgs& a, int slices,
+static int phq_pamld_dispatch(const PhqPamldParams& p, const PhqPamldArgs& a, int slices, int cut,
                               int shift_rows, cudaStream_t s) {
   if (p.n <= 0) return (int)cudaGetLastError();
-  if (slices < 1 || (MODE == PHQ_MODE_CLASSIFY && slices != 1)) return (int)cudaErrorInvalidValue;
-  if (p.W <= 16) return phq_pamld_launch<16, MODE>(p, a, slices, shift_rows, s);
-  if (p.W <= 32) return phq_pamld_launch<32, MODE>(p, a, slices, shift_rows, s);
-  if (p.W <= 64) return phq_pamld_launch<64, MODE>(p, a, slices, shift_rows, s);
+  if (slices < 1 || cut < 1 || (MODE == PHQ_MODE_CLASSIFY && slices != 1)) return (int)cudaErrorInvalidValue;
+  // every slice holds at least one cut: an empty slice's partials would
+  // name a column it does not hold
+  if (p.B > 0 && slices > (p.B + cut - 1) / cut) return (int)cudaErrorInvalidValue;
+  if (p.W <= 16) return phq_pamld_launch<16, MODE>(p, a, slices, cut, shift_rows, s);
+  if (p.W <= 32) return phq_pamld_launch<32, MODE>(p, a, slices, cut, shift_rows, s);
+  if (p.W <= 64) return phq_pamld_launch<64, MODE>(p, a, slices, cut, shift_rows, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -662,15 +745,16 @@ PHQ_EXPORT int phq_pamld(
   a.confidence = (float*)confidence;
   a.qcfail_out = (uint8_t*)qcfail_out;
   a.uncertain = (uint8_t*)uncertain;
-  return phq_pamld_dispatch<PHQ_MODE_CLASSIFY>(p, a, 1, 0, (cudaStream_t)stream);
+  return phq_pamld_dispatch<PHQ_MODE_CLASSIFY>(p, a, 1, p.B > 0 ? p.B : 1, 0, (cudaStream_t)stream);
 }
 
 // Stages A (mode PHQ_MODE_SLICE_MIN: writes `slices` rows of `shift`) and B
 // (PHQ_MODE_SLICE_POSTERIOR: reads `shift_rows` rows of `shift`, writes
 // `slices` blocks of `partials`) over the columns of `panel` and `conc`:
-// ints[1] is their count, `base` the global index of the first (K8's shard).
+// ints[1] is their count, `base` the global index of the first (K8's shard),
+// the slices cut at multiples of `cut` barcodes.
 PHQ_EXPORT int phq_pamld_slices(
-    const int* ints, const float* floats, int mode, int base, int slices, int shift_rows,
+    const int* ints, const float* floats, int mode, int base, int slices, int cut, int shift_rows,
     const void* obs_code, const void* obs_qual, const void* panel,
     const void* conc, const void* tpq_consts, void* shift, void* partials,
     void* stream) {
@@ -685,9 +769,9 @@ PHQ_EXPORT int phq_pamld_slices(
   a.partials = (int*)partials;
   a.base = base;
   cudaStream_t s = (cudaStream_t)stream;
-  if (mode == PHQ_MODE_SLICE_MIN) return phq_pamld_dispatch<PHQ_MODE_SLICE_MIN>(p, a, slices, 0, s);
+  if (mode == PHQ_MODE_SLICE_MIN) return phq_pamld_dispatch<PHQ_MODE_SLICE_MIN>(p, a, slices, cut, 0, s);
   if (mode == PHQ_MODE_SLICE_POSTERIOR) {
-    return phq_pamld_dispatch<PHQ_MODE_SLICE_POSTERIOR>(p, a, slices, shift_rows, s);
+    return phq_pamld_dispatch<PHQ_MODE_SLICE_POSTERIOR>(p, a, slices, cut, shift_rows, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -730,7 +814,7 @@ PHQ_EXPORT int phq_pamld_merge(
 // registers, local (spill) bytes and resident blocks per SM of one instance
 template <int MAXW, int MODE>
 static int phq_pamld_instance(int* out) {
-  void (*kernel)(PhqPamldParams, PhqPamldArgs, int, int) = phq_pamld_kernel<MAXW, MODE>;
+  void (*kernel)(PhqPamldParams, PhqPamldArgs, int, int, int) = phq_pamld_kernel<MAXW, MODE>;
   cudaFuncAttributes attributes;
   cudaError_t status = cudaFuncGetAttributes(&attributes, kernel);
   if (status != cudaSuccess) return (int)status;
@@ -758,6 +842,7 @@ static int phq_pamld_info_for(int* out) {
   out[2] = PHQ_PAMLD_THREADS * PhqPamldShape<MAXW>::reads;
   out[4] = MAXW;
   out[14] = PHQ_PAMLD_UNROLL;
+  out[15] = PHQ_PAMLD_SLICE_UNIT;
   int rc = phq_pamld_instance<MAXW, PHQ_MODE_CLASSIFY>(out + 5);
   if (rc == 0) rc = phq_pamld_instance<MAXW, PHQ_MODE_SLICE_MIN>(out + 8);
   if (rc == 0) rc = phq_pamld_instance<MAXW, PHQ_MODE_SLICE_POSTERIOR>(out + 11);
@@ -765,10 +850,11 @@ static int phq_pamld_info_for(int* out) {
 }
 
 // What the slice plan needs to know of the tile loop at observation width
-// W, in `out` (15 ints): barcodes a tile holds, threads and reads a block,
+// W, in `out` (16 ints): barcodes a tile holds, threads and reads a block,
 // the card's SM count, the instance's MAXW, then for the classify, stage A
 // and stage B instances each (resident blocks per SM, registers, local
-// bytes a thread), and the barcodes a step of the barcode loop takes.
+// bytes a thread), the barcodes a step of the barcode loop takes, and the
+// least barcodes of a slice cut below a tile.
 PHQ_EXPORT int phq_pamld_info(int W, void* out) {
   int* o = (int*)out;
   if (W <= 16) return phq_pamld_info_for<16>(o);

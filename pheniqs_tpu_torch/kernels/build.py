@@ -43,7 +43,7 @@ _U = ctypes.c_uint
 SIGNATURES = {
     "phq_unpack_tokens": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "phq_pamld": (_P, _P) + (_P,) * 15,
-    "phq_pamld_slices": (_P, _P, _I, _I, _I, _I) + (_P,) * 8,
+    "phq_pamld_slices": (_P, _P, _I, _I, _I, _I, _I) + (_P,) * 8,
     "phq_pamld_merge": (_P, _P, _I, _I, _I) + (_P,) * 16,
     "phq_pamld_info": (_I, _P),
     "phq_mdd": (_P,) * 13,

@@ -1,8 +1,8 @@
 """The PAMLD classify of one decoder: K1 with K2 fused (csrc/pamld.cu),
-one tile loop for panels of any size; K7, the same loop past 1024
-barcodes with the panel split into slices across blocks; and K8, the same
-slices over the shards of a panel split across ranks
-(``pamld_classify_sharded``).
+one tile loop for panels of any size, the panel split into slices across
+blocks (a panel of one tile, K1's, cut below the tile); K7, the same loop
+past 1024 barcodes; and K8, the same slices over the shards of a panel
+split across ranks (``pamld_classify_sharded``).
 
 ``pamld_classify`` computes, per read, the PAMLD posterior over the panel
 and everything the decode step needs from it: decoded index, argmax,
@@ -15,14 +15,14 @@ plain version below, the torch port of
 ``pheniqs_tpu.device.classify.pamld_classify_device``: the monolithic
 posterior for B <= 1024, ``_posterior_chunked`` above it, and the
 row-gather distance (as exact as the TPU's match contraction).
-``posterior_sliced_plain`` is the plain algebra of K7's slices,
+``posterior_sliced_plain`` is the plain algebra of the slices,
 ``posterior_panel_sharded_plain`` that of K8's shards
 (``_posterior_panel_sharded`` over the shards one process holds).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -36,7 +36,8 @@ from ..device.instrument import (
 )
 from ..errors import ConfigurationError
 
-#: launches of K1 in this process on panels of at most LARGE_PANEL_B barcodes
+#: launches of K1 in this process on panels of at most LARGE_PANEL_B
+#: barcodes: one over a panel of one slice, else stages A, B and C
 launches = 0
 #: launches of the tile loop on larger panels (K7, the TPU's chunked
 #: posterior): one over a panel of one slice, else stages A, B and C
@@ -289,7 +290,7 @@ def posterior_panel_sharded_plain(features, qpos_uniform, shards, adjusted_noise
 
 
 def posterior_sliced_plain(features, qpos_uniform, matrix, concentration, adjusted_noise, columns):
-    """K7's posterior over slices of the panel, `columns` the (start, stop)
+    """The tile loop's posterior over slices of the panel (K1 and K7), `columns` the (start, stop)
     of each (SlicePlan.columns): each slice's row minimum and, in the frame
     of their minimum, its partials, merged in slice order by
     device/tp.py:reduce_partials. (best0, best_p, sigma_p, sigma_decoded,
@@ -316,8 +317,8 @@ class TileLoop:
     (csrc/pamld.cu phq_pamld_info): barcodes a tile holds, threads and reads
     a block, the card's SM count, the instance's MAXW, per instance
     (classify, stage A, stage B) its resident blocks per SM, registers and
-    local (spill) bytes a thread, and the barcodes a step of the barcode
-    loop takes."""
+    local (spill) bytes a thread, the barcodes a step of the barcode loop
+    takes, and the least barcodes of a slice cut below a tile."""
 
     tile: int
     threads: int
@@ -326,16 +327,23 @@ class TileLoop:
     maxw: int
     instances: dict
     unroll: int
+    unit: int
 
     @property
     def slots(self) -> int:
         """Resident block slots of the card for the sliced stages."""
         return self.sms * max(self.instances["stage A"][0], self.instances["stage B"][0])
 
+    @property
+    def whole_slots(self) -> int:
+        """Resident block slots of the card for the one-launch instance."""
+        return self.sms * self.instances["classify"][0]
+
 
 @dataclass(frozen=True)
 class SlicePlan:
-    """`slices` contiguous runs of whole tiles over `barcodes` columns for
+    """`slices` contiguous runs of the `barcodes` columns, cut at multiples
+    of `cut` barcodes (a whole tile of `tile`, or the kernel's unit), for
     `read_blocks` blocks of reads."""
 
     slices: int
@@ -343,33 +351,56 @@ class SlicePlan:
     tile: int
     read_blocks: int
     slots: int
+    cut: int
 
     @property
-    def tiles(self) -> int:
-        return -(-self.barcodes // self.tile)
+    def cuts(self) -> int:
+        return -(-self.barcodes // self.cut)
 
     @property
     def waves(self) -> float:
         return self.read_blocks * self.slices / self.slots
 
+    @property
+    def slot_use(self) -> tuple[int, int]:
+        """(blocks, block slots of the whole waves they take)."""
+        blocks = self.read_blocks * self.slices
+        return blocks, -(-blocks // self.slots) * self.slots
+
     def columns(self) -> list[tuple[int, int]]:
-        """(start, stop) of each slice: tiles [s*T/S, (s+1)*T/S), as the
-        kernel derives them from its block's slice index."""
-        t, s = self.tiles, self.slices
+        """(start, stop) of each slice: cuts [s*C/S, (s+1)*C/S) of the C
+        runs of `cut` barcodes, as the kernel derives them from its block's
+        slice index."""
+        c, s = self.cuts, self.slices
         return [
-            (k * t // s * self.tile, min((k + 1) * t // s * self.tile, self.barcodes))
+            (k * c // s * self.cut, min((k + 1) * c // s * self.cut, self.barcodes))
             for k in range(s)
         ]
 
 
-def slice_plan(n: int, barcodes: int, tile: int, reads_per_block: int, slots: int) -> SlicePlan:
+def slice_plan(n: int, barcodes: int, tile: int, reads_per_block: int, slots: int, unit: int,
+               whole_slots: int = 0) -> SlicePlan:
     """The smallest number of slices that gives SLICE_WAVES waves of the
     card's `slots` resident blocks over the ceil(n / reads_per_block) blocks
-    of reads, with each slice at least one tile of the `barcodes` columns."""
+    of reads. The slices are cut at whole tiles where the tiles of the
+    `barcodes` columns give those waves (a whitelist's), else at multiples
+    of `unit` barcodes (a panel of one tile, K1's, too); each slice is at
+    least one cut. With `whole_slots`, the card's slots for the one-launch
+    instance, a panel of one tile keeps one launch unless its slices fill
+    the block slots of the waves they take better than one launch fills
+    its own: a slice adds its prologues (once per stage) and the merge, so
+    it pays only where one launch would leave slots idle that the slices
+    use."""
     read_blocks = max(1, -(-n // reads_per_block))
-    tiles = -(-barcodes // tile)
     wanted = -(-SLICE_WAVES * slots // read_blocks)
-    return SlicePlan(max(1, min(tiles, wanted)), barcodes, tile, read_blocks, slots)
+    cut = tile if -(-barcodes // tile) >= wanted else unit
+    plan = SlicePlan(max(1, min(-(-barcodes // cut), wanted)), barcodes, tile, read_blocks, slots, cut)
+    if whole_slots and barcodes <= tile:
+        one = SlicePlan(1, barcodes, tile, read_blocks, whole_slots, max(barcodes, 1))
+        (blocks, held), (one_blocks, one_held) = plan.slot_use, one.slot_use
+        if plan.slices == 1 or blocks * one_held <= one_blocks * held:
+            return one
+    return plan
 
 
 _TILE_LOOPS: dict = {}
@@ -385,7 +416,7 @@ def tile_loop(w: int, device) -> TileLoop:
     maxw = 16 if w <= 16 else 32 if w <= 32 else 64
     key = (maxw, index)
     if key not in _TILE_LOOPS:
-        out = np.zeros(15, dtype=np.int32)
+        out = np.zeros(16, dtype=np.int32)
         with torch.cuda.device(index):
             check(library().phq_pamld_info(w, out.ctypes.data), "pamld_info")
         tile, threads, reads, sms, maxw = (int(x) for x in out[:5])
@@ -393,14 +424,67 @@ def tile_loop(w: int, device) -> TileLoop:
             name: tuple(int(x) for x in out[5 + 3 * k : 8 + 3 * k])
             for k, name in enumerate(("classify", "stage A", "stage B"))
         }
-        _TILE_LOOPS[key] = TileLoop(tile, threads, reads, sms, maxw, instances, int(out[14]))
+        _TILE_LOOPS[key] = TileLoop(tile, threads, reads, sms, maxw, instances, int(out[14]), int(out[15]))
     return _TILE_LOOPS[key]
 
 
 def plan_for(n: int, barcodes: int, w: int, device) -> SlicePlan:
     """The slice plan of one launch of the tile loop on the card."""
     loop = tile_loop(w, device)
-    return slice_plan(n, barcodes, loop.tile, loop.reads_per_block, loop.slots)
+    return slice_plan(n, barcodes, loop.tile, loop.reads_per_block, loop.slots, loop.unit, loop.whole_slots)
+
+
+def sliced_plan(n: int, barcodes: int, w: int, device) -> SlicePlan:
+    """The plan the card would give a panel of `barcodes` at `n` reads
+    without the one-launch option (slice_plan without whole_slots)."""
+    loop = tile_loop(w, device)
+    return slice_plan(n, barcodes, loop.tile, loop.reads_per_block, loop.slots, loop.unit)
+
+
+#: ulps of the confidence threshold's neighbourhood inside which the
+#: sliced and the one-launch tile loop may decide a row's branch, qcfail or
+#: uncertain flag apart (against_one_launch)
+EDGE_ULPS = 4
+
+
+def against_one_launch(dec, obs_code, obs_qual, qcfail_in, short, tpq_constants, eps) -> dict:
+    """The sliced tile loop (stages A, B and C over sliced_plan) against
+    the one-launch classify instance on the same batch of a panel of one
+    tile, each plan forced through _classify_launches' `plan`. Returns
+    {plan; unequal: rows on which argmax, decoded and distance differ,
+    each 0 when the merge keeps the one-pass maxima, index, runner-up and
+    sigma of the best exactly; relative: the largest relative gap of the
+    confidences, and tolerance, 2*gamma(B+2) + 8u (only the posterior's
+    total is summed in another tree, per slice then over the slices; the
+    bound's gamma_b term bounds any tree of the B terms, 8u the noise term
+    and the division); moved: rows of unequal confidence; differs: rows on
+    which branch, qcfail or uncertain differ; unexplained: those of them on
+    which neither the threshold ct nor an edge of its uncertain margin
+    lies between the two confidences, widened by EDGE_ULPS ulps (0
+    expected); at_edge: rows of moved confidence that sit there}."""
+    n, w = obs_code.shape
+    plan = sliced_plan(n, dec.barcode_count, w, obs_code.device)
+    args = (dec, obs_code, obs_qual, qcfail_in, short, tpq_constants, True, eps, None)
+    sliced = _classify_launches(*args, plan=plan)
+    one = _classify_launches(*args, plan=replace(plan, slices=1))
+    unequal = {key: int((sliced[key] != one[key]).sum()) for key in ("argmax", "decoded", "distance")}
+    a, b = sliced["confidence"].double(), one["confidence"].double()
+    relative = (a - b).abs() / torch.maximum(a.abs(), b.abs()).clamp(min=1e-300)
+    differs = torch.zeros(n, dtype=torch.bool, device=obs_code.device)
+    for key in ("branch", "qcfail", "uncertain"):
+        differs |= sliced[key] != one[key]
+    ct = dec.confidence_threshold
+    rel_eps, _ = _uncertain_margins(dec, w, eps, obs_qual.sum(dim=1).to(torch.float32))
+    rel_eps = rel_eps.double()
+    edges = torch.stack([torch.full_like(a, ct), ct - (rel_eps * ct + 4.0 * U32), (ct + 4.0 * U32) / (1.0 - rel_eps)])
+    ulps = EDGE_ULPS * U32 * max(ct, 1e-30)
+    at_edge = ((edges >= torch.minimum(a, b) - ulps) & (edges <= torch.maximum(a, b) + ulps)).any(dim=0)
+    return {
+        "plan": plan, "unequal": unequal, "relative": float(relative.max()),
+        "tolerance": 2.0 * gamma(dec.barcode_count + 2) + 8.0 * U32, "moved": int((a != b).sum()),
+        "differs": int(differs.sum()), "unexplained": int((differs & ~at_edge).sum()),
+        "at_edge": int((at_edge & (a != b)).sum()),
+    }
 
 
 def sigma_tile_order(obs_code: torch.Tensor, obs_qual: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -666,7 +750,7 @@ class _TileLoopLaunch:
         self.stream = torch.cuda.current_stream(obs_code.device).cuda_stream
 
     def classify(self, codes_u8, concentration, out):
-        """K1, or K7 over a panel of one slice: both passes, one launch."""
+        """The tile loop over a panel of one slice: both passes, one launch."""
         from .build import check
 
         check(self.lib.phq_pamld(
@@ -674,17 +758,18 @@ class _TileLoopLaunch:
             codes_u8.data_ptr(), concentration.data_ptr(), self.tpq, *_outputs(out), self.stream,
         ), "pamld_classify")
 
-    def stage(self, mode, columns, codes_u8, concentration, slices, shift, partials=None, base=0):
+    def stage(self, mode, columns, codes_u8, concentration, plan, shift, partials=None, base=0):
         """Stage A (MODE_SLICE_MIN: each slice's row minimum into `shift`,
         (slices, N)) or B (MODE_SLICE_POSTERIOR: the partials of each slice
         into `partials`, (slices, 5, N), in the frame of the minimum over
-        the rows of `shift`) over `columns` columns of `codes_u8`."""
+        the rows of `shift`) over `columns` columns of `codes_u8`, in the
+        slices of `plan`."""
         from .build import check
 
         ints = self.ints.copy()
         ints[1] = columns
         check(self.lib.phq_pamld_slices(
-            ints.ctypes.data, self.floats.ctypes.data, mode, base, slices,
+            ints.ctypes.data, self.floats.ctypes.data, mode, base, plan.slices, plan.cut,
             shift.shape[0] if shift.dim() == 2 else 1, *self.obs, codes_u8.data_ptr(),
             concentration.data_ptr(), self.tpq, shift.data_ptr(),
             partials.data_ptr() if partials is not None else None, self.stream,
@@ -737,23 +822,28 @@ def pamld_classify(
     return out
 
 
-def _classify_launches(dec, obs_code, obs_qual, qcfail_in, short, tpq_constants, want_uncertain, eps, out):
-    """The tile loop's launches of one pamld_classify call, counted."""
+def _classify_launches(dec, obs_code, obs_qual, qcfail_in, short, tpq_constants, want_uncertain, eps, out,
+                       plan=None):
+    """The tile loop's launches of one pamld_classify call, counted: one
+    launch over a panel of one slice, else stages A, B and C. `plan`, in
+    place of the card's (plan_for), lets chip_smoke hold the sliced launches
+    to the one-launch instance on the same batch and time other cuts."""
     global launches, chunked_launches
     n, w = obs_code.shape
     if out is None:
         out = empty_result(n, obs_code.device)
     run = _TileLoopLaunch(dec, obs_code, obs_qual, qcfail_in, short, tpq_constants, want_uncertain, eps)
-    plan = plan_for(n, dec.barcode_count, w, obs_code.device)
+    if plan is None:
+        plan = plan_for(n, dec.barcode_count, w, obs_code.device)
     if plan.slices == 1:
         run.classify(dec.panel_codes_u8, dec.concentration, out)
         count = 1
     else:
         shift = torch.empty((plan.slices, n), dtype=torch.float32, device=obs_code.device)
         partials = torch.empty((plan.slices, len(PARTIAL_ROWS), n), dtype=torch.int32, device=obs_code.device)
-        run.stage(MODE_SLICE_MIN, dec.barcode_count, dec.panel_codes_u8, dec.concentration, plan.slices, shift)
+        run.stage(MODE_SLICE_MIN, dec.barcode_count, dec.panel_codes_u8, dec.concentration, plan, shift)
         run.stage(MODE_SLICE_POSTERIOR, dec.barcode_count, dec.panel_codes_u8, dec.concentration,
-                  plan.slices, shift, partials)
+                  plan, shift, partials)
         run.merge(partials, shift, dec.panel_codes_u8, out)
         count = 3
     if dec.barcode_count > LARGE_PANEL_B:
@@ -847,19 +937,19 @@ def _sharded_launches(dec, shards, obs_code, obs_qual, qcfail_in, short, tpq_con
     minima = []
     for shard, plan in zip(shards, plans):
         minima.append(torch.empty((plan.slices, n), dtype=torch.float32, device=device))
-        run.stage(MODE_SLICE_MIN, shard.count, shard.codes_u8, shard.concentration, plan.slices, minima[-1],
+        run.stage(MODE_SLICE_MIN, shard.count, shard.codes_u8, shard.concentration, plan, minima[-1],
                   base=shard.base)
         panel_sharded_launches += 1
     shift = merge_panel_shift(torch.cat(minima), group)
     partials = torch.empty((len(shards), len(PARTIAL_ROWS), n), dtype=torch.int32, device=device)
     for k, (shard, plan) in enumerate(zip(shards, plans)):
         if plan.slices == 1:
-            run.stage(MODE_SLICE_POSTERIOR, shard.count, shard.codes_u8, shard.concentration, 1, shift,
+            run.stage(MODE_SLICE_POSTERIOR, shard.count, shard.codes_u8, shard.concentration, plan, shift,
                       partials[k], base=shard.base)
             panel_sharded_launches += 1
             continue
         local = torch.empty((plan.slices, len(PARTIAL_ROWS), n), dtype=torch.int32, device=device)
-        run.stage(MODE_SLICE_POSTERIOR, shard.count, shard.codes_u8, shard.concentration, plan.slices, shift,
+        run.stage(MODE_SLICE_POSTERIOR, shard.count, shard.codes_u8, shard.concentration, plan, shift,
                   local, base=shard.base)
         run.merge(local, merged=partials[k])
         panel_sharded_launches += 2

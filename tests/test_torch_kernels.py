@@ -242,6 +242,47 @@ def test_chunked_kernel_matches_plain(cuda, barcodes, width):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072, 20000])
+@pytest.mark.parametrize("barcodes", [96, 384, 1000])
+def test_pamld_kernel_slices_below_a_tile(cuda, barcodes, n):
+    """K1 on a panel of one tile: a call counts its plan's launches, 1
+    where one launch fills the card (as a batch of 131072 reads does at 4
+    blocks/SM) and 3 where the plan cuts the panel below the tile (20,000
+    reads always: stages A, B and C); two calls byte-identical; and the sliced launches held to the
+    one-launch instance on the same batch (pamld.against_one_launch:
+    argmax, decoded and distance bit-equal, confidences within
+    2*gamma(B+2) + 8u, the rest apart only at the confidence threshold)."""
+    from pheniqs_tpu_torch.device.instrument import compile_instrument
+    from pheniqs_tpu_torch.kernels import pamld
+
+    rng = np.random.default_rng(barcodes)
+    sample, code, qual = _pamld_case(rng, barcodes, 16, n)
+    instrument = compile_instrument({"sample": sample, "input segment cardinality": 1}, cuda)
+    dec = instrument.decoders[0]
+    noise = rng.random(n) < 0.1
+    code[noise] = np.array([1, 2, 4, 8], np.uint8)[rng.integers(4, size=(int(noise.sum()), 16))]
+    code_t, qual_t = (torch.from_numpy(x).to(cuda) for x in (code, qual))
+    qcfail = torch.from_numpy(rng.random(n) < 0.05).to(cuda)
+    short = torch.zeros(n, dtype=torch.bool, device=cuda)
+    kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True, eps=instrument.tpq_analytic_eps,
+                  short=short)
+    slices = pamld.plan_for(n, barcodes, 16, cuda).slices
+    assert slices > 1 or n == 131072
+    before = pamld.launches
+    first = pamld.pamld_classify(dec, code_t, qual_t, qcfail, **kwargs)
+    assert pamld.launches == before + (1 if slices == 1 else 3)
+    second = pamld.pamld_classify(dec, code_t, qual_t, qcfail, **kwargs)
+    for key in first:
+        assert torch.equal(first[key], second[key]), key
+    held = pamld.against_one_launch(dec, code_t, qual_t, qcfail, short, instrument.tpq_constants,
+                                    instrument.tpq_analytic_eps)
+    assert held["plan"].slices > 1
+    assert held["unequal"] == {"argmax": 0, "decoded": 0, "distance": 0}
+    assert held["relative"] <= held["tolerance"]
+    assert held["unexplained"] == 0
+
+
+@pytest.mark.cuda
 def test_chunked_kernel_is_deterministic(cuda):
     """K7 over a panel of several slices, and K8 over two shards of it,
     launched twice: every output byte-identical (no atomics; the slices

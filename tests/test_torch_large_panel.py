@@ -19,6 +19,9 @@ Tolerances, each with its reason:
   * decode step bytes and counters: as tests/test_torch_step.py.
 """
 
+import math
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -295,25 +298,86 @@ def test_kernel_sigma_order_within_the_bound(seed, w):
 
 @settings(max_examples=200, deadline=None)
 @given(st.integers(1, 2**18), st.integers(1, 800_000), st.sampled_from([512, 1024, 2048]),
-       st.sampled_from([128, 256]), st.integers(1, 1200))
-def test_slice_plan_covers_the_panel(n, barcodes, tile, reads_per_block, slots):
+       st.sampled_from([128, 256]), st.integers(1, 1200), st.sampled_from([2, 8, 48]),
+       st.sampled_from([0, 396, 528]))
+def test_slice_plan_covers_the_panel(n, barcodes, tile, reads_per_block, slots, unit, whole_slots):
     """The slice plan, a pure function of (N, B, tile, reads a block,
-    resident block slots): every column once, in order, in whole tiles,
-    each slice at least one tile; at least SLICE_WAVES waves where the
-    tiles allow, and the fewest slices that give them."""
-    plan = pamld.slice_plan(n, barcodes, tile, reads_per_block, slots)
+    resident block slots, the kernel's unit, the one-launch instance's
+    slots): every column once, in order; a panel of one tile in one slice
+    unless its slices fill the block slots of their waves (blocks over
+    slots of the whole waves taken) better than one launch fills its own;
+    else the slices cut at whole tiles where the tiles give
+    SLICE_WAVES waves, the same columns as the plan of whole tiles alone
+    gave (a whitelist's slices do not move), else at multiples of the unit
+    (a panel of one tile too); each slice at least one cut (the last may
+    hold the ragged end); at least SLICE_WAVES waves where the cuts allow,
+    and the fewest slices that give them."""
+    plan = pamld.slice_plan(n, barcodes, tile, reads_per_block, slots, unit, whole_slots)
     columns = plan.columns()
     assert len(columns) == plan.slices >= 1
     assert columns[0][0] == 0 and columns[-1][1] == barcodes
-    for (_, stop), (start, _) in zip(columns, columns[1:]):
-        assert stop == start and start % tile == 0
-    assert all(stop > start for start, stop in columns)
+    assert plan.read_blocks == -(-n // reads_per_block)
+    if whole_slots and barcodes <= tile:
+        sliced = pamld.slice_plan(n, barcodes, tile, reads_per_block, slots, unit)
+
+        def fill(waves):
+            return waves / math.ceil(waves)
+
+        if sliced.slices == 1 or (fill(Fraction(plan.read_blocks * sliced.slices, slots))
+                                  <= fill(Fraction(plan.read_blocks, whole_slots))):
+            assert plan.slices == 1 and columns == [(0, barcodes)] and plan.waves == plan.read_blocks / whole_slots
+            return
+        assert plan == sliced and plan.slices > 1
     tiles = -(-barcodes // tile)
-    assert plan.slices <= tiles and plan.read_blocks == -(-n // reads_per_block)
-    if plan.slices < tiles:
+    wanted = -(-pamld.SLICE_WAVES * slots // plan.read_blocks)
+    assert plan.cut == (tile if tiles >= wanted else unit)
+    for (_, stop), (start, _) in zip(columns, columns[1:]):
+        assert stop == start and start % plan.cut == 0
+    assert all(stop - start >= min(plan.cut, barcodes - start) for start, stop in columns)
+    cuts = -(-barcodes // plan.cut)
+    assert plan.slices <= cuts
+    if plan.slices < cuts:
         assert plan.waves >= pamld.SLICE_WAVES
     if plan.slices > 1:
         assert plan.read_blocks * (plan.slices - 1) / slots < pamld.SLICE_WAVES
+    if tiles >= wanted:
+        s = plan.slices
+        assert s == min(tiles, wanted)
+        assert columns == [(k * tiles // s * tile, min((k + 1) * tiles // s * tile, barcodes)) for k in range(s)]
+
+
+#: the W <= 16 tile loop on the H100 (phq_pamld_info): tiles of 2048
+#: barcodes, 256 reads a block, 132 SMs x 4 blocks for the sliced stages
+#: and for the one-launch instance, a unit of 48
+H100_LOOP = dict(tile=2048, reads_per_block=256, slots=132 * 4, unit=48)
+
+
+@pytest.mark.parametrize("n,barcodes,slices,cut", [
+    (131072, 96, 1, 96), (131072, 384, 1, 384), (131072, 1024, 1, 1024), (131072, 4096, 5, 48),
+    (131072, 737_280, 5, 2048), (20000, 96, 2, 48), (20000, 384, 8, 48), (200_000, 384, 3, 48),
+    (16384, 96, 2, 48), (16384, 384, 8, 48), (65536, 96, 2, 48), (98304, 96, 1, 96), (98304, 384, 6, 48),
+    (196608, 96, 2, 48), (196608, 384, 3, 48), (262144, 96, 1, 96), (262144, 384, 1, 384),
+    (20000, 2048, 27, 48), (131072, 2048, 1, 2048),
+])
+def test_slice_plan_at_the_main_path_shapes(n, barcodes, slices, cut):
+    """With the H100's figures: a flagship batch (N = 131072, 512 read
+    blocks) fills the one-launch instance's 528 slots to 0.97 of a wave, and
+    so would its slices, so K1's panels keep one launch (as at 262144,
+    1.94 waves); a batch that leaves one launch's slots idle and whose
+    slices fill theirs better (the CLI's default of 16384 reads, the TP
+    phase's 20,000, 65536; 98304 and 196608 at B = 384) is cut below the
+    tile into the waves its units allow, while at 98304 reads B = 96's two
+    slices fill 1.45 waves no better than one launch's 0.73 and it keeps
+    one launch; a K8 shard of 2048 barcodes at 20,000 reads runs 27
+    slices; the 4096-barcode panel is cut below a tile too (2 tiles gave
+    1.94 waves); the whitelist keeps its 5 slices of whole tiles, tiles
+    [72k, 72(k+1)) of its 360."""
+    plan = pamld.slice_plan(n, barcodes, whole_slots=132 * 4, **H100_LOOP)
+    assert (plan.slices, plan.cut) == (slices, cut)
+    if slices > 1:
+        assert plan.waves >= min(pamld.SLICE_WAVES, plan.read_blocks * -(-barcodes // cut) / 528)
+    if barcodes == 737_280:
+        assert plan.columns() == [(k * 72 * 2048, (k + 1) * 72 * 2048) for k in range(5)]
 
 
 @pytest.mark.parametrize("barcodes,tile", [(1025, 256), (5000, 2048), (3000, 512)])
@@ -333,7 +397,7 @@ def test_sliced_posterior_matches_chunked_and_jax(barcodes, tile):
     features = pamld.observation_features_plain(_t(code), _t(qual))
     qpos = (_t(qual) > 0).to(torch.float32).sum(dim=1) * pamld.UNIFORM_BASE_QUALITY
     args = (features, qpos, dec.likelihood_matrix, dec.concentration, dec.noise * dec.random_barcode_probability)
-    plan = pamld.slice_plan(300, barcodes, tile, 256, 10_000)
+    plan = pamld.slice_plan(300, barcodes, tile, 256, 10_000, tile)
     assert plan.slices == -(-barcodes // tile) > 1 and barcodes % tile
     sliced = pamld.posterior_sliced_plain(*args, plan.columns())
     theirs = jax_classify._posterior_chunked(*(jnp.asarray(x.numpy()) for x in args[:4]), args[4])
@@ -357,6 +421,129 @@ def test_sliced_posterior_matches_chunked_and_jax(barcodes, tile):
             assert torch.equal(mine[key][settled], other[key][settled]), (name, key)
         np.testing.assert_allclose(mine["confidence"][settled].numpy(), other["confidence"][settled].numpy(),
                                    rtol=1e-5, atol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("barcodes", [96, 384, 1000])
+def test_sub_tile_slices_match_monolithic_and_jax(barcodes):
+    """K1's slices below a tile (the sliced plan at N = 131072 on the H100's
+    figures: 48-barcode cuts, S = 2 or 5; 1000 is no multiple of the cut):
+    the plain posterior over the plan's columns (posterior_sliced_plain)
+    finished by finish_plain, against the monolithic posterior
+    (posterior_plain, pamld_classify_plain's for B <= 1024) and JAX's
+    pamld_classify_device on the same reads, W = 16: decisions equal on
+    the rows neither flags, confidences rtol 1e-5 there (the totals are
+    summed in another order)."""
+    rng = np.random.default_rng(barcodes)
+    n, width = 400, 16
+    panel = random_panel(rng, barcodes, width)
+    ontology = {"sample": make_pamld_ontology(panel), "input segment cardinality": 1}
+    reference = jax_compile(ontology)
+    ours = carry_instrument(reference, "cpu")
+    dec = ours.decoders[0]
+    code, qual, _ = simulate_reads(rng, panel, n, error_rate=0.08)
+    noise = rng.random(n) < 0.2
+    code[noise] = np.array(STRICT_CODES, np.uint8)[rng.integers(4, size=(int(noise.sum()), width))]
+    qcfail = rng.random(n) < 0.05
+    plan = pamld.slice_plan(131072, barcodes, **H100_LOOP)
+    columns = plan.columns()
+    assert plan.slices > 1 and plan.cut == 48 and columns[-1][1] == barcodes
+    assert any(start % 2048 for start, _ in columns)
+    code_t, qual_t, qcfail_t = _t(code), _t(qual), torch.from_numpy(qcfail)
+    features = pamld.observation_features_plain(code_t, qual_t)
+    qpos = (qual_t > 0).to(torch.float32).sum(dim=1) * pamld.UNIFORM_BASE_QUALITY
+    args = (features, qpos, dec.likelihood_matrix, dec.concentration, dec.noise * dec.random_barcode_probability)
+    kwargs = dict(want_uncertain=True, eps=ours.tpq_analytic_eps)
+    mine = pamld.finish_plain(dec, code_t, qual_t, qcfail_t, pamld.posterior_sliced_plain(*args, columns), **kwargs)
+    monolithic = pamld.finish_plain(dec, code_t, qual_t, qcfail_t, pamld.posterior_plain(*args), **kwargs)
+    assert all(torch.equal(monolithic[key], value) for key, value in pamld.pamld_classify_plain(
+        dec, code_t, qual_t, qcfail_t, **kwargs).items())
+    theirs = jax_classify.pamld_classify_device(
+        reference, reference.decoders[0], jnp.asarray(code.astype(np.int32)), jnp.asarray(qual.astype(np.int32)),
+        jnp.asarray(qcfail), want_uncertain=True,
+    )
+    others = {"monolithic": monolithic, "jax": {k: torch.from_numpy(np.asarray(v).copy()) for k, v in theirs.items()}}
+    for name, other in others.items():
+        settled = ~(mine["uncertain"] | other["uncertain"])
+        assert settled.float().mean() > 0.5, name
+        for key in ("decoded", "argmax", "distance", "branch", "qcfail"):
+            assert torch.equal(mine[key][settled], other[key][settled].to(mine[key].dtype)), (name, key)
+        np.testing.assert_allclose(mine["confidence"][settled].numpy(), other["confidence"][settled].numpy(),
+                                   rtol=1e-5, atol=0, err_msg=name)
+    assert (mine["decoded"] == 0).any() and (mine["decoded"] > 0).float().mean() > 0.5
+
+
+def _running_posterior(p, sigma, start: int):
+    """The kernel's running posterior (csrc/pamld.cu PhqPosterior::add)
+    over the columns of `p` in order, the first global column `start`:
+    (total, best, best0, second, sigma_best)."""
+    n = p.shape[0]
+    total = torch.zeros(n)
+    best = torch.full((n,), -1.0)
+    second = torch.zeros(n)
+    sigma_best = torch.zeros(n)
+    best0 = torch.zeros(n, dtype=torch.int32)
+    for j in range(p.shape[1]):
+        c = p[:, j]
+        total = total + c
+        better = c > best
+        second = torch.where(better, torch.maximum(second, best), torch.maximum(second, c))
+        best0 = torch.where(better, start + j, best0)
+        sigma_best = torch.where(better, sigma[:, j], sigma_best)
+        best = torch.where(better, c, best)
+    return total, best, best0, second, sigma_best
+
+
+@pytest.mark.parametrize("barcodes", [96, 384, 1000])
+def test_slice_merge_equals_one_pass(barcodes):
+    """The merge algebra alone, on ONE sigma matrix (sigma_tile_order,
+    computed once): the slices of K1's plan each run the kernel's running
+    posterior, merged in slice order by device/tp.py:reduce_partials,
+    against one running posterior over every column. best, best0, second
+    and sigma_best bit-equal on every row, the slices' row minima merged to
+    the same shift, and the total within the bound's gamma_b term
+    (2*gamma(B+2) of itself: any summation tree of the B terms). The panel
+    repeats barcodes within a slice and across slices, so exact ties
+    (the first global index wins) and duplicated maxima (the runner-up
+    keeps them) occur."""
+    from pheniqs_tpu_torch.device import tp
+    from pheniqs_tpu_torch.device.instrument import LN_PHRED_BASE
+
+    rng = np.random.default_rng(barcodes + 1)
+    n, width = 300, 16
+    panel = random_panel(rng, barcodes, width)
+    plan = pamld.slice_plan(131072, barcodes, **H100_LOOP)
+    columns = plan.columns()
+    assert plan.slices >= 2
+    # barcode 3 again late in slice 0 and in the last slice; the last slice's
+    # first barcode again in slice 1
+    panel[columns[0][1] - 1] = panel[3]
+    panel[columns[-1][1] - 1] = panel[3]
+    panel[columns[1][0] + 1] = panel[columns[-1][0]]
+    code, qual, _ = simulate_reads(rng, panel, n, error_rate=0.05)
+    qual[rng.random(n) < 0.3] = 30
+    codes = np.array([[STRICT_CODES["ACGT".index(base)] for base in word] for word in panel], np.uint8)
+    code[:40] = codes[3]
+    code[40:80] = codes[columns[-1][0]]
+    sigma = pamld.sigma_tile_order(_t(code), _t(qual), torch.from_numpy(codes))
+    concentration = torch.full((barcodes,), 0.95 / barcodes)
+    minima = torch.stack([sigma[:, start:stop].min(dim=1).values for start, stop in columns])
+    shift = sigma.min(dim=1).values
+    assert torch.equal(tp.merge_panel_shift(minima), shift)
+    p = torch.exp(LN_PHRED_BASE * (sigma - shift[:, None])) * concentration[None, :]
+    one = dict(zip(pamld.PARTIAL_ROWS, _running_posterior(p, sigma, 0)))
+    partials = torch.stack([
+        pamld.pack_partials(*_running_posterior(p[:, start:stop], sigma[:, start:stop], start))
+        for start, stop in columns
+    ])
+    merged = pamld.unpack_partials(tp.reduce_partials(partials))
+    for key in ("best_p", "best0", "second_p", "sigma_best"):
+        a, b = merged[key], one[key]
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), key
+    tolerance = 2.0 * pamld.gamma(barcodes + 2)
+    assert bool(((merged["total"] - one["total"]).abs() <= tolerance * one["total"]).all())
+    duplicated = one["second_p"] == one["best_p"]
+    tied = torch.isin(one["best0"], torch.tensor([3, columns[1][0] + 1]))
+    assert int(duplicated.sum()) > 0 and int((duplicated & tied).sum()) > 0
 
 
 def _sigma_f64(dec, code, qual) -> torch.Tensor:

@@ -21,7 +21,6 @@ Tolerances, each with its reason:
 
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -108,25 +107,24 @@ def test_tp_posterior_matches_jax(workload, panel_size):
             np.testing.assert_allclose(mine, reference, rtol=rtol, atol=1e-30, err_msg=name)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _rank_env(rank: int, size: int, port: int, **extra) -> dict:
     env = dict(os.environ)
     env.update(
         PYTHONPATH=REPO, PHENIQS_TP=f"1:{size}", RANK=str(rank), WORLD_SIZE=str(size),
         LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(size), MASTER_ADDR="localhost",
-        MASTER_PORT=str(port), PHENIQS_TORCH_DEVICE="cpu",
+        MASTER_PORT=str(port), PHENIQS_TORCH_DEVICE="cpu", TORCHELASTIC_USE_AGENT_STORE="True",
     )
     env.update(extra)
     return env
 
 
 def _run_ranks(code: str, size: int, args=(), **extra) -> list[str]:
-    port = _free_port()
+    """Run `code` in `size` rank processes. The rendezvous store is held
+    here, as torchrun's agent holds it, on a port bound once and kept: a
+    port freed after probing could be taken by another test process before
+    rank 0 bound it, and every rank connects to this store as a client."""
+    store = torch.distributed.TCPStore("localhost", 0, world_size=size, is_master=True, wait_for_workers=False)
+    port = store.port
     procs = [
         subprocess.Popen(
             [sys.executable, "-c", code, *args], env=_rank_env(rank, size, port, **extra),
