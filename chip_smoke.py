@@ -5,12 +5,13 @@
     python3 chip_smoke.py --nccl     # on a host with >= 2 cards: only the
                                      # PHENIQS_TP run over NCCL and its strict
                                      # reference
-    python3 chip_smoke.py --times T  # only the tile loop's and the decode
-                                     # steps' device times, the plan's
-                                     # choice at batch sizes from 16384 to
-                                     # 262144 and K1's slice unit, the
-                                     # package imported from tree T, a copy
-                                     # of another commit inside this checkout
+    python3 chip_smoke.py --times T  # only the tile loop's, K3's, K6's,
+                                     # K4's, K5's and the decode steps'
+                                     # device times, the plan's choice at
+                                     # batch sizes from 16384 to 262144
+                                     # and K1's slice unit, the package
+                                     # imported from tree T, a copy of
+                                     # another commit inside this checkout
 
 It drives four paths of the port, all on the flagship read layout
 (150 + 8 + 8 + 26 nt, RTA3 qualities): the flagship (PAMLD 96 sample
@@ -29,9 +30,17 @@ any failure propagates and the exit code is not 0:
   3. kernels      each kernel against its plain torch version on the card
                   at main-path shapes (N=131072, j4 wire): on the flagship
                   (plus a 1024-barcode panel for K1, and K3 on every wire
-                  layout and the general gather), on the MDD flagship (K6
-                  byte-exact, also at tolerance 2 with quality masking and
-                  short reads) and on a 4096-barcode cellular panel (K7);
+                  layout and the general gather, two launches identical,
+                  with its reads a block and shared bytes, and on its edge
+                  cases: N = 0, 1, R - 1, R + 1, 16384 + 7, blobs off
+                  16-byte alignment, unpack_edge_checks), on the MDD
+                  flagship (K6 byte-exact and two launches identical, also
+                  at tolerance 2 with quality masking and short reads; its
+                  share of reads resolved by the key table and reads
+                  scanned a warp; a panel with a duplicated barcode, 5-,
+                  24- and 64-position and 2000-barcode panels on unaligned
+                  rows, mdd_edge_checks; ptxas' registers of K3 and K6)
+                  and on a 4096-barcode cellular panel (K7);
                   K1 and K7 launched twice, byte-identical; the sliced K1
                   held to its one-launch instance on the same batch
                   (sliced_vs_one_launch: argmax, decoded and distance
@@ -225,15 +234,15 @@ def classify_work(dec, n: int, w: int, plain: dict) -> tuple[int, int]:
     barcode), a match and a strictness compare and two f32 adds per
     position, then four operations of the posterior (exp, product, sum,
     compare); MDD compares and counts each position of the barcodes a read
-    needs: up to its first exact match (distance 0, decoded index), else
-    all B."""
+    needs, whatever implements the function: a read with an exact match
+    (``plain["exact"]``, mdd_exact_rows) its W positions once, any other
+    read all B barcodes."""
     import torch
 
     b = dec.barcode_count
     moved = 2 * n * w + b * w + 4 * b + 2 * n + 19 * n
     if dec.algorithm == "mdd":
-        exact = (plain["decoded"] > 0) & (plain["distance"] == 0)
-        needed = int(torch.where(exact, plain["decoded"].to(torch.int64), b).sum())
+        needed = int(torch.where(plain["exact"], 1, b).sum())
         return moved, 2 * w * needed
     return moved, 4 * n * b * (w + 1)
 
@@ -249,6 +258,31 @@ def build_kernels():
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             say(f"[build] {line.strip()}")
+
+
+def ptxas_report(fragment: str, log: str | None = None) -> dict:
+    """{kernel: "N registers, S B smem, spills"} from ptxas' report in the
+    build log, for every entry function whose mangled name holds
+    `fragment` (one line each instance)."""
+    import re
+
+    from pheniqs_tpu_torch.kernels import build
+
+    report, name = {}, None
+    for line in (build.build_log() if log is None else log).splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1) if fragment in entry.group(1) else None
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            report[name] = f"spills {spill.group(1)}/{spill.group(2)} B"
+        used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if used:
+            report[name] = f"{used.group(1)} registers, {used.group(2)} B static smem, {report.get(name, '')}"
+    return report
 
 
 def device_ms(fn, reps: int = 10) -> float:
@@ -385,10 +419,11 @@ def flagship_blob(ontology, instrument, n: int, seed: int, short: float = 0.0, p
     return widths, blob, ccb, qcb
 
 
-def unpack_checks(n: int):
-    """K3 byte-exact against its plain version on the 6-bit, 2-bit and
-    4-bit wires too, and on the general gather (negative starts and ends,
-    reverse complement, two tokens into one observation segment)."""
+def gather_blob(n: int, mode, seed: int = 9):
+    """(instrument, layout, program, blob, ccb, qcb) on the card: `n` reads
+    of two wire segments (24 + 12) on the `mode` wire for one decoder of
+    the general gather (negative starts and ends, reverse complement, two
+    tokens into one observation segment)."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -398,7 +433,7 @@ def unpack_checks(n: int):
     from pheniqs_tpu_torch.device.instrument import DeviceDecoder, TokenPlan
     from pheniqs_tpu_torch.kernels import unpack
 
-    rng = np.random.default_rng(9)
+    rng = np.random.default_rng(seed)
     widths = [24, 12]
     segments = []
     for w in widths:
@@ -417,28 +452,193 @@ def unpack_checks(n: int):
     ]
     instrument = SimpleNamespace(decoders=[DeviceDecoder("pamld", "sample", 1, True, plans, [16, 13, 5])])
     cuda = torch.device("cuda")
+    ccb = qcb = lut = None
+    if mode == wire.JOINT4:
+        # 20 distinct pairs: the 4 outside the codebook ride as forced rows
+        pairs = np.unique(np.concatenate([(c.astype(np.int64) << 8 | q).ravel() for c, q, _ in segments]))
+        ccb, qcb, lut_idx, lut_exact = wire.sense_joint_codebook(pairs[:16])
+        lut = (lut_idx, lut_exact)
+    elif mode != 6:
+        _, qcb, lut_idx, lut_exact = wire.sense_qual_codebook([2, 12, 23, 37], str(mode))
+        lut = (lut_idx, lut_exact)
+    blob = torch.from_numpy(wire.pack_h2d_blob(widths, segments, qcfail, qual_bits=mode, qual_lut=lut)).to(cuda)
+    ccb = None if ccb is None else torch.from_numpy(ccb).to(cuda)
+    qcb = None if qcb is None else torch.from_numpy(qcb).to(cuda)
+    layout = unpack.token_layout(instrument, widths, mode)
+    program = torch.from_numpy(layout.program).to(cuda)
+    return instrument, layout, program, blob, ccb, qcb
+
+
+TOKEN_FIELDS = ("codes", "quals", "lengths", "short", "qcfail", "pad", "forced")
+
+
+def hold_unpack(label: str, instrument, layout, program, blob, ccb, qcb):
+    """K3 launched twice on `blob`, byte-identical, and byte-exact against
+    its plain version. Returns the tokens."""
+    import torch
+
+    from pheniqs_tpu_torch.kernels import unpack
+
+    mine = unpack.unpack_tokens(instrument, layout, program, blob, ccb, qcb)
+    again = unpack.unpack_tokens(instrument, layout, program, blob, ccb, qcb)
+    plain = unpack.unpack_tokens_plain(instrument, layout, blob, ccb=ccb, qcb=qcb)
+    torch.cuda.synchronize()
+    for field in TOKEN_FIELDS:
+        a, b, c = getattr(mine, field), getattr(again, field), getattr(plain, field)
+        if not torch.equal(a, b):
+            raise AssertionError(f"K3 {label}: two launches differ in {field}")
+        if not torch.equal(a, c):
+            raise AssertionError(f"K3 {label}: {field} differs from the plain version on {int((a != c).sum())} entries")
+    return mine
+
+
+def unaligned(blob, offset: int):
+    """A copy of `blob` as a view `offset` bytes into a larger buffer (its
+    data_ptr() % 16 == offset when offset < 16)."""
+    import torch
+
+    flat = torch.empty(blob.numel() + offset, dtype=blob.dtype, device=blob.device)
+    view = flat[offset:].view(blob.shape)
+    view.copy_(blob)
+    return view
+
+
+def unpack_checks(n: int):
+    """K3 byte-exact against its plain version on the 6-bit, 2-bit and
+    4-bit wires too, and on the general gather (negative starts and ends,
+    reverse complement, two tokens into one observation segment)."""
+    from pheniqs_tpu_torch.device import wire
+
     for mode in (6, 2, 4, wire.JOINT4):
-        ccb = qcb = lut = None
-        if mode == wire.JOINT4:
-            # 20 distinct pairs: the 4 outside the codebook ride as forced rows
-            pairs = np.unique(np.concatenate([(c.astype(np.int64) << 8 | q).ravel() for c, q, _ in segments]))
-            ccb, qcb, lut_idx, lut_exact = wire.sense_joint_codebook(pairs[:16])
-            lut = (lut_idx, lut_exact)
-        elif mode != 6:
-            _, qcb, lut_idx, lut_exact = wire.sense_qual_codebook([2, 12, 23, 37], str(mode))
-            lut = (lut_idx, lut_exact)
-        blob = torch.from_numpy(wire.pack_h2d_blob(widths, segments, qcfail, qual_bits=mode, qual_lut=lut)).to(cuda)
-        ccb = None if ccb is None else torch.from_numpy(ccb).to(cuda)
-        qcb = None if qcb is None else torch.from_numpy(qcb).to(cuda)
-        layout = unpack.token_layout(instrument, widths, mode)
-        program = torch.from_numpy(layout.program).to(cuda)
-        mine = unpack.unpack_tokens(instrument, layout, program, blob, ccb, qcb)
-        plain = unpack.unpack_tokens_plain(instrument, layout, blob, ccb=ccb, qcb=qcb)
-        torch.cuda.synchronize()
-        for field in ("codes", "quals", "lengths", "short", "qcfail", "pad", "forced"):
-            if not torch.equal(getattr(mine, field), getattr(plain, field)):
-                raise AssertionError(f"K3 {mode}-wire general gather: {field} differs")
-    say(f"[kernels] K3 byte-exact on the 6/2/4/j4 wires with the general gather (N={n})")
+        hold_unpack(f"{mode}-wire general gather", *gather_blob(n, mode))
+    say(f"[kernels] K3 byte-exact on the 6/2/4/j4 wires with the general gather (N={n}), two launches identical")
+
+
+def unpack_edge_checks() -> int:
+    """K3 on the ragged and unaligned cases, byte-exact against its plain
+    version and across two launches: N = 0, 1, R - 1, R + 1 and 16384 + 7
+    reads (R the reads a block owns) on the 6-bit and j4 wires with the
+    general gather, each also as a view 3 bytes into a larger buffer.
+    Returns the cases held."""
+    from pheniqs_tpu_torch.device import wire
+    from pheniqs_tpu_torch.kernels import unpack
+
+    held = 0
+    instrument, layout, program, blob, ccb, qcb = gather_blob(16384 + 7, wire.JOINT4)
+    plan = unpack.block_plan(layout, blob.shape[1])
+    empty = unpack.unpack_tokens(instrument, layout, program, blob[:0], ccb, qcb)
+    if empty.codes.shape != (0, layout.token_cols) or empty.lengths.shape != (0, layout.length_cols):
+        raise AssertionError("K3 N=0: outputs of the wrong shape")
+    held += 1
+    for mode in (6, wire.JOINT4):
+        instrument, layout, program, blob, ccb, qcb = gather_blob(16384 + 7, mode, seed=10)
+        for n in (1, plan.reads - 1, plan.reads + 1, 16384 + 7):
+            for offset in (0, 3):
+                rows = blob[:n].contiguous() if offset == 0 else unaligned(blob[:n], offset)
+                if rows.data_ptr() % 16 != offset:
+                    raise AssertionError(f"K3 edge case: the view is {rows.data_ptr() % 16} bytes off, not {offset}")
+                hold_unpack(f"{mode}-wire N={n} at offset {offset}", instrument, layout, program, rows, ccb, qcb)
+                held += 1
+    say(f"[kernels] K3 byte-exact and two launches identical on {held} edge cases: N = 0, 1, {plan.reads - 1},"
+        f" {plan.reads + 1}, 16391 on the 6-bit and j4 wires, aligned and 3 bytes off")
+    return held
+
+
+def mdd_synthetic(widths, barcodes: int, n: int, tolerance: int, qmt: int, short: float, seed: int):
+    """A synthetic MDD decoder on the card (random A/C/G/T panel of
+    `barcodes` x sum(widths), its last barcode a copy of its second) and
+    `n` reads drawn from it with 8 % substitutions (N among them), some cut
+    short, their rows one byte into wider buffers (unaligned views, as the
+    unpack outputs' slots are): (dec, codes, quals, lengths, qcfail)."""
+    import numpy as np
+    import torch
+
+    from pheniqs_tpu_torch.device.instrument import DeviceDecoder
+    from pheniqs_tpu_torch.kernels import mdd
+
+    rng = np.random.default_rng(seed)
+    w = sum(widths)
+    panel = rng.choice(np.array([1, 2, 4, 8], np.uint8), size=(barcodes, w))
+    panel[-1] = panel[1]
+    reads = panel[rng.integers(barcodes, size=n)]
+    errors = rng.random((n, w)) < 0.08
+    reads[errors] = rng.choice(np.array([1, 2, 4, 8, 15], np.uint8), size=int(errors.sum()))
+    quals = rng.integers(2, 41, size=(n, w)).astype(np.uint8)
+    lengths = np.tile(np.array(widths, np.int32), (n, 1))
+    cut = rng.random(lengths.shape) < short
+    lengths[cut] = rng.integers(0, np.broadcast_to(np.array(widths), lengths.shape)[cut] + 1)
+    starts = np.concatenate([[0], np.cumsum(widths)[:-1]])
+    for s, (start, width) in enumerate(zip(starts, widths)):
+        beyond = np.arange(width)[None, :] >= lengths[:, s : s + 1]
+        reads[:, start : start + width][beyond] = 0
+        quals[:, start : start + width][beyond] = 0
+    cuda = torch.device("cuda")
+    dec = DeviceDecoder("mdd", "sample", 0, True, [], list(widths), barcode_count=barcodes, width=w,
+                        panel_codes=torch.from_numpy(panel.astype(np.int32)).to(cuda),
+                        panel_codes_u8=torch.from_numpy(panel).to(cuda), quality_masking_threshold=qmt,
+                        distance_tolerance=tuple([tolerance] * len(widths)))
+    dec.key_table = mdd.key_table_tensor(dec.panel_codes_u8)
+    rows = []
+    for x in (reads, quals):
+        wide = torch.zeros((n, w + 3), dtype=torch.uint8, device=cuda)
+        wide[:, 1 : 1 + w] = torch.from_numpy(x).to(cuda)
+        rows.append(wide[:, 1 : 1 + w])
+    qcfail = torch.from_numpy(rng.random(n) < 0.05).to(cuda)
+    return dec, rows[0], rows[1], torch.from_numpy(lengths).to(cuda), qcfail
+
+
+def mdd_edge_checks(n: int = N_KERNEL) -> int:
+    """K6 byte-exact against its plain version and across two launches
+    (classify_pair) where its design branches: the MDD flagship's panel
+    with one barcode copied twice (reads equal to it decode to its lowest
+    index), and synthetic panels of 5, 24 and 64 positions (the 4-, 8- and
+    16-word instances; 1 to 2 segments) and of 2000 barcodes (a key table
+    too large for shared memory, read from L2), at tolerance 1 and at
+    tolerance 2 with quality masking and 20 % short reads, on unaligned
+    rows of 16384 + 7 reads. Returns the cases held."""
+    import dataclasses
+
+    import torch
+
+    from pheniqs_tpu_torch.device import wire
+    from pheniqs_tpu_torch.device.flagship import mdd_flagship_ontology
+    from pheniqs_tpu_torch.device.instrument import compile_instrument
+    from pheniqs_tpu_torch.device.step import DecodeStep
+    from pheniqs_tpu_torch.kernels import mdd, pamld, unpack
+
+    cuda = torch.device("cuda")
+    ontology = mdd_flagship_ontology()
+    instrument = compile_instrument(ontology, cuda)
+    widths, *arrays = flagship_blob(ontology, instrument, n, seed=98)
+    step = DecodeStep(instrument, widths, wire.JOINT4, want_uncertain=True)
+    tokens = unpack.unpack_tokens(instrument, step.layout, step.program,
+                                  *(torch.from_numpy(x).to(cuda) for x in arrays))
+    codes, quals, lengths, short = tokens.observation(step.layout, 0)
+    dec = instrument.decoders[0]
+    panel = dec.panel_codes_u8.clone()
+    panel[40] = panel[5]
+    panel[90] = panel[5]
+    duplicated = dataclasses.replace(dec, panel_codes=panel.to(torch.int32), panel_codes_u8=panel,
+                                     key_table=mdd.key_table_tensor(panel))
+    pair = classify_pair(duplicated, instrument, codes, quals, lengths, tokens.qcfail, short,
+                         pamld.empty_result(n, cuda))
+    decoded = pair["plain"]["decoded"]
+    if bool(((decoded == 41) | (decoded == 91)).any()) or not bool((decoded == 6).any()):
+        raise AssertionError("K6 duplicated barcode: a read decoded to a later copy")
+    say(f"[kernels] mdd flagship, barcode 6 copied to 41 and 91, N={n}: {pair['line']}")
+    held = 1
+    cases = (([5], 40), ([12, 12], 300), ([30, 34], 70), ([8, 8], 2000))
+    for widths, barcodes in cases:
+        for tolerance, qmt, cut in ((1, 0, 0.0), (2, 20, 0.2)):
+            dec, codes, quals, lengths, qcfail = mdd_synthetic(widths, barcodes, 16384 + 7, tolerance, qmt, cut,
+                                                               seed=barcodes + tolerance)
+            short = torch.zeros(codes.shape[0], dtype=torch.bool, device=cuda)
+            pair = classify_pair(dec, instrument, codes, quals, lengths, qcfail, short,
+                                 pamld.empty_result(codes.shape[0], cuda))
+            say(f"[kernels] K6 W={widths} B={barcodes} tolerance {tolerance} qmt {qmt} short {cut:.0%}"
+                f" N={codes.shape[0]}, unaligned rows: {pair['line']}")
+            held += 1
+    return held
 
 
 def sliced_vs_one_launch(dec, instrument, codes, quals, qcfail, short) -> str:
@@ -474,6 +674,29 @@ def sliced_vs_one_launch(dec, instrument, codes, quals, qcfail, short) -> str:
             f" ct or its margin ({held['at_edge']} rows of moved confidence sit there)")
 
 
+def mdd_exact_rows(dec, lengths, plain: dict):
+    """The reads K6 resolves by its key table: every segment at full
+    length and an exact match (for such a read no mismatch is the only
+    way to distance 0: positions masked for quality are errors only on a
+    scan, and the exact test ignores them)."""
+    import torch
+
+    widths = torch.tensor(list(dec.segment_widths), dtype=torch.int32, device=lengths.device)
+    full = (lengths == widths).all(dim=1)
+    return full & (plain["decoded"] > 0) & (plain["distance"] == 0)
+
+
+def mdd_split(exact) -> dict:
+    """K6's split of the work: the share of reads the key table resolves,
+    and the reads each warp of 32 consecutive reads scans the panel for."""
+    import torch
+
+    misses = torch.nn.functional.pad((~exact).to(torch.float32), (0, -exact.numel() % 32))
+    per_warp = misses.view(-1, 32).sum(dim=1)
+    return {"exact_share": float(exact.float().mean()), "scanned_a_warp": float(per_warp.mean()),
+            "warps_without_scan": float((per_warp == 0).float().mean())}
+
+
 def classify_pair(dec, instrument, codes, quals, lengths, qcfail, short, out, bounded=True) -> dict:
     """One decoder's classify kernel (K1, K7 or K6) against its plain
     version on the same tokens, each called once (CUDA-event times `ms`
@@ -500,14 +723,22 @@ def classify_pair(dec, instrument, codes, quals, lengths, qcfail, short, out, bo
     n = codes.shape[0]
     if dec.algorithm == "mdd":
         mine, ms = once_ms(lambda: mdd.mdd_classify(dec, codes, quals, lengths, qcfail, out=out))
+        again = mdd.mdd_classify(dec, codes, quals, lengths, qcfail)
         plain, plain_ms = once_ms(lambda: mdd.mdd_classify_plain(dec, codes, quals, lengths, qcfail))
         for key in ("decoded", "argmax", "distance", "branch", "confidence", "qcfail"):
+            if not torch.equal(mine[key], again[key]):
+                raise AssertionError(f"K6: two launches differ in {key} on {int((mine[key] != again[key]).sum())} rows")
             if not torch.equal(mine[key], plain[key]):
                 raise AssertionError(f"K6 {key} differs on {int((mine[key] != plain[key]).sum())} rows")
+        plain["exact"] = mdd_exact_rows(dec, lengths, plain)
+        split = mdd_split(plain["exact"])
         return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "plain": plain,
                 "differs_plain": torch.zeros(n, dtype=torch.bool, device=codes.device), "line": (
-            f"byte-identical; decoded {float((plain['decoded'] > 0).float().mean()):.4%},"
-            f" within tolerance {float((plain['distance'] > 0).float().mean()):.4%}"
+            f"two launches byte-identical, byte-identical to plain; decoded"
+            f" {float((plain['decoded'] > 0).float().mean()):.4%}, within tolerance"
+            f" {float((plain['distance'] > 0).float().mean()):.4%}; exact by lookup {split['exact_share']:.4%},"
+            f" scanned {split['scanned_a_warp']:.2f} reads a warp (warps without a scan"
+            f" {split['warps_without_scan']:.2%})"
         )}
     name = f"K{7 if dec.barcode_count > pamld.LARGE_PANEL_B else 1} B={dec.barcode_count}"
     kwargs = dict(want_uncertain=True, eps=instrument.tpq_analytic_eps, short=short)
@@ -610,21 +841,21 @@ def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: flo
     layout = step.layout
     results = {}
 
-    tokens = unpack.unpack_tokens(instrument, layout, step.program, blob, ccb, qcb)
-    plain_tokens = unpack.unpack_tokens_plain(instrument, layout, blob, ccb=ccb, qcb=qcb)
-    torch.cuda.synchronize()
-    for field in ("codes", "quals", "lengths", "short", "qcfail", "pad", "forced"):
-        a, b = getattr(tokens, field), getattr(plain_tokens, field)
-        if not torch.equal(a, b):
-            raise AssertionError(f"{label}: K3 {field} differs on {int((a != b).sum())} entries")
+    tokens = hold_unpack(label, instrument, layout, step.program, blob, ccb, qcb)
+    hold_unpack(f"{label} 5 bytes off alignment", instrument, layout, step.program, unaligned(blob, 5), ccb, qcb)
+    plan = unpack.block_plan(layout, blob.shape[1], step.program.numel())
+    say(f"[kernels] {label} K3 N={n}: byte-exact, two launches identical, also on a view 5 bytes off alignment;"
+        f" R = {plan.reads} reads a block, {plan.shared_bytes} shared bytes a block (wire rows staged:"
+        f" {plan.stage_wire}, tokens staged: {plan.stage_tokens})")
     if timed:
         results["unpack_tokens"] = {
             "max_abs_err": 0.0,
-            "bytes": nbytes(blob, ccb, qcb, *(getattr(tokens, f) for f in (
-                "codes", "quals", "lengths", "short", "qcfail", "pad", "forced"))),
+            "bytes": nbytes(blob, ccb, qcb, *(getattr(tokens, f) for f in TOKEN_FIELDS)),
             "library_ms": None,
             "ms": device_ms(lambda: unpack.unpack_tokens(instrument, layout, step.program, blob, ccb, qcb)),
             "plain_ms": device_ms(lambda: unpack.unpack_tokens_plain(instrument, layout, blob, ccb=ccb, qcb=qcb)),
+            "extra": {"reads_a_block": plan.reads, "shared_bytes_a_block": plan.shared_bytes,
+                      "ptxas": ptxas_report("phq_unpack_kernel")},
         }
 
     kernel_rows = Decisions.zeros(len(instrument.decoders), n, cuda)
@@ -651,7 +882,8 @@ def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: flo
         ms, plain_ms = pair["ms"], pair["plain_ms"]
         if timed:
             if dec.algorithm == "mdd":
-                ms = device_ms(lambda: mdd.mdd_classify(dec, codes, quals, lengths, qcfail))
+                out = pamld.empty_result(n, cuda)
+                ms = device_ms(lambda: mdd.mdd_classify(dec, codes, quals, lengths, qcfail, out=out))
                 plain_ms = device_ms(lambda: mdd.mdd_classify_plain(dec, codes, quals, lengths, qcfail), reps=3)
             else:
                 kwargs = dict(want_uncertain=True, eps=instrument.tpq_analytic_eps, short=short_rows)
@@ -668,6 +900,8 @@ def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: flo
             entry["ms"] += ms
             entry["plain_ms"] += plain_ms
             entry["parts"].append((dec.barcode_count, ms, plain_ms))
+            if dec.algorithm == "mdd":
+                entry["extra"] = dict(mdd_split(pair["plain"]["exact"]), ptxas=ptxas_report("phq_mdd_kernel"))
             clock = "device time" if timed else "one call each, CUDA events"
             say(f"[kernels] {label} {dec.algorithm} B={dec.barcode_count}: kernel {ms:.4f} ms,"
                 f" plain {plain_ms:.4f} ms ({clock})")
@@ -1166,6 +1400,13 @@ def kernel_checks(n: int = N_KERNEL, timed: bool = True) -> dict:
     say(f"[kernels] GPU-measured analytic TPQ epsilon {eps:.6e}"
         f" (CPU torch {analytic_tpq_epsilon('cpu'):.6e}; max |GPU - CPU| {tpq_gap:.3e})")
     unpack_checks(n)
+    start = time.perf_counter()
+    unpack_edge_checks()
+    mdd_edge_checks(n)
+    say(f"[kernels] K3's and K6's edge checks took {time.perf_counter() - start:.1f} s")
+    for fragment in ("phq_unpack_kernel", "phq_mdd_kernel"):
+        for kernel, line in ptxas_report(fragment).items():
+            say(f"[kernels] ptxas {kernel}: {line}")
 
     results = step_checks("flagship", flagship_ontology(), n, seed=384, timed=timed)
     step_checks(f"flagship B={LARGE_PANEL_B}", flagship_ontology(cellular_barcodes=LARGE_PANEL_B),
@@ -1623,6 +1864,103 @@ def slice_rule_times(takes_plan: bool) -> dict:
     return times
 
 
+def variant_library(source: str, define: str):
+    """A diagnostic copy of one kernel source of the imported tree, built
+    alone with `define` set and loaded (argtypes as the package's), or None
+    where the source has no such macro (another commit)."""
+    import ctypes
+
+    from pheniqs_tpu_torch.kernels import build
+
+    path = build.CSRC / source
+    if define not in path.read_text():
+        return None
+    os.makedirs(WORK, exist_ok=True)
+    target = os.path.join(WORK, f"{path.stem}.{define}.so")
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, f"-D{define}", "-shared", "-o", target, str(path)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(target)
+    for name, argtypes in build.SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = list(argtypes)
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def unpack_mdd_times() -> dict:
+    """--times' K3, K6, K4 and K5 readings, device time of one call: K3 on
+    the flagship's and the MDD flagship's j4 blobs and K6 on the MDD
+    flagship and on its tolerance-2, qmt-20, 10 %-short variant, each at
+    N_KERNEL and 16384 reads; where the tree has them, K3 without its token
+    stores (PHQ_UNPACK_NO_TOKEN_STORES) and K6 without its scan
+    (PHQ_MDD_NO_SCAN: the key-table phase alone), built as diagnostic
+    copies; and K4 and K5 on the flagship step's rows at N_KERNEL."""
+    import torch
+
+    from pheniqs_tpu_torch.device import wire
+    from pheniqs_tpu_torch.device.flagship import flagship_ontology, mdd_flagship_ontology
+    from pheniqs_tpu_torch.device.instrument import compile_instrument
+    from pheniqs_tpu_torch.device.step import DecodeStep
+    from pheniqs_tpu_torch.kernels import Decisions, mdd, pack, pamld, unpack
+    from pheniqs_tpu_torch.kernels.counters import counters
+
+    cuda = torch.device("cuda")
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    no_stores = variant_library("unpack_tokens.cu", "PHQ_UNPACK_NO_TOKEN_STORES")
+    no_scan = variant_library("mdd.cu", "PHQ_MDD_NO_SCAN")
+    tolerant = mdd_flagship_ontology()
+    tolerant["sample"]["distance tolerance"] = [2, 2]
+    tolerant["sample"]["quality masking threshold"] = 20
+    times = {}
+    for label, ontology, short in (("flagship", flagship_ontology(), 0.0), ("mdd flagship", mdd_flagship_ontology(), 0.0),
+                                   ("mdd tolerance 2", tolerant, 0.1)):
+        instrument = compile_instrument(ontology, cuda)
+        for n in (N_KERNEL, 16384):
+            widths, *arrays = flagship_blob(ontology, instrument, n, seed=96, short=short)
+            blob, ccb, qcb = (torch.from_numpy(x).to(cuda) for x in arrays)
+            layout = DecodeStep(instrument, widths, wire.JOINT4, want_uncertain=True).layout
+            program = torch.from_numpy(layout.program).to(cuda)
+            if short == 0.0:
+                times[f"K3 {label} N={n}"] = device_ms(
+                    lambda: unpack.unpack_tokens(instrument, layout, program, blob, ccb, qcb))
+                if no_stores is not None:
+                    times[f"K3 {label} N={n} without token stores"] = device_ms(
+                        lambda: unpack._launch(no_stores, layout, program, blob, ccb, qcb, stream))
+            tokens = unpack.unpack_tokens(instrument, layout, program, blob, ccb, qcb)
+            dec = instrument.decoders[0]
+            if dec.algorithm == "mdd":
+                codes, quals, lengths, _ = tokens.observation(layout, 0)
+                out = pamld.empty_result(n, cuda)
+                times[f"K6 {label} N={n}"] = device_ms(
+                    lambda: mdd.mdd_classify(dec, codes, quals, lengths, tokens.qcfail, out=out))
+                if no_scan is not None:
+                    times[f"K6 {label} N={n} key table alone"] = device_ms(
+                        lambda: mdd._launch(no_scan, dec, codes, quals, lengths, tokens.qcfail, out, stream))
+            if label == "flagship" and n == N_KERNEL:
+                decisions = Decisions.zeros(len(instrument.decoders), n, cuda)
+                qcfail = tokens.qcfail
+                slot = 0
+                for k, dec in enumerate(instrument.decoders):
+                    row = decisions.row(k)
+                    if dec.algorithm == "pamld" and dec.plans:
+                        codes, quals, _, short_rows = tokens.observation(layout, slot)
+                        slot += 1
+                        pamld.pamld_classify(dec, codes, quals, qcfail, tpq_constants=instrument.tpq_constants,
+                                             want_uncertain=True, eps=instrument.tpq_analytic_eps,
+                                             short=short_rows, out=row)
+                    else:
+                        row["qcfail"].copy_(qcfail)
+                    qcfail = row["qcfail"]
+                times["K4 flagship"] = device_ms(
+                    lambda: counters(instrument, decisions, tokens.pad, tokens.forced, True))
+                times["K5 flagship"] = device_ms(
+                    lambda: pack.pack_outputs(instrument, decisions, tokens.forced, True))
+    for key, value in times.items():
+        say(f"[times] {key}: {value:.4f} ms")
+    shutil.rmtree(WORK, ignore_errors=True)
+    return times
+
+
 def kernel_times(card: str, tree: str):
     """--times: with the package imported from `tree`, at N_KERNEL reads,
     the device time of one pamld_classify call (every launch it makes) on
@@ -1630,9 +1968,9 @@ def kernel_times(card: str, tree: str):
     cellular panel (K1) and on a K7_PANEL one (K7); the flagship's and the
     MDD flagship's whole decode step; and, one call each with CUDA events,
     K7 and K8 at P = 2 and 4 on a synthetic panel of the whitelist's size
-    (random codes from a seed); the plan's choice on panels of one tile
-    (slice_rule_times); and, where the tree takes a plan, K1's slice unit
-    (slice_cut_sweep). The steps are also timed with CUDA events over 10
+    (random codes from a seed); K3, K6, K4 and K5 (unpack_mdd_times); the
+    plan's choice on panels of one tile (slice_rule_times); and, where the
+    tree takes a plan, K1's slice unit (slice_cut_sweep). The steps are also timed with CUDA events over 10
     and, three times, over 200 back-to-back calls: their launches, not the
     card, bound them. Two trees are compared in one call (parent, change,
     change, parent). One JSON line."""
@@ -1687,6 +2025,7 @@ def kernel_times(card: str, tree: str):
         shards = [tp.shard_panel(wide, rank, panels) for rank in range(panels)]
         times[f"K8 P={panels} shard"] = once_ms(lambda: pamld.pamld_classify_sharded(
             wide, shards[:1], codes, quals, None, finish=False, **kwargs))[1]
+    times.update(unpack_mdd_times())
     takes_plan = "plan" in inspect.signature(pamld._classify_launches).parameters
     times.update(slice_rule_times(takes_plan))
     if takes_plan:
@@ -1721,8 +2060,16 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     threads = min(8, os.cpu_count() or 1)
+    laps, clock = {}, [time.perf_counter()]
+
+    def lap(name: str):
+        now = time.perf_counter()
+        laps[name] = round(now - clock[0], 1)
+        clock[0] = now
+
     try:
         build_kernels()
+        lap("build")
         if args.nccl:
             nccl_only(card, threads)
             standalone_check()
@@ -1731,8 +2078,10 @@ def main() -> int:
                 "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
             return 0
         measured = kernel_checks()
+        lap("kernels")
         k4_edge_checks()
         sweep = k4_threshold_sweep()
+        lap("K4 edge cases and sweep")
         whitelist = Whitelist()
         plans = tile_loop_report(N_KERNEL, (96, 384, LARGE_PANEL_B, K7_PANEL, whitelist.decoder.barcode_count))
         measured["pamld_classify"]["extra"] = {"plans": {str(b): plans[b] for b in (96, 384, LARGE_PANEL_B)}}
@@ -1753,6 +2102,7 @@ def main() -> int:
             f" ({bound(k4_wide)[1]}), index_add_ yardstick {k4_wide['library_ms']:.4f} ms, peak allocation"
             f" {k4_wide['peak_bytes']} B")
         measured["pamld_panel_sharded"] = k8_checks(whitelist)
+        lap("whitelist and K8")
         for name in KERNELS:
             m = measured[name]
             bound_ms, bound_by = bound(m)
@@ -1770,7 +2120,9 @@ def main() -> int:
         )
         decisions_vs_strict("whitelist flagship", whitelist.ontology, N_WHITELIST_STRICT, threads,
                             fidelity="fast", limit=WHITELIST_FAST_LIMIT)
+        lap("decisions")
         counts = throughput(card, threads, whitelist)
+        lap("throughput")
         for name, count in tp_run(card, tp_paths, tp_strict, threads).items():
             counts[name] += count
         missing = [name for name, count in counts.items() if count <= 0]
@@ -1780,6 +2132,7 @@ def main() -> int:
             tp_run(card, tp_paths, tp_strict, threads, nccl=True)
         else:
             say("[tp] one card: the PHENIQS_TP run over NCCL needs two (python3 chip_smoke.py --nccl on such a host)")
+        lap("tp")
         for label, key in (("flagship", "step"), ("mdd flagship", "mdd_step")):
             step = measured[key]
             say(f"[throughput] {card} | {label} decode step N={N_KERNEL}, CUDA events:"
@@ -1790,6 +2143,7 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
 
     standalone_check()
+    say(f"[time] seconds by phase: {json.dumps(laps)}")
     say(card)
     say(json.dumps({
         "kernels": [

@@ -25,6 +25,7 @@ import torch
 
 from ..decode.spec import DecoderSpec, spec_from_ontology
 from ..errors import ConfigurationError
+from ..kernels.mdd import key_table_tensor
 from ..phred import TRUE_POSITIVE_QUALITY, UNIFORM_BASE_QUALITY
 
 #: BAM 4-bit codes of the concrete nucleotides A/C/G/T
@@ -139,6 +140,7 @@ class DeviceDecoder:
     width: int = 0
     panel_codes: torch.Tensor | None = None  # (B, W) int32
     panel_codes_u8: torch.Tensor | None = None  # (B, W) uint8, the kernel's copy
+    key_table: torch.Tensor | None = None  # MDD: K6's exact-match lookup (kernels/mdd.py:key_table)
     likelihood_matrix: torch.Tensor | None = None  # (5W, B) f32 — G
     concentration: torch.Tensor | None = None  # (B,) f32
     noise: float = 0.0
@@ -239,6 +241,8 @@ def compile_decoder(spec: DecoderSpec, device) -> DeviceDecoder:
             dec.likelihood_matrix,
             dec.concentration,
         ) = _panel_matrices(spec.panel.codes, spec.panel.concentration, device)
+        if spec.algorithm == "mdd":
+            dec.key_table = key_table_tensor(dec.panel_codes_u8)
     return dec
 
 
@@ -341,6 +345,8 @@ def carry_instrument(state, device) -> DeviceInstrument:
             dec.likelihood_matrix = torch.from_numpy(
                 np.array(source.likelihood_matrix, dtype=np.float32)
             ).to(device)
+            if dec.algorithm == "mdd":
+                dec.key_table = key_table_tensor(dec.panel_codes_u8)
         decoders.append(dec)
     return DeviceInstrument(
         decoders=decoders,

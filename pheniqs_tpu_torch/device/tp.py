@@ -177,7 +177,7 @@ def share_instrument(instrument: DeviceInstrument | None, group: PanelGroup):
             instrument,
             decoders=[
                 dataclasses.replace(
-                    dec, panel_codes=None, panel_codes_u8=None, likelihood_matrix=None,
+                    dec, panel_codes=None, panel_codes_u8=None, key_table=None, likelihood_matrix=None,
                     concentration=None, spec=None,
                 )
                 for dec in instrument.decoders
@@ -224,7 +224,7 @@ def share_instrument(instrument: DeviceInstrument | None, group: PanelGroup):
     decoders = []
     for position, dec in enumerate(placed.decoders):
         tensors = {}
-        for name in ("panel_codes", "panel_codes_u8", "likelihood_matrix", "concentration"):
+        for name in ("panel_codes", "panel_codes_u8", "key_table", "likelihood_matrix", "concentration"):
             value = getattr(dec, name)
             keep = value is not None and not (
                 position in shards and name in ("likelihood_matrix", "concentration")

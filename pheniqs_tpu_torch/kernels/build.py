@@ -41,7 +41,7 @@ _U = ctypes.c_uint
 
 #: argtypes of every exported entry (csrc/*.cu); each returns cudaError_t
 SIGNATURES = {
-    "phq_unpack_tokens": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "phq_unpack_tokens": (_P, _I, _I, _P, _I) + (_P,) * 11,
     "phq_pamld": (_P, _P) + (_P,) * 15,
     "phq_pamld_slices": (_P, _P, _I, _I, _I, _I, _I) + (_P,) * 8,
     "phq_pamld_merge": (_P, _P, _I, _I, _I) + (_P,) * 16,

@@ -8,6 +8,11 @@ tensor it launches the kernel; on a CPU tensor it runs the plain version
 below, the torch port of ``pheniqs_tpu.device.classify.mdd_classify_device``.
 Both are integer-only, so they agree byte for byte with each other and
 with the f64 oracle (``pheniqs_tpu.decode.oracle.mdd_classify``).
+
+The kernel resolves exact matches by a lookup in the decoder's key table
+(``key_table``, built once at set-up) and scans the panel, a warp at a
+time, only for the other reads; ``mdd_classify_two_phase`` is that
+algorithm in torch, for the tests.
 """
 
 from __future__ import annotations
@@ -23,6 +28,154 @@ launches = 0
 #: the kernel's limits (csrc/mdd.cu)
 MAX_SEGMENTS = 8
 MAX_WIDTH = 64
+
+
+def key_words(w: int) -> int:
+    """The 32-bit words the kernel packs a W-position observation into
+    (NW: its instances take 4, 8 or 16)."""
+    return 4 if w <= 16 else 8 if w <= 32 else 16
+
+
+def pack_words(codes, nw: int):
+    """(N, W) codes (uint8 or integer) -> (N, nw) int64 words, position
+    4k + j in byte j of word k, zero past W: the kernel's packing of a
+    read and of the panel."""
+    codes = torch.as_tensor(codes).to(torch.int64)
+    n, w = codes.shape
+    padded = torch.zeros((n, 4 * nw), dtype=torch.int64, device=codes.device)
+    padded[:, :w] = codes
+    shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int64, device=codes.device)
+    return (padded.view(n, nw, 4) << shifts).sum(dim=2)
+
+
+def key_table(codes: np.ndarray) -> np.ndarray:
+    """K6's key table of a (B, W) panel of codes, one flat int32 array:
+    the B x NW panel words in codec order, the same keys sorted by (words
+    in order, word 0 first as unsigned, then barcode index), and the
+    0-based barcode index of each sorted key, padded to whole 16-byte
+    words. With duplicated barcodes the lowest index sorts first, so a
+    lower-bound search finds it."""
+    codes = np.asarray(codes)
+    b, w = codes.shape
+    nw = key_words(w)
+    words = pack_words(torch.from_numpy(codes.astype(np.int64)), nw).numpy().astype(np.uint32)
+    order = np.lexsort([np.arange(b)] + [words[:, k] for k in reversed(range(nw))])
+    index = np.zeros(-(-b // 4) * 4, dtype=np.int32)
+    index[:b] = order
+    return np.concatenate([words.ravel().view(np.int32), words[order].ravel().view(np.int32), index])
+
+
+def key_table_tensor(panel_codes_u8: torch.Tensor) -> torch.Tensor:
+    """``key_table`` of a decoder's (B, W) uint8 panel, on its device."""
+    return torch.from_numpy(key_table(panel_codes_u8.cpu().numpy())).to(panel_codes_u8.device)
+
+
+def table_parts(table, b: int, nw: int):
+    """(words (B, NW), sorted keys (B, NW), sorted index (B,)), all int64,
+    of a key table."""
+    flat = torch.as_tensor(table).cpu().to(torch.int64) & 0xFFFFFFFF
+    words = flat[: b * nw].view(b, nw)
+    keys = flat[b * nw : 2 * b * nw].view(b, nw)
+    return words, keys, flat[2 * b * nw : 2 * b * nw + b]
+
+
+def key_order(keys, words):
+    """-1, 0 or 1 per row as `keys` (N, NW) sort before, equal to or after
+    `words` (N, NW), word 0 first."""
+    differs = keys != words
+    first = torch.argmax(differs.to(torch.uint8), dim=1)[:, None]
+    before = torch.gather(keys, 1, first)[:, 0] < torch.gather(words, 1, first)[:, 0]
+    return torch.where(differs.any(dim=1), torch.where(before, -1, 1), 0)
+
+
+def lookup(keys, index, words):
+    """The first barcode (0-based) whose key equals each row of `words`
+    (N, NW), else -1: the lower bound of the sorted keys, as the kernel
+    searches it."""
+    b = keys.shape[0]
+    n = words.shape[0]
+    lo = torch.zeros(n, dtype=torch.int64)
+    hi = torch.full((n,), b, dtype=torch.int64)
+    while bool((lo < hi).any()):
+        searching = lo < hi
+        mid = (lo + hi) // 2
+        before = key_order(keys[mid.clamp(max=b - 1)], words) < 0
+        lo = torch.where(searching & before, mid + 1, lo)
+        hi = torch.where(searching & ~before, mid, hi)
+    at = lo.clamp(max=b - 1)
+    found = (lo < b) & (key_order(keys[at], words) == 0)
+    return torch.where(found, index[at], -1)
+
+
+def nonzero_nibbles(x):
+    """One bit per nonzero byte of each 32-bit word in `x` (int64), in
+    byte order: the kernel's mismatch test."""
+    high = (((x & 0x7F7F7F7F) + 0x7F7F7F7F) | x) & 0x80808080
+    return (((high >> 7) * 0x00204081) >> 21) & 15
+
+
+def mdd_classify_two_phase(dec, obs_code, obs_qual, lengths, qcfail_in) -> dict:
+    """K6's algorithm in torch (CPU; for the tests): the reads at full
+    length look their packed key up in the decoder's key table, a hit
+    being the first exact match; every other read takes the first barcode
+    in codec order within tolerance, its errors counted from the packed
+    words as the kernel counts them. The results of ``mdd_classify_plain``
+    plus ``exact``, the reads the lookup resolved."""
+    n, w = obs_code.shape
+    b = dec.barcode_count
+    nw = key_words(w)
+    words, keys, index = table_parts(dec.key_table, b, nw)
+    widths = list(dec.segment_widths)
+    tolerance = dec.distance_tolerance or tuple(0 for _ in widths)
+    starts = np.concatenate([[0], np.cumsum(widths)[:-1]]).astype(int)
+    lengths = lengths.cpu().to(torch.int64)
+    read = pack_words(obs_code.cpu(), nw)
+    full = (lengths == torch.tensor(widths)).all(dim=1)
+    result = torch.full((n,), -1, dtype=torch.int64)
+    exact = torch.zeros(n, dtype=torch.bool)
+    if bool(full.any()):
+        rows = full.nonzero()[:, 0]
+        found = lookup(keys, index, read[rows])
+        result[rows] = found
+        exact[rows] = found >= 0
+    distance = torch.zeros(n, dtype=torch.int64)
+    pending = (~exact).nonzero()[:, 0]
+    positions = torch.arange(4 * nw)
+    segment = torch.full((4 * nw,), -1, dtype=torch.int64)
+    for s, (start, width) in enumerate(zip(starts, widths)):
+        segment[start : start + width] = s
+    in_range = torch.zeros((pending.numel(), 4 * nw), dtype=torch.bool)
+    for s, (start, width) in enumerate(zip(starts, widths)):
+        length = lengths[pending, s].clamp(0, width)
+        in_range |= (positions >= start) & (positions < start + length[:, None])
+    quality = torch.zeros((pending.numel(), 4 * nw), dtype=torch.int64)
+    quality[:, :w] = obs_qual.cpu()[pending].to(torch.int64)
+    low = in_range & (quality < dec.quality_masking_threshold)
+    # (pending, B, NW) words of read ^ barcode, their nonzero bytes as
+    # position bits
+    nibbles = nonzero_nibbles(read[pending][:, None, :] ^ words[None, :, :])
+    mismatch = ((nibbles[..., None] >> torch.arange(4)) & 1).bool().view(pending.numel(), b, 4 * nw)
+    errors = (mismatch & in_range[:, None, :]) | low[:, None, :]
+    within = torch.ones((pending.numel(), b), dtype=torch.bool)
+    total = torch.zeros((pending.numel(), b), dtype=torch.int64)
+    for s in range(len(widths)):
+        count = (errors & (segment == s)).sum(dim=2)
+        within &= count <= tolerance[s]
+        total += count
+    any_within = within.any(dim=1)
+    first = torch.argmax(within.to(torch.uint8), dim=1)
+    result[pending] = torch.where(any_within, first, -1)
+    distance[pending] = torch.where(any_within, torch.gather(total, 1, first[:, None])[:, 0], 0)
+    decoded = (result + 1).to(torch.int32)
+    return {
+        "decoded": decoded,
+        "confidence": torch.zeros(n, dtype=torch.float32),
+        "distance": distance.to(torch.int32),
+        "qcfail": qcfail_in.cpu() | (decoded == 0),
+        "branch": torch.zeros(n, dtype=torch.int8),
+        "argmax": decoded.clone(),
+        "exact": exact,
+    }
 
 
 def mdd_classify_plain(dec, obs_code, obs_qual, lengths, qcfail_in) -> dict:
@@ -84,7 +237,7 @@ def _ints(dec, n: int, ld_obs: int, ld_len: int) -> np.ndarray:
     tolerance = dec.distance_tolerance or tuple(0 for _ in widths)
     starts = np.concatenate([[0], np.cumsum(widths)[:-1]]).astype(int)
     ints = [n, dec.barcode_count, sum(widths), len(widths), ld_obs, ld_len,
-            dec.quality_masking_threshold]
+            dec.quality_masking_threshold, key_words(sum(widths))]
     for start, width, tol in zip(starts, widths, tolerance):
         ints += [int(start), width, tol]
     return np.array(ints, dtype=np.int32)
@@ -105,7 +258,7 @@ def mdd_classify(dec, obs_code, obs_qual, lengths, qcfail_in, *, out=None) -> di
     if obs_code.device.type != "cuda":
         raise ValueError(f"mdd_classify: unsupported device {obs_code.device}")
     global launches
-    from .build import check, library
+    from .build import library
     from .pamld import empty_result
 
     n, w = obs_code.shape
@@ -122,17 +275,26 @@ def mdd_classify(dec, obs_code, obs_qual, lengths, qcfail_in, *, out=None) -> di
         raise ValueError("mdd_classify: lengths must be (N, S) int32 of unit column stride")
     if qcfail_in.dtype != torch.bool or qcfail_in.shape[0] != n or not qcfail_in.is_contiguous():
         raise ValueError("mdd_classify: qcfail_in must be contiguous (N,) bool")
+    if dec.key_table is None or dec.key_table.device != obs_code.device:
+        raise ValueError("mdd_classify: the decoder's key table must lie on the observation's device")
     if out is None:
         out = empty_result(n, obs_code.device)
-    ints = _ints(dec, n, obs_code.stride(0), lengths.stride(0))
     stream = torch.cuda.current_stream(obs_code.device).cuda_stream
-    status = library().phq_mdd(
+    _launch(library(), dec, obs_code, obs_qual, lengths, qcfail_in, out, stream)
+    launches += 1
+    return {k: v for k, v in out.items() if k != "uncertain"}
+
+
+def _launch(lib, dec, obs_code, obs_qual, lengths, qcfail_in, out, stream):
+    """Run the kernel of `lib` (no device checks, no count)."""
+    from .build import check
+
+    ints = _ints(dec, obs_code.shape[0], obs_code.stride(0), lengths.stride(0))
+    status = lib.phq_mdd(
         ints.ctypes.data, obs_code.data_ptr(), obs_qual.data_ptr(),
-        lengths.data_ptr(), qcfail_in.data_ptr(), dec.panel_codes_u8.data_ptr(),
+        lengths.data_ptr(), qcfail_in.data_ptr(), dec.key_table.data_ptr(),
         out["decoded"].data_ptr(), out["argmax"].data_ptr(),
         out["distance"].data_ptr(), out["branch"].data_ptr(),
         out["confidence"].data_ptr(), out["qcfail"].data_ptr(), stream,
     )
     check(status, "mdd_classify")
-    launches += 1
-    return {k: v for k, v in out.items() if k != "uncertain"}

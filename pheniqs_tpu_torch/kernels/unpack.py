@@ -15,7 +15,7 @@ already unpacked, through the same kernel.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -35,6 +35,13 @@ _WIRE_MODE = {6: 6, 2: 2, 4: 4, RAW: 8, JOINT4: 16}
 _HEADER = 24
 #: the most ints of a token program the kernel holds in shared memory
 MAX_PROGRAM = 2048
+#: the reads a block owns (one thread each), most and fewest; a multiple
+#: of 16 keeps every block's output spans 16-byte aligned
+MAX_BLOCK_READS = 128
+MIN_BLOCK_READS = 32
+#: the dynamic shared memory a block may take on the H100 (227 KB a block
+#: by opt-in, less the kernel's 128 static bytes of codebooks)
+SHARED_BYTES = 227 * 1024 - 128
 
 
 @dataclass
@@ -51,6 +58,8 @@ class TokenLayout:
     token_cols: int
     length_cols: int
     program: np.ndarray  # int32
+    #: K3's block plans by (row bytes, program ints), as the kernel takes them
+    block_plans: dict = field(default_factory=dict, repr=False, compare=False)
 
 
 @dataclass
@@ -89,6 +98,90 @@ def token_layout(instrument, widths: list[int], qual_bits) -> TokenLayout:
         ],
         widths,
         qual_bits,
+    )
+
+
+@dataclass(frozen=True)
+class BlockPlan:
+    """How K3 stages a block's rows in shared memory for one program and
+    wire row size (``block_plan``): ``reads`` rows a block; the wire rows
+    (``stage_wire``) and the codes and qualities (``stage_tokens``) staged
+    or read and written in place; a staged token row ``token_pitch`` bytes
+    and a length row ``length_pitch`` ints (odd word counts: a warp's 32
+    stores to one column fall in 32 banks); each area's byte offset; and
+    the dynamic shared bytes in all."""
+
+    reads: int
+    stage_wire: bool
+    stage_tokens: bool
+    token_pitch: int
+    length_pitch: int
+    wire_at: int
+    codes_at: int
+    quals_at: int
+    lengths_at: int
+    short_at: int
+    flags_at: int
+    shared_bytes: int
+
+    def ints(self) -> np.ndarray:
+        """The plan as the kernel's entry takes it (csrc/unpack_tokens.cu
+        PhqUnpackPlan)."""
+        return np.array([
+            self.reads, int(self.stage_wire), int(self.stage_tokens), self.token_pitch, self.length_pitch,
+            self.wire_at, self.codes_at, self.quals_at, self.lengths_at, self.short_at, self.flags_at,
+            self.shared_bytes,
+        ], dtype=np.int32)
+
+
+def _odd_words(size: int) -> int:
+    """`size` rounded up to whole 4-byte words, an odd number of them."""
+    words = (size + 3) // 4
+    return 4 * (words | 1) if size else 0
+
+
+def _round16(size: int) -> int:
+    return (size + 15) // 16 * 16
+
+
+def _areas(layout: TokenLayout, program_ints: int, row_bytes: int, reads: int, stage_wire: bool,
+           stage_tokens: bool) -> BlockPlan:
+    token_pitch = _odd_words(layout.token_cols)
+    length_pitch = layout.length_cols | 1 if layout.length_cols else 0
+    at = _round16(4 * program_ints)
+    offsets = {}
+    sizes = (
+        # the wire span may start anywhere in its first 16 bytes
+        ("wire_at", reads * row_bytes + 16 if stage_wire else 0),
+        ("codes_at", reads * token_pitch if stage_tokens else 0),
+        ("quals_at", reads * token_pitch if stage_tokens else 0),
+        ("lengths_at", 4 * reads * length_pitch),
+        ("short_at", reads * len(layout.slots)),
+        ("flags_at", 3 * reads),
+    )
+    for name, size in sizes:
+        offsets[name] = at
+        at += _round16(size)
+    return BlockPlan(reads, stage_wire, stage_tokens, token_pitch, length_pitch, shared_bytes=at, **offsets)
+
+
+def block_plan(layout: TokenLayout, row_bytes: int, program_ints: int | None = None) -> BlockPlan:
+    """The most reads a block (MAX_BLOCK_READS down to MIN_BLOCK_READS, in
+    steps of 16) whose staging fits SHARED_BYTES: the program, and for
+    each read its wire row, codes and qualities, lengths, short flags and
+    three flags. Rows too wide to stage at MIN_BLOCK_READS are read (the
+    wire), then written (codes and qualities), in place instead, so every
+    layout runs."""
+    if program_ints is None:
+        program_ints = layout.program.size
+    for stage_wire, stage_tokens in ((True, True), (False, True), (False, False)):
+        for reads in range(MAX_BLOCK_READS, MIN_BLOCK_READS - 1, -16):
+            plan = _areas(layout, program_ints, row_bytes, reads, stage_wire, stage_tokens)
+            if plan.shared_bytes <= SHARED_BYTES:
+                return plan
+    raise ConfigurationError(
+        f"unpack_tokens: {len(layout.slots)} decoder slots and {layout.length_cols} length columns"
+        f" take more than {SHARED_BYTES} bytes of shared memory at {MIN_BLOCK_READS} reads a block"
     )
 
 
@@ -176,7 +269,7 @@ def unpack_h2d_blob(widths: list[int], blob: torch.Tensor, qual_bits=6, qcb=None
     n = blob.shape[0]
 
     def nibbles(packed):
-        return torch.stack([packed & 15, packed >> 4], dim=2).reshape(n, -1)
+        return torch.stack([packed & 15, packed >> 4], dim=2).reshape(n, 2 * packed.shape[1])
 
     def length_at(offset, w):
         if _length_bytes(w) == 1:
@@ -344,10 +437,14 @@ def _launch(lib, layout: TokenLayout, program: torch.Tensor, blob, ccb, qcb, str
         )
     n = blob.shape[0]
     tokens = _empty_tokens(layout, n, blob.device)
+    key = (blob.shape[1], program.numel())
+    plan = layout.block_plans.get(key)
+    if plan is None:
+        plan = layout.block_plans[key] = block_plan(layout, *key).ints()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     status = lib.phq_unpack_tokens(
         blob.data_ptr(), n, blob.shape[1], program.data_ptr(), program.numel(),
-        ptr(ccb), ptr(qcb), tokens.codes.data_ptr(), tokens.quals.data_ptr(),
+        ptr(ccb), ptr(qcb), plan.ctypes.data, tokens.codes.data_ptr(), tokens.quals.data_ptr(),
         tokens.lengths.data_ptr(), tokens.short.data_ptr(),
         tokens.qcfail.data_ptr(), tokens.pad.data_ptr(), tokens.forced.data_ptr(),
         stream,

@@ -3,7 +3,7 @@ the card. These need an NVIDIA GPU and nvcc (a CUDA kernel has no CPU
 mode), so they carry the ``cuda`` marker and skip where no GPU is
 present; ``python3 chip_smoke.py`` runs the same checks at full size.
 
-Tolerances: K3 and K5 byte-exact, and so are apply_plans and
+Tolerances: K3, K5 and K6 byte-exact, and so are apply_plans and
 observation_features on the card (the same integer and f32 operations as
 their plain versions); K1's uncertain flags equal to the plain version's
 (chip_smoke.check_flags: no row may differ below 10^5 rows), its integer
@@ -156,6 +156,28 @@ def test_mdd_kernel_matches_plain(cuda, tolerance, qmt, short):
     for key in ("decoded", "argmax", "distance", "branch", "confidence", "qcfail"):
         assert torch.equal(mine[key], plain[key]), key
     assert (plain["distance"] > 0).any() and (plain["decoded"] == 0).any()
+
+
+@pytest.mark.cuda
+def test_unpack_kernel_edge_cases(cuda):
+    """K3 byte-exact and identical across two launches at N = 0, 1, R - 1,
+    R + 1 and 16384 + 7 reads on the 6-bit and j4 wires with the general
+    gather, on aligned blobs and on views 3 bytes off alignment."""
+    from chip_smoke import unpack_edge_checks
+
+    assert unpack_edge_checks() == 17
+
+
+@pytest.mark.cuda
+def test_mdd_kernel_edge_cases(cuda):
+    """K6 byte-exact and identical across two launches on a panel with a
+    duplicated barcode (the lowest index wins), on 5-, 24- and 64-position
+    observations (its three instances), on a 2000-barcode panel (the key
+    table in L2) and on unaligned rows, at tolerance 1 and at tolerance 2
+    with quality masking and short reads."""
+    from chip_smoke import mdd_edge_checks
+
+    assert mdd_edge_checks(16384) == 9
 
 
 def _pamld_case(rng, barcodes: int, width: int, n: int):

@@ -29,6 +29,7 @@ from pheniqs_tpu_torch.device import classify, wire
 from pheniqs_tpu_torch.device.flagship import mdd_flagship_ontology, synthetic_batch
 from pheniqs_tpu_torch.device.instrument import carry_instrument, compile_instrument
 from pheniqs_tpu_torch.device.step import DecodeStep
+from pheniqs_tpu_torch.kernels import mdd as mdd_kernel
 from test_device_classify import make_mdd_ontology, random_panel, simulate_reads
 from test_hybrid import decisions
 from test_torch_engine import _env
@@ -86,6 +87,164 @@ def test_mdd_device_matches_jax_and_oracle(qmt, short):
     # the cases are not trivial: exact matches, scans within tolerance and misses
     decoded = mine["decoded"].numpy()
     assert (decoded == 0).any() and (mine["distance"].numpy() > 0).any() and (decoded > 0).mean() > 0.5
+
+
+def _two_phase_case(rng, words, segments, tolerance, qmt, n, short=False, error_rate=0.12, n_rate=0.0):
+    """Reads drawn from `words` (an MDD panel of `segments` equal
+    segments), some cut short (their positions past the length zeroed, as
+    K3 leaves them) and some with N (code 15): K6's two-phase twin, its
+    plain version and JAX's mdd_classify_device on the same tokens."""
+    ontology = make_mdd_ontology(words, tolerance=tolerance, segments=segments, qmt=qmt)
+    code, qual, _ = simulate_reads(rng, words, n, error_rate=error_rate)
+    code[rng.random(code.shape) < n_rate] = 15
+    ws = code.shape[1] // segments
+    lengths = np.full((n, segments), ws, dtype=np.int32)
+    if short:
+        cut = rng.random((n, segments)) < 0.2
+        lengths[cut] = rng.integers(0, ws, size=int(cut.sum()))
+        for s in range(segments):
+            beyond = np.arange(ws)[None, :] >= lengths[:, s : s + 1]
+            code[:, s * ws : (s + 1) * ws][beyond] = 0
+            qual[:, s * ws : (s + 1) * ws][beyond] = 0
+    qcfail = rng.random(n) < 0.05
+    obs = [
+        (code[:, s * ws : (s + 1) * ws].astype(np.int32), qual[:, s * ws : (s + 1) * ws].astype(np.int32),
+         lengths[:, s])
+        for s in range(segments)
+    ]
+    reference = jax_compile({"sample": ontology, "input segment cardinality": 1})
+    theirs = jax_mdd(
+        reference.decoders[0], [tuple(jnp.asarray(x) for x in o) for o in obs], jnp.asarray(qcfail)
+    )
+    dec = compile_instrument({"sample": ontology, "input segment cardinality": 1}, "cpu").decoders[0]
+    args = (dec, torch.from_numpy(code), torch.from_numpy(qual), torch.from_numpy(lengths), torch.from_numpy(qcfail))
+    twin = mdd_kernel.mdd_classify_two_phase(*args)
+    plain = mdd_kernel.mdd_classify_plain(*args)
+    for key in ("decoded", "distance", "qcfail", "branch", "argmax", "confidence"):
+        assert twin[key].dtype == plain[key].dtype, key
+        np.testing.assert_array_equal(twin[key].numpy(), plain[key].numpy(), err_msg=key)
+        np.testing.assert_array_equal(twin[key].numpy(), np.asarray(theirs[key]), err_msg=key)
+    return twin, code, lengths
+
+
+@pytest.mark.parametrize("tolerance", [1, 2])
+@pytest.mark.parametrize("qmt,short", [(0, False), (12, False), (0, True), (12, True)])
+def test_mdd_two_phase_matches_plain_and_jax(tolerance, qmt, short):
+    """K6's algorithm (the key table's lookup for reads at full length,
+    then the first barcode within tolerance from the packed words) equals
+    the plain version and JAX's mdd_classify_device byte for byte, with
+    and without quality masking, on full and short observations."""
+    rng = np.random.default_rng(40 + 4 * tolerance + qmt + short)
+    twin, _, _ = _two_phase_case(rng, random_panel(rng, 16, 10), 2, tolerance, qmt, 512, short=short)
+    decoded = twin["decoded"].numpy()
+    exact = twin["exact"].numpy()
+    # exact matches by lookup, scans within tolerance and misses
+    assert exact.any() and (~exact & (decoded > 0)).any() and (decoded == 0).any()
+
+
+@pytest.mark.parametrize("width,segments", [(5, 1), (16, 2), (24, 2), (64, 2)])
+def test_mdd_two_phase_widths(width, segments):
+    """Observations of 5, 16, 24 and 64 positions (2, 4, 6 and 16 words; the
+    kernel's 4-, 8- and 16-word instances), reads with N (code 15), some
+    cut short, at tolerance 1 with quality masking."""
+    rng = np.random.default_rng(width)
+    twin, _, _ = _two_phase_case(rng, random_panel(rng, 40, width), segments, 1, 15, 400, short=True,
+                                 error_rate=0.03, n_rate=0.01)
+    assert mdd_kernel.key_words(width) == (4 if width <= 16 else 8 if width <= 32 else 16)
+    assert twin["exact"].any() and (twin["decoded"] == 0).any()
+
+
+def test_mdd_two_phase_duplicated_barcode():
+    """A panel holding one barcode three times: a read equal to it, or
+    within tolerance of it, decodes to its lowest index."""
+    rng = np.random.default_rng(77)
+    words = random_panel(rng, 12, 10)
+    words[6] = words[9] = words[2]
+    twin, code, _ = _two_phase_case(rng, words, 2, 1, 0, 600, error_rate=0.05)
+    from pheniqs_tpu_torch.iupac import encode_ascii
+
+    copies = (code == encode_ascii(words[2])).all(axis=1)
+    assert copies.any()
+    assert (twin["decoded"].numpy()[copies] == 3).all()
+    assert not np.isin(twin["decoded"].numpy(), [7, 10]).any()
+
+
+def test_mdd_two_phase_exact_beats_earlier_within():
+    """A read one mismatch from barcode 1 (within tolerance) and equal to
+    barcode 4 decodes to 4 at distance 0: the exact match wins over an
+    earlier barcode within tolerance; cut short by one position it is no
+    longer exact and barcode 1 (first within tolerance) wins."""
+    from pheniqs_tpu_torch.iupac import encode_ascii
+
+    rng = np.random.default_rng(5)
+    words = random_panel(rng, 8, 10)
+    other = {"A": "C", "C": "G", "G": "T", "T": "A"}
+    words[3] = words[0][:-1] + other[words[0][-1]]
+    if words[3] in words[:3] + words[4:]:
+        pytest.skip("the drawn panel already holds the variant")
+    ontology = make_mdd_ontology(words, tolerance=1, segments=2)
+    dec = compile_instrument({"sample": ontology, "input segment cardinality": 1}, "cpu").decoders[0]
+    code = np.stack([encode_ascii(words[3])] * 2)
+    qual = np.full_like(code, 30)
+    lengths = np.array([[5, 5], [5, 4]], dtype=np.int32)
+    code[1, 9] = 0
+    args = [torch.from_numpy(x) for x in (code, qual, lengths)] + [torch.zeros(2, dtype=torch.bool)]
+    twin = mdd_kernel.mdd_classify_two_phase(dec, *args)
+    plain = mdd_kernel.mdd_classify_plain(dec, *args)
+    for key in ("decoded", "distance", "qcfail"):
+        np.testing.assert_array_equal(twin[key].numpy(), plain[key].numpy(), err_msg=key)
+    assert twin["decoded"].tolist() == [4, 1] and twin["distance"].tolist() == [0, 0]
+    assert twin["exact"].tolist() == [True, False]
+
+
+def test_mdd_key_table():
+    """The key table: sorted by (words, word 0 first, then index); every
+    barcode of a panel without duplicates found at its own index, a
+    duplicated barcode at its first index, a key outside the panel not
+    found; the codec-order words pack position 4k + j into byte j of word
+    k."""
+    rng = np.random.default_rng(3)
+    for width in (5, 16, 24, 64):
+        nw = mdd_kernel.key_words(width)
+        codes = np.array([1, 2, 4, 8], np.uint8)[rng.integers(4, size=(50, width))]
+        codes[30] = codes[7]
+        codes[44] = codes[7]
+        table = mdd_kernel.key_table(codes)
+        assert table.dtype == np.int32 and table.size == 2 * 50 * nw + 52
+        words, keys, index = mdd_kernel.table_parts(torch.from_numpy(table), 50, nw)
+        expect = np.zeros((50, nw), dtype=np.int64)
+        for k in range(nw):
+            for j in range(4):
+                if 4 * k + j < width:
+                    expect[:, k] |= codes[:, 4 * k + j].astype(np.int64) << (8 * j)
+        np.testing.assert_array_equal(words.numpy(), expect)
+        order = sorted(range(50), key=lambda b: (tuple(expect[b]), b))
+        np.testing.assert_array_equal(index.numpy(), order)
+        np.testing.assert_array_equal(keys.numpy(), expect[order])
+        found = mdd_kernel.lookup(keys, index, words)
+        # each barcode's first copy (30 and 44 copy 7; at 5 nt the draw may
+        # repeat others)
+        wanted = np.array([next(a for a in range(50) if (codes[a] == codes[b]).all()) for b in range(50)])
+        assert wanted[30] == wanted[44] == 7
+        np.testing.assert_array_equal(found.numpy(), wanted)
+        outside = words[:3].clone()
+        outside[:, 0] ^= 15  # no panel code has a 15 byte
+        assert (mdd_kernel.lookup(keys, index, outside) == -1).all()
+        below = torch.zeros((1, nw), dtype=torch.int64)
+        above = torch.full((1, nw), 0xFFFFFFFF, dtype=torch.int64)
+        assert int(mdd_kernel.lookup(keys, index, below)[0]) == -1
+        assert int(mdd_kernel.lookup(keys, index, above)[0]) == -1
+
+
+def test_mdd_key_table_on_every_instrument():
+    """compile_instrument and carry_instrument both give an MDD decoder its
+    key table (and no other decoder one)."""
+    ontology = mdd_flagship_ontology()
+    for instrument in (compile_instrument(ontology, "cpu"), carry_instrument(jax_compile(ontology), "cpu")):
+        dec = instrument.decoders[0]
+        assert dec.algorithm == "mdd"
+        np.testing.assert_array_equal(dec.key_table.numpy(), mdd_kernel.key_table(dec.panel_codes_u8.numpy()))
+        assert all(d.key_table is None for d in instrument.decoders[1:])
 
 
 def test_mdd_flagship_ontology_compiles_with_tolerance_one():
