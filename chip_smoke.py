@@ -6,8 +6,9 @@
                                      # PHENIQS_TP run over NCCL and its strict
                                      # reference
     python3 chip_smoke.py --times T  # only the tile loop's, K3's, K6's,
-                                     # K4's, K5's and the decode steps'
-                                     # device times, the plan's choice at
+                                     # K4's, K5's (on each path's layout)
+                                     # and the decode steps' device times
+                                     # and launches, the plan's choice at
                                      # batch sizes from 16384 to 262144
                                      # and K1's slice unit, the package
                                      # imported from tree T, a copy of
@@ -39,7 +40,12 @@ any failure propagates and the exit code is not 0:
                   share of reads resolved by the key table and reads
                   scanned a warp; a panel with a duplicated barcode, 5-,
                   24- and 64-position and 2000-barcode panels on unaligned
-                  rows, mdd_edge_checks; ptxas' registers of K3 and K6)
+                  rows, mdd_edge_checks; K5 byte-exact, two launches
+                  identical and nothing written past its span on eight
+                  layouts of 10-261 bytes a read at N = 0 to 131071,
+                  pack_edge_checks, and its plan on each path; ptxas'
+                  registers of K3, K6 and K5; the decode steps' device
+                  launches a batch)
                   and on a 4096-barcode cellular panel (K7);
                   K1 and K7 launched twice, byte-identical; the sliced K1
                   held to its one-launch instance on the same batch
@@ -279,9 +285,9 @@ def ptxas_report(fragment: str, log: str | None = None) -> dict:
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
             report[name] = f"spills {spill.group(1)}/{spill.group(2)} B"
-        used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        used = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if used:
-            report[name] = f"{used.group(1)} registers, {used.group(2)} B static smem, {report.get(name, '')}"
+            report[name] = f"{used.group(1)} registers, {used.group(2) or 0} B static smem, {report.get(name, '')}"
     return report
 
 
@@ -307,6 +313,28 @@ def device_ms(fn, reps: int = 10) -> float:
             return device_us / 1000.0 / reps
     say("[kernels] torch.profiler recorded no device time twice: timed with CUDA events")
     return event_ms(fn, reps)
+
+
+def device_launches(fn, tries: int = 2) -> dict:
+    """{name: count} of the device activities (kernels, memsets, copies)
+    one call of `fn` puts on the card, from torch.profiler after a warm-up
+    call. The profiler now and then drops a call's first activities, so
+    this is the fuller count of `tries` profiled calls."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(collections.Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA))
+    return dict(max(counts, key=lambda c: sum(c.values())))
 
 
 def event_ms(fn, reps: int = 10) -> float:
@@ -541,6 +569,111 @@ def unpack_edge_checks() -> int:
                 held += 1
     say(f"[kernels] K3 byte-exact and two launches identical on {held} edge cases: N = 0, 1, {plan.reads - 1},"
         f" {plan.reads + 1}, 16391 on the 6-bit and j4 wires, aligned and 3 bytes off")
+    return held
+
+
+#: K5's edge layouts: (label, decoders as (algorithm, barcodes), hybrid)
+PACK_LAYOUTS = (
+    ("flagship (naive between two PAMLD), 14 B", (("pamld", 96), ("naive", 0), ("pamld", 384)), True),
+    ("flagship fast, 13 B", (("pamld", 96), ("naive", 0), ("pamld", 384)), False),
+    ("MDD flagship, 10 B", (("mdd", 96), ("naive", 0), ("pamld", 384)), True),
+    ("whitelist fast, 17 B int32", (("pamld", 96), ("naive", 0), ("pamld", 737_280)), False),
+    ("whitelist hybrid, 18 B int32", (("pamld", 96), ("naive", 0), ("pamld", 737_280)), True),
+    ("naive last, 14 B", (("pamld", 96), ("pamld", 384), ("naive", 0)), True),
+    ("9 decoders, 2 qcfail bytes", (("pamld", 1000), ("mdd", 40)) * 4 + (("naive", 0),), True),
+    ("32 wide PAMLD decoders, 261 B", (("pamld", 40_000),) * 32, True),
+)
+#: the read counts each K5 layout is held at
+PACK_READS = (0, 1, 15, 17, 255, 257, N_KERNEL - 1)
+
+
+def pack_bytes(plan, decoders: int, n: int, want_uncertain: bool) -> int:
+    """The bytes K5 moves for `n` reads under `plan` (pack.pack_plan): the
+    rows it loads (a decoded index and a confidence for each decoder of
+    their masks, every qcfail row, in hybrid mode the uncertain rows of its
+    mask and the forced row) and the blob it writes."""
+    loaded = 4 * (bin(plan.decoded_mask).count("1") + bin(plan.confidence_mask).count("1")) + decoders
+    if want_uncertain:
+        loaded += bin(plan.uncertain_mask).count("1") + 1
+    return n * (loaded + plan.layout["total"])
+
+
+def pack_case(decoders, n: int, seed: int, device):
+    """A stand-in instrument of `decoders` ((algorithm, barcodes) each)
+    and random decision rows of `n` reads on `device`, made from `seed`:
+    decoded indices up to each panel's size, confidences of any 32 bits
+    (NaNs and infinities included), qcfail, uncertain and forced rows a
+    coin each. Returns (instrument, Decisions, forced)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from pheniqs_tpu_torch.kernels import Decisions
+
+    instrument = types.SimpleNamespace(
+        decoders=[types.SimpleNamespace(algorithm=a, barcode_count=b) for a, b in decoders], pack_plans={})
+    rng = np.random.default_rng(seed)
+    d = len(decoders)
+    decisions = Decisions.zeros(d, n, device)
+    limits = np.array([[max(b, 1)] for _, b in decoders])
+    decisions.decoded.copy_(torch.from_numpy(rng.integers(0, limits + 1, size=(d, n)).astype(np.int32)))
+    decisions.confidence.copy_(torch.from_numpy(rng.integers(0, 2**32, size=(d, n), dtype=np.uint64)
+                                                .astype(np.uint32).view(np.float32)))
+    decisions.qcfail.copy_(torch.from_numpy(rng.random((d, n)) < 0.5))
+    decisions.uncertain.copy_(torch.from_numpy(rng.random((d, n)) < 0.1))
+    forced = torch.from_numpy(rng.random(n) < 0.1).to(device)
+    return instrument, decisions, forced
+
+
+def hold_pack(label: str, instrument, decisions, forced, want_uncertain: bool):
+    """K5 launched twice, byte-identical, and byte-exact against its plain
+    version (empty at N = 0); a third launch, uncounted, into a buffer with
+    64 guard bytes after the span leaves them alone."""
+    import torch
+
+    from pheniqs_tpu_torch.kernels import build, pack
+
+    device = decisions.decoded.device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    total = pack.pack_plan(instrument, want_uncertain).layout["total"]
+    n = decisions.decoded.shape[1]
+    mine, again = (pack.pack_outputs(instrument, decisions, forced, want_uncertain) for _ in range(2))
+    guarded = torch.full((n * total + 64,), 0xAB, dtype=torch.uint8, device=device)
+    pack._launch(build.library(), instrument, decisions, forced, want_uncertain, guarded[: n * total], stream)
+    # the plain version's reshapes need a read: at N = 0 the blob is empty
+    plain = (pack.pack_outputs_plain(instrument, decisions, forced, want_uncertain) if n
+             else torch.empty(0, dtype=torch.uint8, device=device))
+    if not torch.equal(mine, again):
+        raise AssertionError(f"K5 {label}: two launches differ")
+    if not torch.equal(mine, plain):
+        raise AssertionError(f"K5 {label}: differs from the plain version on {int((mine != plain).sum())} bytes")
+    if not torch.equal(guarded[: n * total], plain) or not bool((guarded[n * total:] == 0xAB).all()):
+        raise AssertionError(f"K5 {label}: a launch wrote outside its span")
+
+
+def pack_edge_checks() -> int:
+    """K5 on its edge cases (hold_pack), byte-exact against its plain
+    version and across two launches: each PACK_LAYOUTS layout (totals 10,
+    13, 14, 17, 18, 57 and 261 bytes: int16 and int32 indices, with and
+    without the uncertain byte, a naive decoder between two PAMLD ones and
+    after them, 9 and 32 decoders; the last the widest layout the plan
+    allows) at every PACK_READS read count. Returns the cases held."""
+    import torch
+
+    from pheniqs_tpu_torch.kernels import pack
+
+    held = 0
+    plans = []
+    for seed, (label, decoders, hybrid) in enumerate(PACK_LAYOUTS):
+        for n in PACK_READS:
+            instrument, decisions, forced = pack_case(decoders, n, seed, torch.device("cuda"))
+            hold_pack(f"{label} N={n}", instrument, decisions, forced, hybrid)
+            held += 1
+        plan = pack.pack_plan(instrument, hybrid)
+        plans.append(f"{label}: R={plan.reads}")
+    say(f"[kernels] K5 byte-exact, two launches identical and nothing written past the span on {held} edge cases:"
+        f" N = {', '.join(map(str, PACK_READS))} on each layout ({'; '.join(plans)})")
     return held
 
 
@@ -916,19 +1049,18 @@ def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: flo
             f" {k4['plain_ms']:.4f} ms, index_add_ yardstick {k4['library_ms']:.4f} ms (device time);"
             f" peak allocation of one call {k4['peak_bytes']} B")
 
-    packed = pack.pack_outputs(instrument, kernel_rows, tokens.forced, True)
-    plain_packed = pack.pack_outputs_plain(instrument, kernel_rows, tokens.forced, True)
-    torch.cuda.synchronize()
-    if not torch.equal(packed, plain_packed):
-        raise AssertionError(f"{label}: K5 blob differs from the plain version")
+    hold_pack(label, instrument, kernel_rows, tokens.forced, True)
+    plan = pack.pack_plan(instrument, True)
+    say(f"[kernels] {label} K5 N={n}: byte-exact, two launches identical; {plan.layout['total']} bytes a read,"
+        f" R = {plan.reads} reads a block, {plan.shared_bytes} shared bytes")
     if timed:
         results["pack_outputs"] = {
             "max_abs_err": 0.0,
             "ms": device_ms(lambda: pack.pack_outputs(instrument, kernel_rows, tokens.forced, True)),
             "plain_ms": device_ms(lambda: pack.pack_outputs_plain(instrument, kernel_rows, tokens.forced, True)),
-            "bytes": nbytes(kernel_rows.decoded, kernel_rows.confidence, kernel_rows.qcfail,
-                            kernel_rows.uncertain, tokens.forced, packed),
+            "bytes": pack_bytes(plan, len(instrument.decoders), n, True),
             "library_ms": None,
+            "extra": {"reads_a_block": plan.reads, "ptxas": ptxas_report("phq_pack_kernel")},
         }
 
     out, flat = step(blob, ccb, qcb)
@@ -963,7 +1095,11 @@ def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: flo
             "plain_ms": device_ms(lambda: step.forward_plain(blob, ccb, qcb), reps=3),
             "event_ms": event_ms(lambda: step(blob, ccb, qcb)),
             "plain_event_ms": event_ms(lambda: step.forward_plain(blob, ccb, qcb), reps=3),
+            "launches": device_launches(lambda: step(blob, ccb, qcb)),
         }
+        launched = results["step"]["launches"]
+        say(f"[kernels] {label} decode step: {sum(launched.values())} device launches a batch (torch.profiler):"
+            f" {json.dumps(launched)}")
         say(f"[kernels] {label} decode step N={n}: kernels {results['step']['ms']:.4f} ms,"
             f" plain {results['step']['plain_ms']:.4f} ms (device time)")
     return results
@@ -1403,8 +1539,9 @@ def kernel_checks(n: int = N_KERNEL, timed: bool = True) -> dict:
     start = time.perf_counter()
     unpack_edge_checks()
     mdd_edge_checks(n)
-    say(f"[kernels] K3's and K6's edge checks took {time.perf_counter() - start:.1f} s")
-    for fragment in ("phq_unpack_kernel", "phq_mdd_kernel"):
+    pack_edge_checks()
+    say(f"[kernels] K3's, K6's and K5's edge checks took {time.perf_counter() - start:.1f} s")
+    for fragment in ("phq_unpack_kernel", "phq_mdd_kernel", "phq_pack_kernel"):
         for kernel, line in ptxas_report(fragment).items():
             say(f"[kernels] ptxas {kernel}: {line}")
 
@@ -1894,7 +2031,10 @@ def unpack_mdd_times() -> dict:
     N_KERNEL and 16384 reads; where the tree has them, K3 without its token
     stores (PHQ_UNPACK_NO_TOKEN_STORES) and K6 without its scan
     (PHQ_MDD_NO_SCAN: the key-table phase alone), built as diagnostic
-    copies; and K4 and K5 on the flagship step's rows at N_KERNEL."""
+    copies; K4 and K5 on the flagship step's rows at N_KERNEL; and K5 and
+    its bound on random rows of the flagship's, the MDD flagship's, the fast
+    whitelist's and a 9-decoder layout at N_KERNEL and of the flagship's at
+    16384."""
     import torch
 
     from pheniqs_tpu_torch.device import wire
@@ -1955,6 +2095,18 @@ def unpack_mdd_times() -> dict:
                     lambda: counters(instrument, decisions, tokens.pad, tokens.forced, True))
                 times["K5 flagship"] = device_ms(
                     lambda: pack.pack_outputs(instrument, decisions, tokens.forced, True))
+    # K5 on the layouts of the other paths, on 9 decoders and at the CLI's
+    # batch, on random rows (its work does not depend on the values), with
+    # its bound where the tree has a plan
+    for label, layout, n in (("flagship", 0, N_KERNEL), ("MDD flagship", 2, N_KERNEL), ("whitelist fast", 3, N_KERNEL),
+                             ("9 decoders", 6, N_KERNEL), ("flagship", 0, 16384)):
+        _, decoders, hybrid = PACK_LAYOUTS[layout]
+        instrument, decisions, forced = pack_case(decoders, n, seed=layout, device=cuda)
+        times[f"K5 {label} N={n} random rows"] = device_ms(
+            lambda: pack.pack_outputs(instrument, decisions, forced, hybrid))
+        if hasattr(pack, "pack_plan"):
+            plan = pack.pack_plan(instrument, hybrid)
+            times[f"K5 {label} N={n} bound"] = bound({"bytes": pack_bytes(plan, len(decoders), n, hybrid)})[0]
     for key, value in times.items():
         say(f"[times] {key}: {value:.4f} ms")
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1966,7 +2118,8 @@ def kernel_times(card: str, tree: str):
     the device time of one pamld_classify call (every launch it makes) on
     the flagship's 96- and 384-barcode panels (K1), on a 1024-barcode
     cellular panel (K1) and on a K7_PANEL one (K7); the flagship's and the
-    MDD flagship's whole decode step; and, one call each with CUDA events,
+    MDD flagship's whole decode step and its device launches a batch; and,
+    one call each with CUDA events,
     K7 and K8 at P = 2 and 4 on a synthetic panel of the whitelist's size
     (random codes from a seed); K3, K6, K4 and K5 (unpack_mdd_times); the
     plan's choice on panels of one tile (slice_rule_times); and, where the
@@ -2004,6 +2157,7 @@ def kernel_times(card: str, tree: str):
         times[f"{label} step"] = device_ms(lambda: step(blob, ccb, qcb))
         times[f"{label} step events"] = event_ms(lambda: step(blob, ccb, qcb))
         times[f"{label} step events x200"] = [event_ms(lambda: step(blob, ccb, qcb), reps=200) for _ in range(3)]
+        times[f"{label} step launches"] = device_launches(lambda: step(blob, ccb, qcb))
     # K7 and K8 at the whitelist's 737,280 x 16 nt, the flagship cellular
     # decoder's parameters on a random panel
     rng = np.random.default_rng(737)

@@ -18,7 +18,7 @@ tolerance and quality masking threshold.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -165,6 +165,9 @@ class DeviceInstrument:
     tpq_constants: torch.Tensor  # (24,) f32 on device (tpq_constants())
     used_segments: tuple[int, ...] = ()
     tpq_analytic_eps: float = 0.0
+    #: K5's plans by want_uncertain (kernels/pack.py:pack_plan), made on
+    #: first use; dataclasses.replace starts a new instrument's afresh
+    pack_plans: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
 
 def _plans_from_rule(spec: DecoderSpec) -> tuple[list[TokenPlan], list[int]]:

@@ -109,25 +109,22 @@ class Decisions:
 
     @classmethod
     def zeros(cls, decoders: int, n: int, device) -> "Decisions":
-        def z(dtype):
-            return torch.zeros((decoders, n), dtype=dtype, device=device)
-
-        return cls(
-            decoded=z(torch.int32),
-            argmax=z(torch.int32),
-            distance=z(torch.int32),
-            branch=z(torch.int8),
-            confidence=z(torch.float32),
-            qcfail=z(torch.bool),
-            uncertain=z(torch.bool),
-        )
+        """Every field a (decoders, N) view of one zeroed buffer (one
+        memset): the 4-byte fields first, so each view is aligned to its
+        element size."""
+        fields = sorted(_FIELDS, key=lambda field: -field[1].itemsize)
+        buffer = torch.zeros(decoders * n * sum(dtype.itemsize for _, dtype in fields), dtype=torch.uint8,
+                             device=device)
+        views, at = {}, 0
+        for name, dtype in fields:
+            size = decoders * n * dtype.itemsize
+            views[name] = buffer[at : at + size].view(dtype).view(decoders, n)
+            at += size
+        return cls(**views)
 
     def columns(self, start: int, stop: int) -> "Decisions":
         """Reads [start, stop) of every decoder, contiguous."""
-        return Decisions(**{
-            name: getattr(self, name)[:, start:stop].contiguous()
-            for name in ("decoded", "argmax", "distance", "branch", "confidence", "qcfail", "uncertain")
-        })
+        return Decisions(**{name: getattr(self, name)[:, start:stop].contiguous() for name, _ in _FIELDS})
 
     def row(self, k: int) -> dict:
         return {
@@ -139,6 +136,18 @@ class Decisions:
             "qcfail": self.qcfail[k],
             "uncertain": self.uncertain[k],
         }
+
+
+#: Decisions' fields and their dtypes, in the dataclass's order
+_FIELDS = (
+    ("decoded", torch.int32),
+    ("argmax", torch.int32),
+    ("distance", torch.int32),
+    ("branch", torch.int8),
+    ("confidence", torch.float32),
+    ("qcfail", torch.bool),
+    ("uncertain", torch.bool),
+)
 
 
 def uncertain_mask(instrument, want_uncertain: bool) -> int:

@@ -50,7 +50,7 @@ SIGNATURES = {
     "phq_tpq_eval": (_P, _I, _P, _P, _P),
     "phq_features": (_P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P),
     "phq_counters": (_I,) * 5 + (_P,) * 10 + (_U, _P, _P),
-    "phq_pack": (_I, _I, _U, _U, _I, _I, _I, _U, _I) + (_P,) * 7,
+    "phq_pack": (_I, _I, _U, _U, _I, _I, _I, _U, _I, _I) + (_P,) * 7,
 }
 
 _LIBRARY = None

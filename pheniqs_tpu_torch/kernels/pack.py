@@ -7,10 +7,13 @@ chained qcfail bits and, in hybrid mode, the uncertain byte
 (uncertain_any | forced), as one contiguous (N * total,) uint8 tensor.
 On a CPU tensor the plain version below builds the same bytes with torch
 views (the port of the pack_outputs block of
-``pheniqs_tpu.device.step.make_decode_step``).
-"""
+``pheniqs_tpu.device.step.make_decode_step``). ``pack_plan`` holds what
+the kernel takes for one instrument: the layout, its masks and the reads
+a block."""
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -21,6 +24,54 @@ from .counters import uncertain_any
 
 #: launches of the CUDA kernel in this process
 launches = 0
+
+#: the most reads a block owns (one thread each): whole warps, a multiple
+#: of 16 so every block's span of the output is 16-byte aligned
+MAX_BLOCK_READS = 256
+#: the shared bytes a block stages its rows in: the static limit, so no
+#: launch needs the opt-in attribute
+SHARED_BYTES = 48 * 1024
+
+
+@dataclass(frozen=True)
+class PackPlan:
+    """What K5 takes for one instrument and hybrid flag: the d2h layout
+    (device.wire.d2h_layout), the bit masks of the decoders with a decoded
+    index, a confidence and an uncertain row that counts, and ``reads`` a
+    block."""
+
+    layout: dict
+    decoded_mask: int
+    confidence_mask: int
+    uncertain_mask: int
+    reads: int
+
+    @property
+    def shared_bytes(self) -> int:
+        return (self.reads * self.layout["total"] + 15) // 16 * 16
+
+
+def pack_plan(instrument, want_uncertain: bool) -> PackPlan:
+    """K5's plan for `instrument`, made once and cached on it: the most
+    reads a block, up to MAX_BLOCK_READS in whole warps, whose rows fit
+    SHARED_BYTES. Raises ConfigurationError past MAX_DECODERS decoders."""
+    plans = instrument.pack_plans
+    if want_uncertain not in plans:
+        d = len(instrument.decoders)
+        if d > MAX_DECODERS:
+            raise ConfigurationError(f"pack_outputs: {d} decoders exceed the kernel's {MAX_DECODERS}")
+        layout = d2h_layout(instrument, want_uncertain)
+        reads = min(MAX_BLOCK_READS, SHARED_BYTES // layout["total"] // 32 * 32)
+        # MAX_DECODERS caps a row at 261 bytes: 160 reads
+        assert reads >= 32, layout["total"]
+        plans[want_uncertain] = PackPlan(
+            layout=layout,
+            decoded_mask=sum(1 << k for k in layout["decoded_positions"]),
+            confidence_mask=sum(1 << k for k in layout["confidence_positions"]),
+            uncertain_mask=uncertain_mask(instrument, want_uncertain),
+            reads=reads,
+        )
+    return plans[want_uncertain]
 
 
 def pack_outputs_plain(instrument, decisions: Decisions, forced, want_uncertain: bool):
@@ -52,18 +103,44 @@ def pack_outputs_plain(instrument, decisions: Decisions, forced, want_uncertain:
     return torch.cat(parts, dim=1).reshape(-1)
 
 
+def _check(instrument, decisions: Decisions, forced, want_uncertain: bool, out, device):
+    """Raise what the kernel does not take: more than MAX_DECODERS
+    decoders (ConfigurationError, from pack_plan); rows of another shape or
+    dtype than (decoders, N) int32 decoded, f32 confidence and bool qcfail
+    and uncertain, a forced row (when it counts) other than (N,) bool, an
+    output other than (N * total,) uint8, any of them not contiguous or
+    not on `device`, or an output not 16-byte aligned (ValueError)."""
+    total = pack_plan(instrument, want_uncertain).layout["total"]
+    d, n = len(instrument.decoders), decisions.decoded.shape[-1]
+    expected = [
+        ("decoded", decisions.decoded, torch.int32, (d, n)),
+        ("confidence", decisions.confidence, torch.float32, (d, n)),
+        ("qcfail", decisions.qcfail, torch.bool, (d, n)),
+        ("uncertain", decisions.uncertain, torch.bool, (d, n)),
+        ("out", out, torch.uint8, (n * total,)),
+    ]
+    if want_uncertain:
+        expected.append(("forced", forced, torch.bool, (n,)))
+    for name, tensor, dtype, shape in expected:
+        if tensor.dtype != dtype or tuple(tensor.shape) != shape:
+            raise ValueError(f"pack_outputs: {name} is {tensor.dtype} {tuple(tensor.shape)}, not {dtype} {shape}")
+        if not tensor.is_contiguous() or tensor.device != device:
+            raise ValueError(f"pack_outputs: {name} must be contiguous and on {device}")
+    if out.data_ptr() % 16:
+        raise ValueError("pack_outputs: the output must be 16-byte aligned")
+
+
 def _launch(lib, instrument, decisions: Decisions, forced, want_uncertain, out, stream):
     """Run the kernel (no device checks, no count)."""
     from .build import check
 
-    layout = d2h_layout(instrument, want_uncertain)
+    plan = pack_plan(instrument, want_uncertain)
+    layout = plan.layout
     d, n = decisions.decoded.shape
     status = lib.phq_pack(
-        n, d,
-        sum(1 << k for k in layout["decoded_positions"]),
-        sum(1 << k for k in layout["confidence_positions"]),
+        n, d, plan.decoded_mask, plan.confidence_mask,
         layout["index_size"], layout["qcfail_bytes"], int(want_uncertain),
-        uncertain_mask(instrument, want_uncertain), layout["total"],
+        plan.uncertain_mask, layout["total"], plan.reads,
         decisions.decoded.data_ptr(), decisions.confidence.data_ptr(),
         decisions.qcfail.data_ptr(), decisions.uncertain.data_ptr(),
         forced.data_ptr() if want_uncertain else None, out.data_ptr(), stream,
@@ -74,21 +151,17 @@ def _launch(lib, instrument, decisions: Decisions, forced, want_uncertain, out, 
 
 def pack_outputs(instrument, decisions: Decisions, forced, want_uncertain: bool):
     """K5: the (N * total,) uint8 decision blob of this batch."""
-    if decisions.decoded.device.type == "cpu":
+    device = decisions.decoded.device
+    if device.type == "cpu":
         return pack_outputs_plain(instrument, decisions, forced, want_uncertain)
-    if decisions.decoded.device.type != "cuda":
-        raise ValueError(f"pack_outputs: unsupported device {decisions.decoded.device}")
+    if device.type != "cuda":
+        raise ValueError(f"pack_outputs: unsupported device {device}")
     global launches
     from .build import library
 
-    if len(instrument.decoders) > MAX_DECODERS:
-        raise ConfigurationError(
-            f"pack_outputs: {len(instrument.decoders)} decoders exceed the kernel's {MAX_DECODERS}"
-        )
-    layout = d2h_layout(instrument, want_uncertain)
-    n = decisions.decoded.shape[1]
-    out = torch.empty(n * layout["total"], dtype=torch.uint8, device=decisions.decoded.device)
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    _launch(library(), instrument, decisions, forced, want_uncertain, out, stream)
+    n = decisions.decoded.shape[-1]
+    out = torch.empty(n * pack_plan(instrument, want_uncertain).layout["total"], dtype=torch.uint8, device=device)
+    _check(instrument, decisions, forced, want_uncertain, out, device)
+    _launch(library(), instrument, decisions, forced, want_uncertain, out, torch.cuda.current_stream(device).cuda_stream)
     launches += 1
     return out

@@ -169,6 +169,18 @@ def test_unpack_kernel_edge_cases(cuda):
 
 
 @pytest.mark.cuda
+def test_pack_kernel_edge_cases(cuda):
+    """K5 byte-exact against its plain version, identical across two
+    launches and writing nothing past its span, at N = 0, 1, 15, 17, 255,
+    257 and 131071 reads on rows of 10 to 261 bytes: int16 and int32
+    indices, with and without the uncertain byte, a naive decoder between
+    two PAMLD ones, 9 and 32 decoders."""
+    from chip_smoke import PACK_LAYOUTS, PACK_READS, pack_edge_checks
+
+    assert pack_edge_checks() == len(PACK_LAYOUTS) * len(PACK_READS) == 56
+
+
+@pytest.mark.cuda
 def test_mdd_kernel_edge_cases(cuda):
     """K6 byte-exact and identical across two launches on a panel with a
     duplicated barcode (the lowest index wins), on 5-, 24- and 64-position

@@ -86,26 +86,20 @@ def step_case(request):
     )
 
 
-def test_decision_blob_matches(step_case):
-    ours, layout, mine, theirs, _, _ = step_case
-    assert mine.shape == theirs.shape == (4096, 14)
-    u = layout["uncertain_offset"]
-    unsure = (mine[:, u] | theirs[:, u]).astype(bool)
-    assert 0 < unsure.mean() < 0.5
-    settled = ~unsure
+def _hold_settled_rows(layout, mine, theirs, settled):
+    """Indices and qcfail bits exact, confidences rtol 1e-5, on `settled` rows."""
     ints = slice(0, layout["int_bytes"])
     np.testing.assert_array_equal(mine[settled, ints], theirs[settled, ints])
     qc = slice(layout["qcfail_offset"], layout["qcfail_offset"] + layout["qcfail_bytes"])
     np.testing.assert_array_equal(mine[settled, qc], theirs[settled, qc])
-    np.testing.assert_array_equal(mine[:, u], theirs[:, u])
     floats = slice(layout["float_offset"], layout["float_offset"] + layout["float_bytes"])
     conf_mine = np.ascontiguousarray(mine[:, floats]).view(np.float32)
     conf_theirs = np.ascontiguousarray(theirs[:, floats]).view(np.float32)
     np.testing.assert_allclose(conf_mine[settled], conf_theirs[settled], rtol=1e-5, atol=0)
 
 
-def test_counters_match(step_case):
-    ours, _, _, _, mine, theirs = step_case
+def _hold_counters(ours, mine, theirs):
+    """Integer columns exact, confidence sums rtol 1e-5."""
     assert mine.shape == theirs.shape
     offset = 0
     checked = 0
@@ -118,6 +112,66 @@ def test_counters_match(step_case):
             checked += int(a.sum())
         offset += size
     assert checked > 0
+
+
+def test_decision_blob_matches(step_case):
+    ours, layout, mine, theirs, _, _ = step_case
+    assert mine.shape == theirs.shape == (4096, 14)
+    u = layout["uncertain_offset"]
+    unsure = (mine[:, u] | theirs[:, u]).astype(bool)
+    assert 0 < unsure.mean() < 0.5
+    np.testing.assert_array_equal(mine[:, u], theirs[:, u])
+    _hold_settled_rows(layout, mine, theirs, ~unsure)
+
+
+def test_counters_match(step_case):
+    ours, _, _, _, mine, theirs = step_case
+    _hold_counters(ours, mine, theirs)
+
+
+@pytest.fixture(scope="module")
+def fast_case():
+    """The j4 flagship batch through both steps in fast mode (no
+    uncertain byte: 13 bytes a read), and the port's hybrid step's
+    uncertain flags, which name the rows the tolerances set apart."""
+    ontology = flagship_ontology()
+    reference = jax_compile(ontology)
+    ours = carry_instrument(reference, "cpu")
+    batch = synthetic_batch(ontology, 4096, seed=21, error_rate=0.05, quality_binning="rta3")
+    blob, ccb, qcb = _blob(reference, batch, "j4", seed=22)
+    jax_step = jax.jit(
+        make_decode_step(
+            reference, want_uncertain=False, want_counters=True,
+            pack_outputs=True, h2d_widths=WIDTHS, qual_bits="j4",
+        )
+    )
+    packed, flat = jax_step({"blob": jnp.asarray(blob), "qcb": jnp.asarray(qcb), "ccb": jnp.asarray(ccb)})
+    inputs = [torch.from_numpy(x) for x in (blob, ccb, qcb)]
+    mine_blob, mine_counters = DecodeStep(ours, WIDTHS, "j4", want_uncertain=False)(*inputs)
+    hybrid_blob, _ = DecodeStep(ours, WIDTHS, "j4", want_uncertain=True)(*inputs)
+    hybrid = wire.d2h_layout(ours, True)
+    unsure = hybrid_blob.numpy().reshape(-1, hybrid["total"])[:, hybrid["uncertain_offset"]].astype(bool)
+    layout = wire.d2h_layout(ours, False)
+    return (
+        ours, layout, unsure,
+        mine_blob.numpy().reshape(-1, layout["total"]),
+        np.asarray(packed["blob"]).reshape(-1, layout["total"]),
+        mine_counters.numpy(), np.asarray(flat),
+    )
+
+
+def test_fast_decision_blob_matches(fast_case):
+    """Fast mode's blob (no uncertain byte) held as the hybrid one's, off
+    the rows the hybrid step flags."""
+    _, layout, unsure, mine, theirs, _, _ = fast_case
+    assert mine.shape == theirs.shape == (4096, 13)
+    assert 0 < unsure.mean() < 0.5
+    _hold_settled_rows(layout, mine, theirs, ~unsure)
+
+
+def test_fast_counters_match(fast_case):
+    ours, _, _, _, _, mine, theirs = fast_case
+    _hold_counters(ours, mine, theirs)
 
 
 @pytest.mark.parametrize("case,item", [("mdd", "K6"), ("large", "K7"), ("tp", "K8")])
