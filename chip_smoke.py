@@ -91,7 +91,20 @@ any failure propagates and the exit code is not 0:
                   strict run of phase 4; each rank's launch counts (set to
                   0 just before) and backend; on a host with two cards the
                   same run over NCCL
-  7. result       no module of jax or pheniqs_tpu in sys.modules, the card
+  7. tools        the measurement tools of pheniqs_tpu_torch/tools/, each
+                  row on a line of its own: host_pipeline's parse,
+                  parse+pack and full (null device) rungs over phase 5's
+                  flagship FASTQ and its ceiling line; profile_step's
+                  ladder (null, unpack, classify, counters, full) on the
+                  flagship at N=131072 with the full step swept over
+                  16384-1048576 reads, and on the MDD flagship (latency,
+                  pipelined, device time and launches), each full rung the
+                  same bytes as DecodeStep.forward; panel_memory at 65536
+                  and 262144 barcodes of 16 nt (K7 over 131072 reads, 3
+                  calls), the growth of memory_allocated while the panel
+                  is built held to its resident bytes within the
+                  allocator's rounding
+  8. result       no module of jax or pheniqs_tpu in sys.modules, the card
                   line, the kernels JSON line (with each kernel's bound from
                   its bytes and operations; K4's entry adds its peak
                   allocation, its time, bound, plain time, yardstick and
@@ -124,6 +137,8 @@ N_THROUGHPUT = 2_000_000
 N_MDD_THROUGHPUT = 1_000_000
 BATCH = 131072
 N_WHITELIST_THROUGHPUT = 4 * BATCH
+#: panel_memory's sizes in the tools phase (W = 16, N = N_KERNEL)
+PANEL_SIZES = (65536, 262144)
 #: the cellular panel of the K7 checks whose hybrid bound stays narrow
 K7_PANEL = 4096
 #: the share of rows on which a kernel and its plain version may disagree
@@ -191,11 +206,13 @@ def say(*parts):
 
 
 def card_line() -> str:
-    result = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return result.stdout.strip().splitlines()[0]
+    """The card's name and power limit as nvidia-smi gives them
+    (tools/profile_step.py:card_line)."""
+    import torch
+
+    from pheniqs_tpu_torch.tools.profile_step import card_line as line
+
+    return line(torch.device("cuda"))
 
 
 def environment():
@@ -291,67 +308,31 @@ def ptxas_report(fragment: str, log: str | None = None) -> dict:
     return report
 
 
+# The timing helpers are the measurement tools' (tools/profile_step.py),
+# imported on call: `--times TREE` puts another tree's package on the path
+# before the first import of pheniqs_tpu_torch.
 def device_ms(fn, reps: int = 10) -> float:
-    """Device milliseconds per call of `fn`: the summed time of the CUDA
-    kernels and copies it launched, from torch.profiler over `reps` calls
-    (host launch overhead between them is not counted). The profiler now
-    and then records no device event at all; after a second such try the
-    time comes from CUDA events (event_ms, launch gaps included) and a
-    line says so."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """Device milliseconds per call of `fn` from torch.profiler
+    (pheniqs_tpu_torch/tools/profile_step.py:device_ms)."""
+    from pheniqs_tpu_torch.tools.profile_step import device_ms as measured
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        device_us = sum(e.self_device_time_total for e in prof.key_averages())
-        if device_us > 0:
-            return device_us / 1000.0 / reps
-    say("[kernels] torch.profiler recorded no device time twice: timed with CUDA events")
-    return event_ms(fn, reps)
+    return measured(fn, reps)
 
 
 def device_launches(fn, tries: int = 2) -> dict:
-    """{name: count} of the device activities (kernels, memsets, copies)
-    one call of `fn` puts on the card, from torch.profiler after a warm-up
-    call. The profiler now and then drops a call's first activities, so
-    this is the fuller count of `tries` profiled calls."""
-    import collections
+    """{name: count} of the device activities one call of `fn` puts on the
+    card (tools/profile_step.py:device_launches)."""
+    from pheniqs_tpu_torch.tools.profile_step import device_launches as counted
 
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    counts = []
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        counts.append(collections.Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA))
-    return dict(max(counts, key=lambda c: sum(c.values())))
+    return counted(fn, tries)
 
 
 def event_ms(fn, reps: int = 10) -> float:
     """CUDA-event milliseconds per call of `fn` over `reps` back-to-back
-    calls: device timeline time, launch gaps between kernels included."""
-    import torch
+    calls (tools/profile_step.py:event_ms)."""
+    from pheniqs_tpu_torch.tools.profile_step import event_ms as timed
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return timed(fn, reps)
 
 
 def once_ms(fn):
@@ -1770,10 +1751,10 @@ def decisions_vs_strict(label: str, ontology, n: int, threads: int, fidelity: st
     os.unlink(strict_sam)
 
 
-def throughput(card: str, threads: int, whitelist: Whitelist) -> dict:
+def throughput(card: str, threads: int, whitelist: Whitelist) -> tuple[dict, list]:
     """The e2e run of each single-card path, its launch counts read with
     the counts set to 0 just before it. Returns every kernel's launches
-    summed over the runs."""
+    summed over the runs, and the flagship run's FASTQ paths."""
     from pheniqs_tpu_torch.benchmark import run_e2e, synthesize_fastq_input
     from pheniqs_tpu_torch.device.flagship import flagship_ontology, mdd_flagship_ontology
     from pheniqs_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1784,9 +1765,10 @@ def throughput(card: str, threads: int, whitelist: Whitelist) -> dict:
         ("whitelist", whitelist.ontology, N_WHITELIST_THROUGHPUT, "fast"),
     ]
     total = {name: 0 for name in KERNELS}
+    inputs = {}
     for path, ontology, n, fidelity in runs:
         start = time.perf_counter()
-        paths = synthesize_fastq_input(os.path.join(WORK, f"throughput_{path}"), n, ontology=ontology)
+        paths = inputs[path] = synthesize_fastq_input(os.path.join(WORK, f"throughput_{path}"), n, ontology=ontology)
         out = os.path.join(WORK, "throughput.sam")
         reset_launch_counts()
         stats = run_e2e(paths, out, fidelity=fidelity, threads=threads, batch_size=BATCH, device="cuda",
@@ -1807,7 +1789,7 @@ def throughput(card: str, threads: int, whitelist: Whitelist) -> dict:
             raise AssertionError(f"{path} e2e output off: {stats}")
         for name, count in counts.items():
             total[name] += count
-    return total
+    return total, inputs["flagship"]
 
 
 TP_RANK = r"""
@@ -1898,6 +1880,74 @@ def tp_run(card: str, paths, strict_sam: str, threads: int, ranks: int = 2, nccl
         f" {[report['counts']['pamld_panel_sharded'] for report in reports]}; rank 0 e2e {json.dumps(leader)};"
         f" {seconds:.1f} s for the ranks' processes")
     return total
+
+
+def tools(card: str, threads: int, flagship_paths) -> None:
+    """The port's measurement tools (pheniqs_tpu_torch/tools/) on the card:
+    host_pipeline's three rungs over the throughput phase's flagship FASTQ;
+    profile_step's ladder (its command) on the flagship at N_KERNEL with its
+    batch-size sweep and on the MDD flagship at N_KERNEL, each full rung held
+    byte for byte to a DecodeStep built apart (the tool exits non-zero
+    otherwise); and
+    panel_memory at PANEL_SIZES, the growth of memory_allocated while each
+    panel is built held to its resident_bytes within the allocator's
+    rounding (panel_memory.allocator_slack), the bytes requested exactly."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from pheniqs_tpu_torch.tools import host_pipeline, panel_memory, profile_step
+
+    rows = []
+    out = os.path.join(WORK, "host_pipeline.sam")
+    for row in host_pipeline.ladder(flagship_paths, out, threads, BATCH, "cuda"):
+        say(f"[tools] {card} | host_pipeline {json.dumps(row)}")
+        if row["reads"] != N_THROUGHPUT or not row["reads_per_s"] > 0:
+            raise AssertionError(f"host_pipeline {row['stage']}: {row}")
+        rows.append(row)
+    os.unlink(out)
+    say(f"[tools] {card} | {json.dumps(host_pipeline.ceiling(rows))}")
+
+    for instrument, sweep in (("flagship", profile_step.SWEEP), ("mdd", ())):
+        # in a process of its own, as a user runs it: in this one, after the
+        # e2e phases, torch.profiler dropped device events (an unpack rung
+        # of 0 launches, the full step at 0.21 ms of device time, not 0.35)
+        command = [sys.executable, "-m", "pheniqs_tpu_torch.tools.profile_step", "--instrument", instrument,
+                   "--batch", str(N_KERNEL), "--sweep", ",".join(map(str, sweep)), "--device", "cuda"]
+        result = subprocess.run(command, cwd=HERE, capture_output=True, text=True, timeout=900)
+        if result.returncode != 0:
+            raise AssertionError(f"{' '.join(command[1:])} exited {result.returncode}:\n{result.stderr[-4000:]}")
+        rows = [json.loads(line) for line in result.stdout.splitlines()]
+        if [(row["variant"], row["batch"]) for row in rows] != [
+            *((name, N_KERNEL) for name in profile_step.RUNGS), *(("full", n) for n in sweep if n != N_KERNEL)
+        ]:
+            raise AssertionError(f"profile_step {instrument}: rows {rows}")
+        for row in rows:
+            say(f"[tools] {card} | profile_step {json.dumps(row)}")
+            timed = (row["latency_ms"], row["pipelined_ms"], row["device_ms"])
+            if not all(math.isfinite(t) and t > 0 for t in timed) or row["launches"] <= 0:
+                raise AssertionError(f"profile_step {instrument} {row['variant']} N={row['batch']}: {row}")
+    say(f"[tools] {card} | profile_step: every full rung (flagship at {N_KERNEL} and the sweep"
+        f" {list(profile_step.SWEEP)}, MDD flagship at {N_KERNEL}) the same blob and counter bytes as"
+        " DecodeStep.forward on the same buffers")
+
+    rng = np.random.default_rng(3)
+    for b in PANEL_SIZES:
+        row = panel_memory.measure(b, 16, N_KERNEL, 3, torch.device("cuda"), rng)
+        say(f"[tools] {card} | panel_memory {json.dumps(row)}")
+        over = row["allocated_growth"] - row["resident_bytes"]
+        slack = panel_memory.allocator_slack(row["resident"])
+        requested = row["requested_growth"]
+        if not 0 <= over < slack or requested not in (None, row["resident_bytes"]):
+            raise AssertionError(f"panel_memory B={b}: memory_allocated grew {row['allocated_growth']} B"
+                                 f" (requested {requested}) while the panel was built, resident_bytes"
+                                 f" {row['resident_bytes']} (slack {slack} B)")
+        if not row["latency_s"] > 0 or row["decoded_fraction"] < 0.5:
+            raise AssertionError(f"panel_memory B={b}: {row}")
+        say(f"[tools] {card} | panel_memory B={b}: memory_allocated grew {row['allocated_growth']} B while the"
+            f" panel was built, resident_bytes {row['resident_bytes']} (requested {requested} B; allowed over:"
+            f" {slack} B of the allocator's rounding)")
 
 
 def standalone_check():
@@ -2275,7 +2325,7 @@ def main() -> int:
         decisions_vs_strict("whitelist flagship", whitelist.ontology, N_WHITELIST_STRICT, threads,
                             fidelity="fast", limit=WHITELIST_FAST_LIMIT)
         lap("decisions")
-        counts = throughput(card, threads, whitelist)
+        counts, flagship_paths = throughput(card, threads, whitelist)
         lap("throughput")
         for name, count in tp_run(card, tp_paths, tp_strict, threads).items():
             counts[name] += count
@@ -2293,6 +2343,8 @@ def main() -> int:
                 f" kernels {step['event_ms']:.4f} ms ({N_KERNEL / step['event_ms'] * 1e3:.0f} reads/s),"
                 f" plain {step['plain_event_ms']:.4f} ms; device time: kernels {step['ms']:.4f} ms,"
                 f" plain {step['plain_ms']:.4f} ms")
+        tools(card, threads, flagship_paths)
+        lap("tools")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

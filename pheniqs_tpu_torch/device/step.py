@@ -76,8 +76,21 @@ class DecodeStep(nn.Module):
             persistent=False,
         )
 
+    #: the step's stages in order, as ``run_to`` names them
+    STAGES = ("unpack", "classify", "counters", "pack")
+
     def forward(self, blob, ccb=None, qcb=None):
         return self._run(blob, ccb, qcb, plain=False)
+
+    def run_to(self, stage: str, blob, ccb=None, qcb=None):
+        """The step's kernels up to and including `stage`, on forward's own
+        code path (tools/profile_step.py's rungs): "unpack" returns K3's
+        tokens, "classify" the Decisions after every decoder's K1/K6 in
+        classify order, "counters" (decisions, flat) after K4, "pack"
+        forward's (blob, flat)."""
+        if stage not in self.STAGES:
+            raise ValueError(f"unknown stage {stage!r}: one of {self.STAGES}")
+        return self._run(blob, ccb, qcb, plain=False, stop=stage)
 
     def forward_plain(self, blob, ccb=None, qcb=None):
         """The same step through every kernel's plain torch version, on
@@ -101,7 +114,7 @@ class DecodeStep(nn.Module):
                 )
             slot += 1
 
-    def _run(self, blob, ccb, qcb, plain: bool):
+    def _run(self, blob, ccb, qcb, plain: bool, stop: str = "pack"):
         instrument = self.instrument
         layout = self.layout
         want_uncertain = self.want_uncertain
@@ -109,6 +122,8 @@ class DecodeStep(nn.Module):
             tokens = unpack_tokens_plain(instrument, layout, blob, ccb=ccb, qcb=qcb)
         else:
             tokens = unpack_tokens(instrument, layout, self.program, blob, ccb, qcb)
+        if stop == "unpack":
+            return tokens
         n = blob.shape[0]
         decisions = Decisions.zeros(len(instrument.decoders), n, blob.device)
         qcfail = tokens.qcfail
@@ -153,10 +168,16 @@ class DecodeStep(nn.Module):
                 # naive / passthrough: no decision, qcfail passes through
                 row["qcfail"].copy_(qcfail)
             qcfail = row["qcfail"]
+        if stop == "classify":
+            return decisions
         if plain:
             flat = counters_plain(instrument, decisions, tokens.pad, tokens.forced, want_uncertain)
-            packed = pack_outputs_plain(instrument, decisions, tokens.forced, want_uncertain)
         else:
             flat = counters(instrument, decisions, tokens.pad, tokens.forced, want_uncertain)
+        if stop == "counters":
+            return decisions, flat
+        if plain:
+            packed = pack_outputs_plain(instrument, decisions, tokens.forced, want_uncertain)
+        else:
             packed = pack_outputs(instrument, decisions, tokens.forced, want_uncertain)
         return packed, flat

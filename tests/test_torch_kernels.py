@@ -339,3 +339,25 @@ def test_chunked_kernel_is_deterministic(cuda):
         assert torch.equal(first[key], second[key]), key
         assert torch.equal(k8[0][key], k8[1][key]), key
     assert torch.equal(k8[0]["argmax"], first["argmax"])
+
+
+@pytest.mark.cuda
+def test_profile_step_ladder_on_the_card(cuda):
+    """tools/profile_step.py's ladder on the flagship at N = 16384: every
+    rung runs and reports device time and launches, and the full rung's
+    blob and counters are the same bytes as DecodeStep.forward on the same
+    buffer (a step built apart, as the engine builds it)."""
+    from pheniqs_tpu_torch.device.instrument import compile_instrument
+    from pheniqs_tpu_torch.device.step import DecodeStep
+    from pheniqs_tpu_torch.tools import profile_step
+
+    rows = list(profile_step.profile("flagship", 16384, (), iters=5, device=cuda))
+    assert [row["variant"] for row in rows] == list(profile_step.RUNGS)
+    assert all(row["device_ms"] > 0 and row["launches"] > 0 for row in rows)
+
+    ontology = profile_step.INSTRUMENTS["flagship"]()
+    instrument = compile_instrument(ontology, cuda)
+    wire = [torch.from_numpy(x).to(cuda) for x in profile_step.wire_blob(ontology, instrument, 16384, seed=3)]
+    blob, flat = profile_step.rungs(profile_step.make_step(instrument))["full"](*wire)
+    want_blob, want_flat = DecodeStep(instrument, profile_step.WIDTHS, "j4", want_uncertain=True)(*wire)
+    assert torch.equal(blob, want_blob) and torch.equal(flat, want_flat)

@@ -1,0 +1,236 @@
+"""The port's measurement tools (pheniqs_tpu_torch/tools/) on the CPU at
+small sizes, against the JAX package's tools of the same names.
+
+host_pipeline: the parse and parse+pack rungs count the reads and batches
+the reference's ``_measure_prefix`` counts on the same FASTQ, and the full
+rung counts every read. profile_step: every rung runs on both instruments
+and the sweep at two sizes; the full rung's blob and counters against the
+JAX ``make_decode_step`` on the same j4 blob, with tests/test_torch_step.py's
+tolerances (indices and qcfail bits exact and the uncertain byte exact,
+confidences rtol 1e-5 on settled rows; integer counters exact, confidence
+sums rtol 1e-5). panel_memory: the synthetic decoder's codes and
+concentrations equal the reference tool's; its classify against the JAX
+``pamld_classify_device`` as tests/test_torch_large_panel.py holds the
+chunked path (decisions exact and confidences rtol 1e-5 on settled rows);
+``resident_bytes`` the sum of the tensors' nbytes. Each tool refuses
+``cuda`` on a machine without one."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from pheniqs_tpu.device import compile_instrument as jax_compile
+from pheniqs_tpu.device.step import make_decode_step
+from pheniqs_tpu.tools import host_pipeline as jax_host_pipeline
+from pheniqs_tpu.tools import panel_memory as jax_panel_memory
+from pheniqs_tpu_torch.benchmark import e2e_ontology, synthesize_fastq_input
+from pheniqs_tpu_torch.device import classify, wire
+from pheniqs_tpu_torch.device.instrument import compile_instrument
+from pheniqs_tpu_torch.device.step import DecodeStep
+from pheniqs_tpu_torch.tools import host_pipeline, panel_memory, profile_step
+from test_torch_step import _hold_counters, _hold_settled_rows
+
+READS = 4000
+BATCH = 1024
+
+
+@pytest.fixture(scope="module")
+def fastq(tmp_path_factory):
+    work = tmp_path_factory.mktemp("host_pipeline")
+    return synthesize_fastq_input(str(work / "in"), READS), str(work / "out.sam")
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["parse", "parse+pack"])
+def test_host_prefixes_count_what_the_reference_counts(fastq, monkeypatch, packed):
+    paths, out = fastq
+    mine = host_pipeline._measure_prefix(e2e_ontology(paths, out, 1), BATCH, packed, "cpu")
+
+    from pheniqs_tpu.benchmark import e2e_ontology as jax_e2e_ontology
+
+    sizes = []
+    stage_engine = jax_host_pipeline._stage_engine
+
+    def counting(ontology):
+        engine = stage_engine(ontology)
+        read_batches = engine.read_batches
+
+        def counted(batch_size):
+            for batch in read_batches(batch_size):
+                sizes.append(batch.size)
+                yield batch
+
+        engine.read_batches = counted
+        return engine
+
+    monkeypatch.setattr(jax_host_pipeline, "_stage_engine", counting)
+    theirs = jax_host_pipeline._measure_prefix(jax_e2e_ontology(paths, out, 1), BATCH, packed)
+    assert mine["reads"] == theirs["reads"] == sum(sizes) == READS
+    assert mine["batches"] == len(sizes) == -(-READS // BATCH)
+    assert mine["reads_per_s"] > 0
+
+
+def test_host_pipeline_ladder_counts_every_read(tmp_path, capsys):
+    work = tmp_path / "work"
+    argv = ["--reads", str(READS), "--batch", str(BATCH), "--threads", "2", "--device", "cpu",
+            "--dir", str(work), "--out", str(tmp_path / "out.sam")]
+    assert host_pipeline.main(argv) == 0
+    captured = capsys.readouterr()
+    rows = [json.loads(line) for line in captured.out.splitlines()]
+    assert [row["stage"] for row in rows] == ["parse", "parse+pack", "full"]
+    assert all(row["reads"] == READS and row["reads_per_s"] > 0 for row in rows)
+    assert rows[-1]["threads"] == 2 and rows[-1]["batches"] == -(-READS // BATCH)
+    closing = json.loads(captured.err.strip().splitlines()[-1])
+    assert closing["metric"] == "host_pipeline_ceiling"
+    assert list(closing["stages"]) == ["parse", "parse+pack", "full"]
+
+
+@pytest.mark.parametrize("instrument", ["flagship", "mdd"])
+def test_profile_step_runs_every_rung(instrument):
+    rows = list(profile_step.profile(instrument, 1024, (512, 1024, 2048), iters=2, device="cpu"))
+    assert [(row["variant"], row["batch"]) for row in rows] == [
+        *((name, 1024) for name in profile_step.RUNGS), ("full", 512), ("full", 2048),
+    ]
+    for row in rows:
+        assert row["instrument"] == instrument
+        assert row["latency_ms"] > 0 and row["pipelined_ms"] > 0
+        assert row["latency_reads_per_s"] > 0 and row["pipelined_reads_per_s"] > 0
+        # device metrics exist only on a card
+        assert row["device_ms"] is None and row["launches"] is None
+
+
+def test_profile_step_markdown(capsys):
+    rows = profile_step.main(["--device", "cpu", "--batch", "256", "--iters", "1", "--sweep", "", "--markdown"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "cpu | flagship, depth 2"
+    assert lines[1].startswith("| variant | batch | latency ms | pipelined ms | device ms | launches |")
+    assert len(lines) == 3 + len(profile_step.RUNGS) == 3 + len(rows)
+
+
+@pytest.mark.parametrize("instrument", ["flagship", "mdd"])
+def test_profile_step_full_rung_matches_jax(instrument):
+    ontology = profile_step.INSTRUMENTS[instrument]()
+    ours = compile_instrument(ontology, "cpu")
+    blob, ccb, qcb = profile_step.wire_blob(ontology, ours, 1024, seed=31)
+    inputs = [tuple(torch.from_numpy(x) for x in (blob, ccb, qcb))]
+    step = profile_step.make_step(ours)
+    profile_step.hold_full(step, inputs)
+    mine_blob, mine_counters = profile_step.rungs(step)["full"](*inputs[0])
+
+    reference = jax_compile(ontology)
+    jax_step = make_decode_step(
+        reference, want_uncertain=True, want_counters=True, pack_outputs=True,
+        h2d_widths=profile_step.WIDTHS, qual_bits="j4",
+    )
+    packed, flat = jax_step({"blob": jnp.asarray(blob), "ccb": jnp.asarray(ccb), "qcb": jnp.asarray(qcb)})
+    layout = wire.d2h_layout(ours, True)
+    mine = mine_blob.numpy().reshape(-1, layout["total"])
+    theirs = np.asarray(packed["blob"]).reshape(-1, layout["total"])
+    u = layout["uncertain_offset"]
+    np.testing.assert_array_equal(mine[:, u], theirs[:, u])
+    _hold_settled_rows(layout, mine, theirs, mine[:, u] == 0)
+    _hold_counters(ours, mine_counters.numpy(), np.asarray(flat))
+
+
+def test_run_to_names_the_step_stages():
+    ontology = profile_step.INSTRUMENTS["flagship"]()
+    ours = compile_instrument(ontology, "cpu")
+    wire_args = [torch.from_numpy(x) for x in profile_step.wire_blob(ontology, ours, 256, seed=5)]
+    step = DecodeStep(ours, profile_step.WIDTHS, "j4", want_uncertain=True)
+    blob, flat = step(*wire_args)
+    packed, counted = step.run_to("pack", *wire_args)
+    decisions, flat_k4 = step.run_to("counters", *wire_args)
+    assert torch.equal(packed, blob) and torch.equal(counted, flat) and torch.equal(flat_k4, flat)
+    assert torch.equal(step.run_to("classify", *wire_args).decoded, decisions.decoded)
+    assert torch.equal(step.run_to("unpack", *wire_args).qcfail, wire_args[0][:, -1] & wire.H2D_QCFAIL != 0)
+    with pytest.raises(ValueError, match="unknown stage"):
+        step.run_to("features", *wire_args)
+
+
+def test_panel_decoder_matches_reference():
+    mine = panel_memory.synthetic_panel_decoder(2048, 16, seed=7, device="cpu")
+    theirs = jax_panel_memory.synthetic_panel_decoder(2048, 16, seed=7)
+    np.testing.assert_array_equal(mine.panel_codes.numpy(), np.asarray(theirs.panel_codes))
+    np.testing.assert_array_equal(mine.concentration.numpy(), np.asarray(theirs.concentration))
+    np.testing.assert_array_equal(mine.likelihood_matrix.numpy(), np.asarray(theirs.likelihood_matrix))
+    np.testing.assert_array_equal(mine.panel_codes_u8.numpy(), mine.panel_codes.numpy())
+    assert (mine.barcode_count, mine.width, mine.noise) == (theirs.barcode_count, theirs.width, theirs.noise)
+    with pytest.raises(ValueError, match="take K1"):
+        panel_memory.synthetic_panel_decoder(1024, 16, device="cpu")
+
+
+def test_panel_classify_matches_jax():
+    from pheniqs_tpu.device.classify import pamld_classify_device as jax_classify
+    from pheniqs_tpu.device.instrument import DeviceInstrument as JaxInstrument
+    from pheniqs_tpu.phred import SUBSTITUTION_LUT, TRUE_POSITIVE_QUALITY
+
+    b, w, n = 2048, 16, 256
+    mine_dec = panel_memory.synthetic_panel_decoder(b, w, seed=7, device="cpu")
+    theirs_dec = jax_panel_memory.synthetic_panel_decoder(b, w, seed=7)
+    rng = np.random.default_rng(3)
+    code = mine_dec.panel_codes.numpy()[rng.integers(b, size=n)]
+    flip = rng.random((n, w)) < 0.05
+    code = np.where(flip, np.array([1, 2, 4, 8])[rng.integers(4, size=(n, w))], code)
+    qual = rng.integers(5, 40, size=(n, w))
+    qcfail = rng.random(n) < 0.05
+
+    reference = JaxInstrument(
+        decoders=[theirs_dec], multiplexing_index=0, input_segment_cardinality=1,
+        substitution_lut=jnp.asarray(SUBSTITUTION_LUT.astype(np.float32)),
+        tpq=jnp.asarray(TRUE_POSITIVE_QUALITY.astype(np.float32)),
+    )
+    theirs = jax_classify(
+        reference, theirs_dec, jnp.asarray(code.astype(np.int32)), jnp.asarray(qual.astype(np.int32)),
+        jnp.asarray(qcfail), want_uncertain=True,
+    )
+    ours = panel_memory.panel_instrument(mine_dec, torch.device("cpu"))
+    mine = classify.pamld_classify_device(
+        ours, mine_dec, torch.from_numpy(code.astype(np.uint8)), torch.from_numpy(qual.astype(np.uint8)),
+        torch.from_numpy(qcfail), want_uncertain=True,
+    )
+    theirs = {k: np.asarray(v) for k, v in theirs.items()}
+    mine = {k: v.numpy() for k, v in mine.items()}
+    settled = ~(theirs["uncertain"] | mine["uncertain"])
+    assert settled.mean() > 0.5
+    for key in ("decoded", "argmax", "distance", "branch", "qcfail"):
+        np.testing.assert_array_equal(mine[key][settled], theirs[key][settled], err_msg=key)
+    np.testing.assert_allclose(mine["confidence"][settled], theirs["confidence"][settled], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("b,w", [(2048, 16), (3000, 10)])
+def test_resident_bytes_counts_the_decoder_tensors(b, w):
+    dec = panel_memory.synthetic_panel_decoder(b, w, device="cpu")
+    resident = panel_memory.resident_bytes(dec)
+    tensors = (dec.panel_codes, dec.panel_codes_u8, dec.likelihood_matrix, dec.concentration)
+    assert resident["total"] == sum(t.numel() * t.element_size() for t in tensors) == (25 * w + 4) * b
+    assert panel_memory.allocator_slack(resident) == 4 * 512 + (1 << 20) * sum(
+        t.numel() * t.element_size() > 1 << 20 for t in tensors
+    )
+
+
+def test_panel_memory_rows_on_the_cpu(capsys):
+    rows = panel_memory.main(["--sizes", "2048,3000", "--batch", "256", "--iters", "1", "--device", "cpu"])
+    assert [json.loads(line) for line in capsys.readouterr().out.splitlines()] == rows
+    assert [row["panel_b"] for row in rows] == [2048, 3000]
+    for row in rows:
+        assert row["resident_bytes"] == (25 * 16 + 4) * row["panel_b"]
+        assert row["device"] == "cpu" and row["allocated_growth"] is None and row["memory_after"] is None
+        assert row["latency_s"] > 0 and row["decoded_fraction"] > 0.8
+
+
+@pytest.mark.parametrize("tool,argv", [
+    (host_pipeline, ["--reads", "100"]),
+    (profile_step, ["--batch", "256", "--sweep", ""]),
+    (panel_memory, ["--sizes", "2048", "--batch", "256"]),
+])
+def test_tools_refuse_cuda_without_a_gpu(tool, argv, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if tool is host_pipeline:
+        argv = argv + ["--dir", str(tmp_path / "in")]
+    for device in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            tool.main(argv + device)
+    assert not (tmp_path / "in_100_20260818").exists()
