@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --nccl     # on a host with >= 2 cards: only the
                                      # PHENIQS_TP run over NCCL and its strict
-                                     # reference
+                                     # reference, and multichip_bench's
+                                     # whitelist rates over 1, 2 (and 4) cards
     python3 chip_smoke.py --times T  # only the tile loop's, K3's, K6's,
                                      # K4's, K5's (on each path's layout)
                                      # and the decode steps' device times
@@ -14,13 +15,14 @@
                                      # imported from tree T, a copy of
                                      # another commit inside this checkout
 
-It drives four paths of the port, all on the flagship read layout
+It drives five paths of the port, all on the flagship read layout
 (150 + 8 + 8 + 26 nt, RTA3 qualities): the flagship (PAMLD 96 sample
 barcodes, PAMLD 384 cell barcodes, naive UMI), the MDD flagship (its sample
 decoder MDD at distance tolerance [1, 1]), the whitelist flagship (its
 cellular panel a 737,280-barcode 16 nt whitelist) and the panel-sharded
 path (PHENIQS_TP=1:2: two ranks, the 4096-barcode cellular panel of a
-flagship variant split between them). Phases, each printing its own lines;
+flagship variant split between them) and the reads axis (the engine's
+batches cut over two slices, ShardedDecodeStep). Phases, each printing its own lines;
 any failure propagates and the exit code is not 0:
 
   1. environment  a CUDA GPU is present; its name and power limit
@@ -91,7 +93,24 @@ any failure propagates and the exit code is not 0:
                   strict run of phase 4; each rank's launch counts (set to
                   0 just before) and backend; on a host with two cards the
                   same run over NCCL
-  7. tools        the measurement tools of pheniqs_tpu_torch/tools/, each
+  7. reads        data parallelism over the reads: ShardedDecodeStep with
+                  two slices (two cards where there are two, else two
+                  streams on one) against the one-card DecodeStep at
+                  N=131072 on the flagship, the MDD flagship and the
+                  whitelist: each slice's K1/K7 plans beside one card's,
+                  the decision blob byte for byte where they agree, else
+                  held as pamld.against_one_launch holds the sliced K1
+                  (blob_apart; the rows apart counted), the counters'
+                  integer columns exact, each slice's kernel launches
+                  (the wrappers' counts; one card's flagship step: 5,
+                  9 device launches with memsets); the engine over two
+                  slices hybrid on phase 4's flagship reads identical to
+                  strict; hybrid on 1M flagship reads at R = 1 and 2, the
+                  same records, wall and steady rates side by side;
+                  multichip_bench's device-step line at R = 1 and 2 (CUDA
+                  events); on a host with two or more cards, its whitelist
+                  fast e2e line at R = 1, 2 (and 4), 4 batches each
+  8. tools        the measurement tools of pheniqs_tpu_torch/tools/, each
                   row on a line of its own: host_pipeline's parse,
                   parse+pack and full (null device) rungs over phase 5's
                   flagship FASTQ and its ceiling line; profile_step's
@@ -104,7 +123,7 @@ any failure propagates and the exit code is not 0:
                   calls), the growth of memory_allocated while the panel
                   is built held to its resident bytes within the
                   allocator's rounding
-  8. result       no module of jax or pheniqs_tpu in sys.modules, the card
+  9. result       no module of jax or pheniqs_tpu in sys.modules, the card
                   line, the kernels JSON line (with each kernel's bound from
                   its bytes and operations; K4's entry adds its peak
                   allocation, its time, bound, plain time, yardstick and
@@ -312,8 +331,9 @@ def ptxas_report(fragment: str, log: str | None = None) -> dict:
 # imported on call: `--times TREE` puts another tree's package on the path
 # before the first import of pheniqs_tpu_torch.
 def device_ms(fn, reps: int = 10) -> float:
-    """Device milliseconds per call of `fn` from torch.profiler
-    (pheniqs_tpu_torch/tools/profile_step.py:device_ms)."""
+    """Device milliseconds per call of `fn` from torch.profiler, from a
+    trace holding every kernel launch the wrappers counted, else from CUDA
+    events (pheniqs_tpu_torch/tools/profile_step.py:device_ms)."""
     from pheniqs_tpu_torch.tools.profile_step import device_ms as measured
 
     return measured(fn, reps)
@@ -321,7 +341,8 @@ def device_ms(fn, reps: int = 10) -> float:
 
 def device_launches(fn, tries: int = 2) -> dict:
     """{name: count} of the device activities one call of `fn` puts on the
-    card (tools/profile_step.py:device_launches)."""
+    card, from a trace holding every kernel launch the wrappers counted;
+    raises after two short traces (tools/profile_step.py:device_launches)."""
     from pheniqs_tpu_torch.tools.profile_step import device_launches as counted
 
     return counted(fn, tries)
@@ -1950,6 +1971,264 @@ def tools(card: str, threads: int, flagship_paths) -> None:
             f" {slack} B of the allocator's rounding)")
 
 
+#: reads of the reads phase's e2e rate runs (hybrid flagship at R = 1 and 2)
+N_READS_E2E = 1_000_000
+
+
+def reads_axis() -> list[str]:
+    """The reads phase's two slices: one on each of two cards where there
+    are two, else both on the first card (two streams)."""
+    import torch
+
+    return ["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2 else ["cuda:0", "cuda:0"]
+
+
+def pamld_plans(instrument, n: int) -> dict:
+    """{decoder position: slices of the tile loop's plan} of each PAMLD
+    decoder at `n` reads on the first card (kernels/pamld.py:plan_for)."""
+    from pheniqs_tpu_torch.kernels import pamld
+
+    return {
+        k: pamld.plan_for(n, dec.barcode_count, sum(dec.segment_widths), instrument.device).slices
+        for k, dec in enumerate(instrument.decoders) if dec.algorithm == "pamld" and dec.plans
+    }
+
+
+def blob_apart(label: str, instrument, step, tokens, mine, theirs) -> int:
+    """The decision blob of the slices (`mine`) against the one-card one
+    (`theirs`) where a slice's K1/K7 plan differs from the one-card plan
+    (the rule of pamld.against_one_launch, row by row): decoded indices
+    bit-equal on every row; each PAMLD confidence within 2*gamma(B+2) + 8u
+    relative; qcfail bits and the uncertain byte apart only on rows where
+    some PAMLD decoder's two confidences straddle ct or an edge of its
+    uncertain margin, widened by EDGE_ULPS ulps. Returns the rows apart."""
+    import torch
+
+    from pheniqs_tpu_torch.device import wire
+    from pheniqs_tpu_torch.kernels import pamld
+
+    layout = wire.d2h_layout(instrument, True)
+    a, b = mine.view(-1, layout["total"]), theirs.view(-1, layout["total"])
+    ints = slice(0, layout["int_bytes"])
+    if not torch.equal(a[:, ints], b[:, ints]):
+        raise AssertionError(f"{label}: decoded indices of the slices differ from one card's")
+    floats = slice(layout["float_offset"], layout["float_offset"] + layout["float_bytes"])
+    conf_a = a[:, floats].contiguous().view(torch.float32).double()
+    conf_b = b[:, floats].contiguous().view(torch.float32).double()
+    qc = slice(layout["qcfail_offset"], layout["qcfail_offset"] + layout["qcfail_bytes"])
+    u = layout["uncertain_offset"]
+    differs = (a[:, qc] != b[:, qc]).any(dim=1) | (a[:, u] != b[:, u])
+    at_edge = torch.zeros_like(differs)
+    column = {k: c for c, k in enumerate(layout["confidence_positions"])}
+    slot = 0
+    for k, dec in enumerate(instrument.decoders):
+        if dec.algorithm not in ("pamld", "mdd") or not dec.plans:
+            continue
+        _, quals, _, _ = tokens.observation(step.layout, slot)
+        slot += 1
+        if dec.algorithm != "pamld":
+            continue
+        x, y = conf_a[:, column[k]], conf_b[:, column[k]]
+        relative = float(((x - y).abs() / torch.maximum(x.abs(), y.abs()).clamp(min=1e-300)).max())
+        tolerance = 2.0 * pamld.gamma(dec.barcode_count + 2) + 8.0 * pamld.U32
+        if relative > tolerance:
+            raise AssertionError(f"{label}: decoder {k} confidences {relative:.3e} apart (at most {tolerance:.3e})")
+        ct = dec.confidence_threshold
+        rel_eps, _ = pamld._uncertain_margins(dec, quals.shape[1], instrument.tpq_analytic_eps,
+                                              quals.sum(dim=1).to(torch.float32))
+        rel_eps = rel_eps.double()
+        edges = torch.stack([torch.full_like(x, ct), ct - (rel_eps * ct + 4.0 * pamld.U32),
+                             (ct + 4.0 * pamld.U32) / (1.0 - rel_eps)])
+        ulps = pamld.EDGE_ULPS * pamld.U32 * max(ct, 1e-30)
+        at_edge |= ((edges >= torch.minimum(x, y) - ulps) & (edges <= torch.maximum(x, y) + ulps)).any(dim=0)
+    unexplained = int((differs & ~at_edge).sum())
+    if unexplained:
+        raise AssertionError(f"{label}: qcfail/uncertain of the slices differ from one card's on {unexplained} rows"
+                             f" not within {pamld.EDGE_ULPS} ulps of ct or its margin")
+    return int(differs.sum())
+
+
+def sharded_vs_one_card(label: str, ontology, n: int, devices, seed: int, instrument=None, panels=None,
+                        launches: bool = True) -> dict:
+    """ShardedDecodeStep over `devices` against the one-card DecodeStep on
+    the same j4 blob of `n` reads on the first card: the decision blob byte
+    for byte where every slice's K1/K7 plan is the one-card plan, else held
+    as blob_apart says; the counters' integer columns exact (on a blob
+    with rows apart, each column within that many rows), the confidence
+    sums within rtol 1e-5 (plus the rows apart). With `launches`, each
+    slice's kernel launches (the wrappers' counts), which are the
+    one-card step's plus two for each PAMLD decoder a slice runs sliced
+    and one card in one launch. Returns the report."""
+    import numpy as np
+    import torch
+
+    from pheniqs_tpu_torch.device import wire
+    from pheniqs_tpu_torch.device.instrument import compile_instrument, instruments_on
+    from pheniqs_tpu_torch.device.step import DecodeStep, ShardedDecodeStep, pad_rows
+    from pheniqs_tpu_torch.kernels import launch_counts
+
+    first = torch.device(devices[0])
+    if instrument is None:
+        instrument = compile_instrument(ontology, first)
+    widths, blob_np, ccb_np, qcb_np = flagship_blob(ontology, instrument, n, seed, panels=panels)
+    blob, ccb, qcb = (torch.from_numpy(x).to(first) for x in (blob_np, ccb_np, qcb_np))
+    one = DecodeStep(instrument, widths, wire.JOINT4, want_uncertain=True)
+    sharded = ShardedDecodeStep(instruments_on(instrument, devices), widths, wire.JOINT4, want_uncertain=True)
+    with torch.no_grad():
+        want_blob, want_flat = one(blob, ccb, qcb)
+        got_blob, got_flat = sharded(blob, ccb, qcb)
+        tokens = one.run_to("unpack", blob, ccb, qcb)
+    padded = pad_rows(blob, sharded.size)
+    share = padded.shape[0] // sharded.size
+    plans = {"one card": pamld_plans(instrument, n), "each slice": pamld_plans(instrument, share)}
+    same = plans["one card"] == plans["each slice"]
+    if same:
+        if not torch.equal(got_blob, want_blob):
+            raise AssertionError(f"{label}: the slices' decision blob differs from one card's under the same plans")
+        apart = 0
+    else:
+        apart = blob_apart(label, instrument, one, tokens, got_blob, want_blob)
+    mine, theirs = got_flat.cpu().numpy(), want_flat.cpu().numpy().astype(np.float64)
+    offset = 0
+    for _, name, size in wire.counter_layout(instrument):
+        x, y = mine[offset : offset + size], theirs[offset : offset + size]
+        offset += size
+        if name in ("accumulated_confidence", "accumulated_pf_confidence"):
+            if not (np.abs(x - y) <= 1e-5 * np.abs(y) + apart).all():
+                raise AssertionError(f"{label}: counter {name} of the slices off one card's beyond rtol 1e-5")
+        elif not (np.abs(x - y) <= apart).all():
+            raise AssertionError(f"{label}: counter {name} of the slices differs from one card's"
+                                 f" ({apart} rows apart)")
+    report = {"devices": [str(torch.device(d)) for d in devices], "reads": n, "slice_reads": share,
+              "plans": {key: {str(k): v for k, v in value.items()} for key, value in plans.items()},
+              "blob": "byte-equal" if same else f"held by plan, {apart} rows apart", "counters": "held"}
+    if launches:
+        # counted by the kernels' wrappers, not torch.profiler, which drops
+        # device events in this process after the e2e phases (ROADMAP C.3)
+        def counted(fn) -> int:
+            before = sum(launch_counts().values())
+            fn()
+            return sum(launch_counts().values()) - before
+
+        report["one_card_kernel_launches"] = counted(lambda: one(blob, ccb, qcb))
+        per_card = []
+        for r, (start, stop) in enumerate(sharded.bounds(padded.shape[0])):
+            device = sharded.devices[r]
+            piece = padded[start:stop].to(device)
+            books = [t.to(device) for t in (ccb, qcb)]
+            with sharded.on(r):
+                per_card.append(counted(lambda: sharded.steps[r](piece, *books)))
+        expected = report["one_card_kernel_launches"] + sum(
+            2 * ((plans["each slice"][k] > 1) - (plans["one card"][k] > 1)) for k in plans["one card"]
+        )
+        if any(count != expected for count in per_card):
+            raise AssertionError(f"{label}: kernel launches a slice {per_card}, expected {expected}"
+                                 f" (one card {report['one_card_kernel_launches']}, plans {plans})")
+        report["slice_kernel_launches"] = per_card
+    return report
+
+
+def reads(card: str, threads: int, whitelist: Whitelist, decided) -> dict:
+    """The reads phase: ShardedDecodeStep (two slices, reads_axis) against
+    the one-card step at N_KERNEL on the flagship, the MDD flagship and the
+    whitelist, each slice's plans and kernel launches beside one card's
+    (the flagship's one card: 5, 9 device launches); the engine over two slices, hybrid on the
+    decisions phase's flagship reads (`decided`: input paths and strict
+    SAM) identical to strict, then hybrid on N_READS_E2E flagship reads at
+    R = 1 and R = 2, the same records, their rates side by side; and
+    multichip_bench's device-step line at R = 1 and R = 2. Returns the
+    kernel launches of the engine runs (counts set to 0 before each)."""
+    import torch
+
+    from pheniqs_tpu_torch.benchmark import run_e2e, sam_decisions, synthesize_fastq_input
+    from pheniqs_tpu_torch.device.flagship import flagship_ontology, mdd_flagship_ontology
+    from pheniqs_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from pheniqs_tpu_torch.tools import multichip_bench
+
+    devices = reads_axis()
+    for label, ontology, extra in (
+        ("flagship", flagship_ontology(), {}),
+        ("mdd flagship", mdd_flagship_ontology(), {}),
+        ("whitelist flagship", whitelist.ontology, {"instrument": whitelist.instrument, "panels": whitelist.panels}),
+    ):
+        report = sharded_vs_one_card(label, ontology, N_KERNEL, devices, seed=77, **extra)
+        if label == "flagship" and report["one_card_kernel_launches"] != 5:
+            raise AssertionError(f"flagship: {report['one_card_kernel_launches']} kernel launches a batch on one"
+                                 " card, not 5 (K3, K1 x2, K4, K5: 9 device launches with the memsets)")
+        say(f"[reads] {card} | {label} ShardedDecodeStep against one card {json.dumps(report)}")
+
+    total = {name: 0 for name in KERNELS}
+    paths, strict_sam = decided
+    out = os.path.join(WORK, "reads.sam")
+    reset_launch_counts()
+    stats = run_e2e(paths, out, fidelity="hybrid", threads=threads, batch_size=BATCH, device="cuda",
+                    devices=devices)
+    counts = launch_counts()
+    strict = sam_decisions(strict_sam)
+    mismatches = sum(1 for x, y in zip(strict, sam_decisions(out)) if x != y)
+    if stats["devices"] != 2 or stats["reads"] != len(strict) or mismatches:
+        raise AssertionError(f"reads: hybrid over {devices}: {mismatches} records differ from strict; {stats}")
+    missing = [name for name in PATH_KERNELS["flagship"] if counts[name] <= 0]
+    if missing:
+        raise AssertionError(f"reads: kernels never launched over two slices: {missing}")
+    for name, count in counts.items():
+        total[name] += count
+    say(f"[reads] {card} | hybrid over {devices} identical to strict on {len(strict)} flagship reads;"
+        f" launches {json.dumps(counts)}")
+
+    paths = synthesize_fastq_input(os.path.join(WORK, "reads_flagship"), N_READS_E2E, ontology=flagship_ontology())
+    records = {}
+    for axis in (devices[:1], devices):
+        reset_launch_counts()
+        stats = run_e2e(paths, out, fidelity="hybrid", threads=threads, batch_size=BATCH, device="cuda", devices=axis)
+        counts = launch_counts()
+        records[len(axis)] = sam_decisions(out)
+        for name, count in counts.items():
+            total[name] += count
+        if stats["reads"] != N_READS_E2E or stats.get("resolved_fraction", 0.0) > RESOLVED_LIMIT:
+            raise AssertionError(f"reads: hybrid at R = {len(axis)} off: {stats}")
+        say(f"[reads] {card} | flagship hybrid e2e at R = {len(axis)} over {axis}: wall"
+            f" {stats['reads_per_s']} reads/s, steady {stats.get('steady_reads_per_s')} reads/s {json.dumps(stats)};"
+            f" launches {json.dumps(counts)}")
+    os.unlink(out)
+    if records[1] != records[2]:
+        raise AssertionError("reads: the hybrid records at R = 2 differ from R = 1's")
+    say(f"[reads] {card} | hybrid records at R = 2 identical to R = 1 on {N_READS_E2E} reads")
+
+    for count in (1, 2):
+        row = multichip_bench.run_device_step(count, N_KERNEL, reps=20)
+        if row["n_devices"] != count or not row["step_ms_median"] > 0:
+            raise AssertionError(f"multichip_bench --device-step at R = {count}: {row}")
+        say(f"[reads] {card} | multichip_bench {json.dumps(row)}")
+    if torch.cuda.device_count() >= 2:
+        multi_card_rates(card, threads)
+    return total
+
+
+def multi_card_rates(card: str, threads: int):
+    """On a host with two or more cards: multichip_bench's device step on
+    the whitelist (K7 over R cards, one batch of N_KERNEL reads from the
+    first card, 3 calls) and its e2e line for the whitelist fast, 4
+    batches of BATCH reads, each at R = 1 and R = 2 (and 4 where there are
+    four cards): the rate of the device-bound path over several cards."""
+    import torch
+
+    from pheniqs_tpu_torch.tools import multichip_bench
+
+    cards = torch.cuda.device_count()
+    for count in (1, 2, 4) if cards >= 4 else (1, 2):
+        row = multichip_bench.run_device_step(count, N_KERNEL, reps=3, path="whitelist")
+        if row["n_devices"] != count or row["round_robin"] or not row["step_ms_median"] > 0:
+            raise AssertionError(f"multichip_bench --device-step whitelist at R = {count}: {row}")
+        say(f"[reads] {card} | multichip_bench {json.dumps(row)}")
+    for count in (1, 2, 4) if cards >= 4 else (1, 2):
+        row = multichip_bench.run_bench(reads=4 * BATCH, batch_size=BATCH, threads=threads, fidelity="fast",
+                                        bench_dir=WORK, devices=count, path="whitelist")
+        if row["devices_per_host"] != count or row["reads"] != 4 * BATCH:
+            raise AssertionError(f"multichip_bench whitelist fast at R = {count}: {row}")
+        say(f"[reads] {card} | multichip_bench {json.dumps(row)}")
+
+
 def standalone_check():
     """The port stands alone: after every phase, sys.modules holds no jax
     and no module of the JAX package."""
@@ -1963,7 +2242,8 @@ def standalone_check():
 def nccl_only(card: str, threads: int) -> int:
     """--nccl: on a host with two or more cards, the PHENIQS_TP run over
     NCCL (2 ranks, and 4 where there are four cards) against its strict
-    reference, and nothing else."""
+    reference, then the reads axis's multi-card rates (multi_card_rates),
+    and nothing else."""
     import torch
 
     from pheniqs_tpu_torch.device.flagship import flagship_ontology
@@ -1975,6 +2255,7 @@ def nccl_only(card: str, threads: int) -> int:
                                             N_K7_DECISIONS, threads, keep_strict=True)
     for ranks in (2, 4) if cards >= 4 else (2,):
         tp_run(card, paths, strict_sam, threads, ranks=ranks, nccl=True)
+    multi_card_rates(card, threads)
     return 0
 
 
@@ -2316,7 +2597,7 @@ def main() -> int:
                 f" max |kernel - plain| {m['max_abs_err']:.3e}")
         b, ms, plain_ms = measured["chunked_4096"]
         say(f"[kernels] {card} | pamld_chunked B={b} N={N_KERNEL}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        decisions_vs_strict("flagship", flagship_ontology(), N_DECISIONS, threads)
+        decided = decisions_vs_strict("flagship", flagship_ontology(), N_DECISIONS, threads, keep_strict=True)
         decisions_vs_strict("mdd flagship", mdd_flagship_ontology(), N_DECISIONS, threads)
         tp_paths, tp_strict = decisions_vs_strict(
             f"B={K7_PANEL} flagship", flagship_ontology(cellular_barcodes=K7_PANEL), N_K7_DECISIONS, threads,
@@ -2337,6 +2618,9 @@ def main() -> int:
         else:
             say("[tp] one card: the PHENIQS_TP run over NCCL needs two (python3 chip_smoke.py --nccl on such a host)")
         lap("tp")
+        for name, count in reads(card, threads, whitelist, decided).items():
+            counts[name] += count
+        lap("reads")
         for label, key in (("flagship", "step"), ("mdd flagship", "mdd_step")):
             step = measured[key]
             say(f"[throughput] {card} | {label} decode step N={N_KERNEL}, CUDA events:"

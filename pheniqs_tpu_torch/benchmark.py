@@ -15,6 +15,8 @@ of stats per run:
     python -m pheniqs_tpu_torch.benchmark whitelist:fast --reads 1048576 --profile
     python -m pheniqs_tpu_torch.benchmark mdd:strict mdd:hybrid whitelist:fast --reads 262144 --cli
 
+``--devices N`` caps the cards the device engines cut each batch over
+(every local card by default; the ontology's ``"devices"``);
 ``--profile`` adds the device time of the run's PHENIQS_PROFILE trace
 (and PHENIQS_TRACE's stage seconds on standard error);
 ``--cli`` runs each through ``python -m pheniqs_tpu_torch mux`` instead;
@@ -211,17 +213,18 @@ class _NullDeviceMixin:
         return results
 
 
-def make_engine(ontology: dict, fidelity: str, threads: int, device):
+def make_engine(ontology: dict, fidelity: str, threads: int, device, devices=None):
     """The timed engine the e2e run drives for ``fidelity``: strict, fast,
     hybrid, or null (the host-pipeline ceiling: the streamed device engine
-    with the card replaced by _NullDeviceMixin)."""
+    with the card replaced by _NullDeviceMixin); ``devices``, a list, is
+    the device engines' reads axis."""
     if fidelity == "null":
         from .engine.device import TorchStreamedDeviceEngine
 
         class Null(_TimedMixin, _NullDeviceMixin, TorchStreamedDeviceEngine):
             pass
 
-        return Null(ontology, hybrid=False, workers=max(1, threads - 1), device=device)
+        return Null(ontology, hybrid=False, workers=max(1, threads - 1), device=device, devices=devices)
     if fidelity == "strict":
         if threads > 1:
             from .engine.stream import StreamedStrictEngine
@@ -246,12 +249,12 @@ def make_engine(ontology: dict, fidelity: str, threads: int, device):
         class Streamed(_TimedMixin, TorchStreamedDeviceEngine):
             pass
 
-        return Streamed(ontology, hybrid=hybrid, workers=max(1, threads - 1), device=device)
+        return Streamed(ontology, hybrid=hybrid, workers=max(1, threads - 1), device=device, devices=devices)
 
     class Single(_TimedMixin, TorchDeviceEngine):
         pass
 
-    return Single(ontology, hybrid=hybrid, device=device)
+    return Single(ontology, hybrid=hybrid, device=device, devices=devices)
 
 
 def run_e2e(
@@ -262,12 +265,16 @@ def run_e2e(
     batch_size: int = 65536,
     device="cuda",
     ontology: dict | None = None,
+    devices=None,
 ) -> dict:
     """Run the end-to-end engine over `paths` with the decoders of
     `ontology` (the flagship's by default), returning throughput stats
     (the keys of ``pheniqs_tpu.benchmark.run_e2e``) with the warmup batches
     separated from steady state, plus ``resolved_fraction``: the share of
-    reads the hybrid engine re-resolved in f64. Under ``PHENIQS_TP`` every
+    reads the hybrid engine re-resolved in f64, and ``devices``: the
+    slices a device engine cut each batch into (0 for strict).
+    ``devices`` is a count, the ontology's ``"devices"`` cap on the local
+    cards, or a list of devices (cards may repeat). Under ``PHENIQS_TP`` every
     rank calls it: rank 0 runs the engine, a follower rank follows rank 0's
     device steps (device/tp.py) and returns None."""
     from .device.distributed import is_leader
@@ -279,7 +286,10 @@ def run_e2e(
         return None
     base = ontology if ontology is not None else flagship_ontology()
     ontology = e2e_ontology(paths, output_url, threads, base)
-    engine = make_engine(ontology, fidelity, threads, device)
+    if isinstance(devices, int):
+        ontology["devices"] = devices
+        devices = None
+    engine = make_engine(ontology, fidelity, threads, device, devices)
     engine._init_timeline()
     start = time.perf_counter()
     engine.execute(batch_size=batch_size)
@@ -293,6 +303,7 @@ def run_e2e(
         "wall_s": round(wall, 3),
         "reads_per_s": round(total_reads / wall, 1) if wall else 0.0,
         "batches": len(timeline),
+        "devices": len(getattr(engine, "devices", ())),
     }
     warmup = 3 if len(timeline) > 8 else 1
     if len(timeline) > warmup + 2:
@@ -382,7 +393,8 @@ def trace_summary(path: str, top: int = 12) -> dict:
 
 
 def run_cli(
-    paths: list[str], output_url: str, fidelity: str, threads: int, batch_size: int, base: dict, device
+    paths: list[str], output_url: str, fidelity: str, threads: int, batch_size: int, base: dict, device,
+    devices: int | None = None,
 ) -> dict:
     """One run of ``python -m pheniqs_tpu_torch mux`` over `paths` with the
     decoders of `base`, on `device` (PHENIQS_TORCH_DEVICE): its exit code,
@@ -395,6 +407,8 @@ def run_cli(
         sys.executable, "-m", "pheniqs_tpu_torch", "mux", "--config", config,
         "--fidelity", fidelity, "--threads", str(threads), "--batch-size", str(batch_size),
     ]
+    if devices:
+        command += ["--devices", str(devices)]
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PHENIQS_TORCH_DEVICE=str(device), PHENIQS_TRACE="1")
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [root, env.get("PYTHONPATH")]))
@@ -425,6 +439,8 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--batch-size", type=int, default=131072)
     parser.add_argument("--threads", type=int, default=min(8, os.cpu_count() or 1))
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="cut each batch over at most N local cards (default: every card)")
     parser.add_argument("--work", default=".benchmark", help="inputs and outputs; removed at the end")
     parser.add_argument("--profile", action="store_true", help="trace each run (PHENIQS_PROFILE)")
     parser.add_argument("--cli", action="store_true", help="run through python -m pheniqs_tpu_torch mux")
@@ -446,7 +462,7 @@ def main(argv: list[str] | None = None) -> int:
             out = os.path.join(args.work, f"{path}_{fidelity}.sam")
             if args.cli:
                 line.update(run_cli(inputs, out, fidelity, args.threads, args.batch_size,
-                                    ontologies[path], args.device))
+                                    ontologies[path], args.device, args.devices))
             else:
                 profile = os.path.join(args.work, "profile") if args.profile else None
                 if profile:
@@ -455,7 +471,7 @@ def main(argv: list[str] | None = None) -> int:
                 try:
                     line.update(run_e2e(inputs, out, fidelity=fidelity, threads=args.threads,
                                         batch_size=args.batch_size, device=args.device,
-                                        ontology=ontologies[path]))
+                                        ontology=ontologies[path], devices=args.devices))
                 finally:
                     for name in ("PHENIQS_PROFILE", "PHENIQS_TRACE"):
                         os.environ.pop(name, None)

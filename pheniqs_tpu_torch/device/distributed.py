@@ -1,4 +1,14 @@
-"""Process groups of the port (counterpart of ``pheniqs_tpu/device/distributed.py``).
+"""Scale-out of the port (counterpart of ``pheniqs_tpu/device/distributed.py``).
+
+Reads are pure data parallelism. Within a process the engine cuts each
+batch into contiguous slices, one per local card (``reads_devices``,
+capped by the ontology's ``"devices"``), and runs them through
+``device/step.py:ShardedDecodeStep``; the slices' counters add in float64
+in slice order. Across hosts each process owns the round-robin batches of
+``PHENIQS_SHARD=k:H`` (``host_batch_slices``), after
+``initialize_multihost``; ``tools/merge.py`` recombines the per-host
+``PHENIQS_PARTIAL`` statistics, and ``merge_host_accumulators`` merges
+engines held in one process.
 
 ``PHENIQS_TP="R:P"`` runs the engine as a (reads, panel) grid of R * P
 processes, one rank each, as ``torchrun`` starts them:
@@ -6,9 +16,9 @@ processes, one rank each, as ``torchrun`` starts them:
     PHENIQS_TP=1:2 torchrun --standalone --nproc-per-node 2 \\
         -m pheniqs_tpu_torch mux --config job.json --fidelity hybrid
 
-Reads are not split yet (R = 1; R > 1 is ROADMAP item 10): rank 0 leads
-the whole host pipeline, and every rank holds one shard of each large
-PAMLD panel (device/tp.py, K8). The group comes from the ``torchrun``
+The grid does not split reads yet (R = 1; R > 1 is ROADMAP A.3): rank 0
+leads the whole host pipeline, and every rank holds one shard of each
+large PAMLD panel (device/tp.py, K8). The group comes from the ``torchrun``
 environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; ``env://``).
 
@@ -43,7 +53,7 @@ def tp_shape() -> tuple[int, int] | None:
     if reads != 1:
         raise NotImplementedError(
             f"PHENIQS_TP={value}: reads data parallelism inside the (reads, panel) "
-            "mesh is not ported yet (ROADMAP item 10); K8's panel sharding runs with R = 1"
+            "mesh is not ported yet (ROADMAP A.3); K8's panel sharding runs with R = 1"
         )
     if panel < 1:
         raise ValueError(f"PHENIQS_TP={value}: the panel axis needs at least one rank")
@@ -126,3 +136,72 @@ def close_panel_group():
     if _GROUP is not None:
         dist.destroy_process_group()
         _GROUP = None
+
+
+def reads_devices(device="cuda", limit=None) -> list[torch.device]:
+    """This process's devices on the reads axis (the counterpart of
+    ``reads_mesh``): every local card ``cuda:0..n-1`` for ``"cuda"``, the
+    one device named otherwise (``"cuda:k"``, ``"cpu"``), or an explicit
+    list as given (``["cuda:0", "cuda:0"]``: two slices on one card;
+    ``["cpu"] * 8``: eight CPU slices, as the reference's virtual CPU
+    mesh). ``limit`` (the ontology's ``"devices"``) keeps the first
+    ``limit`` of them when positive."""
+    from .instrument import resolve_device
+
+    if isinstance(device, (list, tuple)):
+        devices = [resolve_device(d) for d in device]
+    else:
+        device = resolve_device(device)
+        if device.type == "cuda" and device.index is None:
+            devices = [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
+        else:
+            devices = [device]
+    if not devices:
+        raise ValueError("reads_devices: no device given")
+    if limit is not None and int(limit) > 0:
+        devices = devices[: int(limit)]
+    return devices
+
+
+def initialize_multihost() -> tuple[int, int]:
+    """Join the hosts' process group from ``torch.distributed``'s
+    ``env://`` environment (``MASTER_ADDR``, ``MASTER_PORT``,
+    ``WORLD_SIZE``, ``RANK``), over gloo: it carries only host-side
+    aggregates. Returns (process_id, num_processes); (0, 1) when
+    ``WORLD_SIZE`` is unset or 1, or under ``PHENIQS_TP``, whose ranks
+    belong to the panel group (``panel_group``)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or os.environ.get("PHENIQS_TP"):
+        return 0, 1
+    rank = int(os.environ["RANK"])
+    if not dist.is_initialized():
+        dist.init_process_group(backend="gloo", init_method="env://", rank=rank, world_size=world)
+    return rank, world
+
+
+def host_batch_slices(process_id: int, num_processes: int):
+    """Infinite round-robin predicate: does this host own batch `index`?"""
+
+    def owns(index: int) -> bool:
+        return index % num_processes == process_id
+
+    return owns
+
+
+def merge_host_accumulators(engines: list) -> None:
+    """Merge per-shard host accumulators into the first engine's: the
+    host-side analog of Transcode::collect for the float64 report state.
+    Every field is a sum/min/max, so merging is order-insensitive."""
+    if len(engines) <= 1:
+        return
+    primary = engines[0]
+    for other in engines[1:]:
+        for mine, theirs in zip(primary._partial_runtimes(), other._partial_runtimes()):
+            mine.accumulator.collect(theirs.accumulator)
+        primary.incoming_count += other.incoming_count
+        primary.incoming_pf_count += other.incoming_pf_count
+        primary.outgoing_count += other.outgoing_count
+        primary.outgoing_pf_count += other.outgoing_pf_count
+        if primary.channel_quality is not None and other.channel_quality:
+            for mine, theirs in zip(primary.channel_quality, other.channel_quality):
+                mine.merge(theirs)

@@ -18,7 +18,7 @@ tolerance and quality masking threshold.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -362,6 +362,42 @@ def carry_instrument(state, device) -> DeviceInstrument:
     )
 
 
+def card_index(device: torch.device) -> int | None:
+    """The card a CUDA device names (``cuda`` is the current one); None on
+    the CPU."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def instruments_on(instrument: DeviceInstrument, devices) -> list[DeviceInstrument]:
+    """One instrument per entry of `devices` (cards may repeat), for the
+    reads axis: `instrument` itself on its own device, else one copy per
+    card, shared by the entries naming that card, with every tensor there
+    and the same panels, plans and scalars (the TPQ epsilon is measured
+    per device type, so it carries over)."""
+    tensors = ("panel_codes", "panel_codes_u8", "key_table", "likelihood_matrix", "concentration")
+    home = (instrument.device.type, card_index(instrument.device))
+    placed = {}
+    out = []
+    for device in devices:
+        device = resolve_device(device)
+        key = (device.type, card_index(device))
+        if key not in placed:
+            placed[key] = instrument if key == home else replace(
+                instrument,
+                decoders=[
+                    replace(dec, **{name: getattr(dec, name).to(device) for name in tensors
+                                    if getattr(dec, name) is not None})
+                    for dec in instrument.decoders
+                ],
+                device=device,
+                tpq_constants=instrument.tpq_constants.to(device),
+            )
+        out.append(placed[key])
+    return out
+
+
 __all__ = [
     "DeviceDecoder",
     "DeviceInstrument",
@@ -371,6 +407,7 @@ __all__ = [
     "carry_instrument",
     "compile_decoder",
     "compile_instrument",
+    "instruments_on",
     "resolve_device",
     "LARGE_PANEL_B",
     "LN_PHRED_BASE",

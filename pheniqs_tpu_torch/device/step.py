@@ -20,12 +20,20 @@ merging over ``group`` (device/tp.py); on rank 0 everything else runs as
 above, on the merged decisions, so the counters come back whole there. A
 follower rank runs ``follow``: K3 and its shards' stages only.
 
+``ShardedDecodeStep`` is the counterpart of ``make_sharded_decode_step``
+and ``pad_batch`` (step.py:759, :804): a batch cut into R contiguous
+slices in read order, one ``DecodeStep`` per slice on its own card and
+CUDA stream, the decision blobs concatenated in slice order and the
+counter vectors added in float64 in slice order.
+
 On CUDA each is a hand-written kernel; on the CPU each wrapper runs its
 plain version. Panel tensors stay on the instrument's device; per batch
 the step allocates only its outputs and the stacked per-decoder rows.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -36,14 +44,15 @@ from ..kernels.mdd import mdd_classify, mdd_classify_plain
 from ..kernels.pack import pack_outputs, pack_outputs_plain
 from ..kernels.pamld import pamld_classify, pamld_classify_plain, pamld_classify_sharded
 from ..kernels.unpack import token_layout, unpack_tokens, unpack_tokens_plain
+from . import wire
 from .distributed import tp_shape
-from .instrument import DeviceInstrument
+from .instrument import DeviceInstrument, card_index
 
 
 def check_supported():
     """Refuse what the port has no kernel for yet: reads data parallelism
-    inside the PHENIQS_TP mesh (R > 1, ROADMAP item 10; K8's panel
-    sharding runs with R = 1)."""
+    inside the PHENIQS_TP mesh (R > 1, ROADMAP A.3; K8's panel sharding
+    runs with R = 1)."""
     tp_shape()
 
 
@@ -181,3 +190,103 @@ class DecodeStep(nn.Module):
         else:
             packed = pack_outputs(instrument, decisions, tokens.forced, want_uncertain)
         return packed, flat
+
+
+def pad_rows(blob, multiple: int):
+    """`blob` with H2D_PAD | H2D_QCFAIL rows appended up to a multiple of
+    `multiple` rows (the counterpart of ``pad_batch``): K4 leaves padding
+    rows out of the counters, so nothing needs subtracting afterwards."""
+    n = blob.shape[0]
+    padded = -(-n // multiple) * multiple
+    if padded == n:
+        return blob
+    rows = torch.zeros((padded - n, blob.shape[1]), dtype=blob.dtype, device=blob.device)
+    rows[:, -1] = wire.H2D_PAD | wire.H2D_QCFAIL
+    return torch.cat([blob, rows])
+
+
+class ShardedDecodeStep:
+    """The decode step data parallel over the reads: slice r of a batch
+    runs through its own ``DecodeStep`` on the device of ``instruments[r]``
+    (``instrument.instruments_on``: cards may repeat, and two slices on one
+    card run on two streams). One host thread enqueues every slice back to
+    back, each on its card's stream, so the cards run together. With one
+    instrument it is that instrument's DecodeStep, with nothing added."""
+
+    def __init__(self, instruments: list[DeviceInstrument], widths: list[int], qual_bits=6,
+                 want_uncertain: bool = True):
+        # indexed ("cuda" is the current card when built), so that each
+        # slice names its card wherever it runs
+        self.devices = [
+            torch.device("cuda", card_index(i.device)) if i.device.type == "cuda" else i.device for i in instruments
+        ]
+        self.steps = [
+            DecodeStep(instrument, widths, qual_bits, want_uncertain=want_uncertain) for instrument in instruments
+        ]
+        sharded = len(self.devices) > 1
+        self.streams = [
+            torch.cuda.Stream(device) if sharded and device.type == "cuda" else None for device in self.devices
+        ]
+
+    @property
+    def size(self) -> int:
+        return len(self.steps)
+
+    def bounds(self, n: int) -> list[tuple[int, int]]:
+        """(start, stop) of each slice of a batch of `n` rows, `n` a
+        multiple of the slice count: contiguous, in read order."""
+        share = n // self.size
+        return [(r * share, (r + 1) * share) for r in range(self.size)]
+
+    @contextlib.contextmanager
+    def on(self, r: int):
+        """Slice r's card as the current device and its stream as the
+        current stream (nothing on the CPU or with one slice): the kernels
+        launch on the current device's current stream."""
+        stream = self.streams[r]
+        if stream is None:
+            yield
+            return
+        with torch.cuda.device(self.devices[r]), torch.cuda.stream(stream):
+            yield
+
+    def __call__(self, blob, ccb=None, qcb=None):
+        return self.forward(blob, ccb, qcb)
+
+    def forward(self, blob, ccb=None, qcb=None):
+        """(blob_out, counters) of one batch, `blob` on any device: padded
+        to a multiple of the slice count (pad_rows), cut into slices, each
+        run on its card, then the decision blobs concatenated in slice order
+        (the padding rows' cut off: the bytes one DecodeStep gives) and the
+        counters added in float64 in slice order, both on `blob`'s device."""
+        if self.size == 1:
+            return self.steps[0](blob, ccb, qcb)
+        n = blob.shape[0]
+        padded = pad_rows(blob, self.size)
+        source = torch.cuda.current_stream(blob.device) if blob.is_cuda else None
+        outputs = []
+        for r, (start, stop) in enumerate(self.bounds(padded.shape[0])):
+            device, stream = self.devices[r], self.streams[r]
+            if stream is not None and source is not None:
+                stream.wait_stream(source)
+            with self.on(r):
+                piece = padded[start:stop].to(device, non_blocking=True)
+                if stream is not None and piece.device == padded.device:
+                    padded.record_stream(stream)  # read on this stream after the caller lets go
+                books = [None if t is None else t.to(device, non_blocking=True) for t in (ccb, qcb)]
+                outputs.append(self.steps[r](piece, *books))
+        blobs, total = [], None
+        for r, (out_blob, flat) in enumerate(outputs):
+            stream = self.streams[r]
+            if stream is not None:
+                # copies out of a card run on its current stream and the target's
+                for waiting in (torch.cuda.current_stream(self.devices[r]), source):
+                    if waiting is not None:
+                        waiting.wait_stream(stream)
+                for tensor in (out_blob, flat):
+                    tensor.record_stream(torch.cuda.current_stream(self.devices[r]))
+            blobs.append(out_blob.to(blob.device))
+            part = flat.to(blob.device, torch.float64)
+            total = part if total is None else total + part
+        out = torch.cat(blobs)
+        return out[: n * (out.numel() // padded.shape[0])], total

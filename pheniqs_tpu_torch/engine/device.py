@@ -18,6 +18,15 @@ event per batch, waited on before the host reads them. The render workers
 are forked after CUDA is initialised and never touch it: they receive
 NumPy decisions through shared memory only.
 
+Data parallel over the reads: with more than one device (every local
+card for ``device="cuda"``, capped by the ontology's ``"devices"``, or an
+explicit ``devices=[...]``) each batch's staging buffer is cut into
+contiguous slices, one per card; each slice is copied up, decoded
+(``device/step.py:ShardedDecodeStep``) and pulled back into its rows of
+one pinned buffer on its card's stream, with one event per card for the
+staging buffer and one for the results. The counters of the slices add in
+float64 in slice order.
+
 ``PHENIQS_TP="1:P"`` (device/distributed.py) runs this engine on rank 0
 of P: its instrument is compiled on the CPU and shared with the follower
 ranks, which hold the other shards of each large PAMLD panel
@@ -36,9 +45,9 @@ import torch
 
 from ..decode.oracle import BRANCH_PASS, ClassifyResult, mdd_classify, pamld_classify
 from ..device import wire
-from ..device.distributed import panel_group, tp_shape
-from ..device.instrument import compile_instrument, resolve_device
-from ..device.step import DecodeStep
+from ..device.distributed import panel_group, reads_devices, tp_shape
+from ..device.instrument import compile_instrument, instruments_on, resolve_device
+from ..device.step import DecodeStep, ShardedDecodeStep
 from ..kernels import check_kernel_limits
 from ..model.batch import ReadBatch
 from ..transform import SegmentBatch
@@ -47,6 +56,18 @@ from .strict import ClassifierRuntime, StrictEngine
 
 def _round_up(value: int, multiple: int) -> int:
     return -(-value // multiple) * multiple
+
+
+def _slice_sum(parts):
+    """The counter vector of a batch: one tensor as it is, a list of the
+    slices' added in float64 in slice order (so the bytes do not depend on
+    which card finished first)."""
+    if not isinstance(parts, list):
+        return parts.numpy()
+    total = parts[0].numpy().astype(np.float64)
+    for part in parts[1:]:
+        total = total + part.numpy()
+    return total
 
 
 class TorchDeviceEngine(StrictEngine):
@@ -59,12 +80,15 @@ class TorchDeviceEngine(StrictEngine):
     token, whose strict semantics depend on the serial scratch carry); those
     rows are re-classified with the exact NumPy oracle, guaranteeing
     reference-identical classification decisions at device throughput.
+
+    ``devices`` (a list, cards may repeat) sets the reads axis explicitly;
+    by default it is ``distributed.reads_devices(device)``. Either is
+    capped by the ontology's ``"devices"``.
     """
 
-    def __init__(self, ontology: dict, hybrid: bool = False, device="cuda"):
+    def __init__(self, ontology: dict, hybrid: bool = False, device="cuda", devices=None):
         tp = tp_shape()
         super().__init__(ontology)
-        self.device = resolve_device(device)
         self.hybrid = hybrid
         #: the panel group of a PHENIQS_TP run (this engine is its rank 0)
         self._panel = None
@@ -72,21 +96,27 @@ class TorchDeviceEngine(StrictEngine):
         if tp is not None:
             from ..device.tp import share_instrument
 
-            self._panel = panel_group(self.device)
+            self._panel = panel_group(resolve_device(device))
             if not self._panel.leader:
                 raise RuntimeError("a PHENIQS_TP follower rank runs device.tp.follow, not an engine")
             self.device = self._panel.device
             self.instrument, self._shards = share_instrument(
                 compile_instrument(ontology, "cpu"), self._panel
             )
+            self.devices = [self.device]
         else:
+            self.devices = reads_devices(device if devices is None else devices, ontology.get("devices"))
+            self.device = self.devices[0]
             if self.device.type == "cuda" and self.device.index is not None:
                 # kernels launch on the current device's streams and events
                 torch.cuda.set_device(self.device)
             self.instrument = compile_instrument(ontology, self.device)
+        #: the instrument on each device of the reads axis
+        self._instruments = instruments_on(self.instrument, self.devices)
         if self.device.type == "cuda":
             # refuse what a kernel has no path for before the first batch
-            check_kernel_limits(self.instrument)
+            for instrument in self._instruments:
+                check_kernel_limits(instrument)
         # classify order must match device.instrument.compile_instrument:
         # sample, molecular*, cellular* (reference transcode.h:51-65)
         self._runtimes: list[ClassifierRuntime] = []
@@ -94,7 +124,9 @@ class TorchDeviceEngine(StrictEngine):
             self._runtimes.append(self.sample)
         self._runtimes.extend(self.molecular)
         self._runtimes.extend(self.cellular)
-        self._step_cache: dict[tuple, DecodeStep] = {}
+        self._step_cache: dict[tuple, DecodeStep | ShardedDecodeStep] = {}
+        #: device -> (ccb, qcb) on it, for the slices of a sharded step
+        self._codebooks: dict = {}
         self._pad_bucket: int | None = None
         self._width_buckets: list[int] | None = None
         self._current_batch: ReadBatch | None = None
@@ -102,8 +134,9 @@ class TorchDeviceEngine(StrictEngine):
         self._predispatched = None
         # rotating staging buffers: the ingest thread packs up to ~6
         # batches ahead of dispatch, so a buffer comes round again only
-        # after its batch was dispatched; its H2D event then says when the
-        # copy has read it. None marks a buffer packed but not yet uploaded.
+        # after its batch was dispatched; its H2D events (one a card) then
+        # say when the copies have read it. None marks a buffer packed but
+        # not yet uploaded.
         self._staging: dict[tuple, tuple] = {}
         self._staging_events: dict[tuple, object] = {}
         self._staging_flip = 0
@@ -120,13 +153,17 @@ class TorchDeviceEngine(StrictEngine):
         self._qual_sensed = False
 
     # --- device dispatch -------------------------------------------------
-    def _get_step(self, signature: tuple) -> DecodeStep:
+    def _get_step(self, signature: tuple) -> DecodeStep | ShardedDecodeStep:
         step = self._step_cache.get(signature)
         if step is None:
-            step = DecodeStep(
-                self.instrument, list(signature[1]), signature[2],
-                want_uncertain=self.hybrid, panel_shards=self._shards, group=self._panel,
-            )
+            if len(self.devices) > 1:
+                step = ShardedDecodeStep(self._instruments, list(signature[1]), signature[2],
+                                         want_uncertain=self.hybrid)
+            else:
+                step = DecodeStep(
+                    self.instrument, list(signature[1]), signature[2],
+                    want_uncertain=self.hybrid, panel_shards=self._shards, group=self._panel,
+                )
             self._step_cache[signature] = step
         return step
 
@@ -202,7 +239,8 @@ class TorchDeviceEngine(StrictEngine):
         signature (host only: runs on the ingest thread ahead of
         dispatch). Returns (signature, blob, staging key)."""
         n = batch.size
-        padded_n = max(_round_up(n, 1024), 1024)
+        # a whole number of rows for each slice of the reads axis
+        padded_n = _round_up(max(_round_up(n, 1024), 1024), len(self.devices))
         # pin the batch-size bucket after the first (full) batch so the
         # last partial batch reuses the same step and staging buffers
         if self._pad_bucket is None or padded_n > self._pad_bucket:
@@ -225,10 +263,11 @@ class TorchDeviceEngine(StrictEngine):
         self._staging_flip = (self._staging_flip + 1) % self._staging_sets
         pad_flags = wire.H2D_QCFAIL | wire.H2D_PAD
         if key in self._staging_events:
-            event = self._staging_events.pop(key)
-            if event is None:
+            events = self._staging_events.pop(key)
+            if events is None:
                 raise RuntimeError("staging buffer came round before its batch was uploaded")
-            event.synchronize()  # the previous H2D copy from this buffer is done
+            for event in events:
+                event.synchronize()  # every card's previous H2D copy from this buffer is done
         staged = self._staging.get(key)
         if staged is None:
             shape = (padded_n, wire.h2d_blob_bytes(widths, self._qual_bits))
@@ -268,13 +307,19 @@ class TorchDeviceEngine(StrictEngine):
         device_blob = pinned.to(self.device, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        self._staging_events[key] = event
+        self._staging_events[key] = [event]
         return device_blob
 
     def _dispatch(self, batch, packed=None):
+        """Start one batch on the device: (host blob, host counters, [done
+        events]), on CUDA still in flight (None for the events on the CPU);
+        over several cards the counters are a list too, one a card
+        (_dispatch_slices)."""
         if packed is None:
             packed = self._pack_batch(batch)
         signature, blob, key = packed
+        if len(self.devices) > 1 and self.device.type == "cuda":
+            return self._dispatch_slices(signature, key)
         mark = time.perf_counter()
         device_blob = self._upload(blob, key)
         self._stage_add("h2d", time.perf_counter() - mark)
@@ -299,7 +344,49 @@ class TorchDeviceEngine(StrictEngine):
         host_counters.copy_(flat, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
+        return host_blob, host_counters, [done]
+
+    def _dispatch_slices(self, signature, key):
+        """_dispatch over the cards of the reads axis: each card's rows of
+        the pinned staging buffer copied up on its stream (one event a card
+        guards the buffer), its slice decoded there, and its decisions and
+        counters pulled back into its rows of one pinned blob and a pinned
+        vector of its own, each card's pull ending in its own event."""
+        step = self._get_step(signature)
+        pinned = self._staging[key][0]
+        bounds = step.bounds(pinned.shape[0])
+        mark = time.perf_counter()
+        pieces, uploaded = [], []
+        for r, (start, stop) in enumerate(bounds):
+            with step.on(r):
+                pieces.append(pinned[start:stop].to(step.devices[r], non_blocking=True))
+                event = torch.cuda.Event()
+                event.record()
+                uploaded.append(event)
+        self._staging_events[key] = uploaded
+        self._stage_add("h2d", time.perf_counter() - mark)
+        total = wire.d2h_layout(self.instrument, self.hybrid)["total"]
+        host_blob = torch.empty(pinned.shape[0] * total, dtype=torch.uint8, pin_memory=True)
+        host_counters, done = [], []
+        for r, ((start, stop), piece) in enumerate(zip(bounds, pieces)):
+            with step.on(r), torch.no_grad():
+                out_blob, flat = step.steps[r](piece, *self._card_codebooks(step.devices[r]))
+                host_blob[start * total : stop * total].copy_(out_blob, non_blocking=True)
+                counters = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+                counters.copy_(flat, non_blocking=True)
+                host_counters.append(counters)
+                event = torch.cuda.Event()
+                event.record()
+                done.append(event)
         return host_blob, host_counters, done
+
+    def _card_codebooks(self, device):
+        """(ccb, qcb) of the sensed wire on `device`, placed once."""
+        if device not in self._codebooks:
+            self._codebooks[device] = tuple(
+                None if book is None else torch.from_numpy(book).to(device) for book in (self._ccb, self._qcb)
+            )
+        return self._codebooks[device]
 
     def _classify_batch_on_device(self, batch: ReadBatch):
         if self._predispatched is not None:
@@ -311,8 +398,8 @@ class TorchDeviceEngine(StrictEngine):
         # one pull: the packed uint8 blob (device/wire.py d2h_layout)
         layout = wire.d2h_layout(self.instrument, self.hybrid)
         mark = time.perf_counter()
-        if done is not None:
-            done.synchronize()
+        for event in done or ():
+            event.synchronize()
         self._stage_add("pull_wait", time.perf_counter() - mark)
         blob = host_blob.numpy().reshape(-1, layout["total"])[:n]
         ints = (
@@ -353,7 +440,7 @@ class TorchDeviceEngine(StrictEngine):
         # into the runtime accumulators (the reference's thread-local
         # collect, transcode.cpp:317-320); hybrid-uncertain rows were
         # excluded on device and are recorded host-side from the oracle
-        self._merge_device_counters(host_counters.numpy())
+        self._merge_device_counters(_slice_sum(host_counters))
         if self.hybrid:
             uncertain = blob[:, layout["uncertain_offset"]].astype(bool)
             self._batch_rows = np.flatnonzero(uncertain)
@@ -682,8 +769,8 @@ class TorchStreamedDeviceEngine(TorchDeviceEngine):
     # workers only the arrays render consumes (engine/stream.py)
     _payload_fields = ("decoded", "confidence", "qcfail")
 
-    def __init__(self, ontology: dict, hybrid: bool = False, workers: int = 2, device="cuda"):
-        super().__init__(ontology, hybrid=hybrid, device=device)
+    def __init__(self, ontology: dict, hybrid: bool = False, workers: int = 2, device="cuda", devices=None):
+        super().__init__(ontology, hybrid=hybrid, device=device, devices=devices)
         self.workers = workers
         self._runner = None
         # render workers recompute observation gathers from shared memory;

@@ -131,47 +131,78 @@ def event_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_events(prof) -> collections.Counter:
+    """{name: count} of the CUDA kernels in a torch.profiler trace: its
+    device activities less memsets and copies, which no wrapper counts."""
+    from torch.autograd import DeviceType
+
+    return collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memset", "Memcpy"))
+    )
+
+
+def profiled(fn, calls: int, tries: int = 2):
+    """(trace, launched, traced) of the first of `tries` torch.profiler
+    traces of `calls` calls of `fn` that holds every kernel launch the
+    port's wrappers counted (``kernels.launch_counts`` before and after):
+    a trace with fewer kernel events than that dropped some. Every wrapper
+    launch puts at least one kernel on the card, so a whole trace holds at
+    least as many. When each try is short, the trace is None and
+    (launched, traced) are the last try's counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..kernels import launch_counts
+
+    launched = traced = 0
+    for _ in range(tries):
+        before = sum(launch_counts().values())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        launched = sum(launch_counts().values()) - before
+        traced = sum(kernel_events(prof).values())
+        if traced >= launched:
+            return prof, launched, traced
+    return None, launched, traced
+
+
 def device_ms(fn, reps: int = 10) -> float:
     """Device milliseconds per call of `fn`: the summed time of the CUDA
     kernels and copies it launched, from torch.profiler over `reps` calls
-    (host launch overhead between them is not counted). The profiler now
-    and then records no device event at all; after a second such try the
-    time comes from CUDA events (event_ms, launch gaps included) and a
-    line on standard error says so."""
-    from torch.profiler import ProfilerActivity, profile
-
+    (host launch overhead between them is not counted). A trace that holds
+    fewer kernel events than the wrappers launched, or no device time, is
+    taken again (profiled); after a second such try the time comes from
+    CUDA events (event_ms, launch gaps included) and a line on standard
+    error gives both counts."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+    prof, launched, traced = profiled(fn, reps)
+    if prof is not None:
         device_us = sum(e.self_device_time_total for e in prof.key_averages())
         if device_us > 0:
             return device_us / 1000.0 / reps
-    print("[profile_step] torch.profiler recorded no device time twice: timed with CUDA events",
-          file=sys.stderr, flush=True)
+    print(f"[profile_step] torch.profiler held {traced} kernel events and no whole trace of the {launched}"
+          " launches the kernels counted, twice: timed with CUDA events", file=sys.stderr, flush=True)
     return event_ms(fn, reps)
 
 
 def device_launches(fn, tries: int = 2) -> dict:
     """{name: count} of the device activities (kernels, memsets, copies)
     one call of `fn` puts on the card, from torch.profiler after a warm-up
-    call. The profiler now and then drops a call's first activities, so
-    this is the fuller count of `tries` profiled calls."""
+    call. The profiler now and then drops a call's activities: a trace
+    with fewer kernel events than the wrappers launched is taken again, up
+    to `tries` times, and then refused (RuntimeError, with both counts)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    counts = []
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        counts.append(collections.Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA))
-    return dict(max(counts, key=lambda c: sum(c.values())))
+    prof, launched, traced = profiled(fn, 1, tries)
+    if prof is None:
+        raise RuntimeError(f"torch.profiler dropped kernel events in {tries} tries: {traced} in the trace,"
+                           f" {launched} launched by the kernels' wrappers")
+    return dict(collections.Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA))
 
 
 def measure(fn, inputs, iters: int, depth: int, device) -> tuple[float, float]:

@@ -361,3 +361,19 @@ def test_profile_step_ladder_on_the_card(cuda):
     blob, flat = profile_step.rungs(profile_step.make_step(instrument))["full"](*wire)
     want_blob, want_flat = DecodeStep(instrument, profile_step.WIDTHS, "j4", want_uncertain=True)(*wire)
     assert torch.equal(blob, want_blob) and torch.equal(flat, want_flat)
+
+
+@pytest.mark.cuda
+def test_sharded_step_two_slices_on_one_card(cuda):
+    """ShardedDecodeStep with two slices on one card (two streams) against
+    the one-card DecodeStep at 16384 flagship reads and MDD-flagship reads
+    (chip_smoke.sharded_vs_one_card: the blob byte for byte under the same
+    K1 plans, else held by pamld.against_one_launch's rule; integer
+    counters exact; each slice's kernel launches the one-card step's plus
+    two per decoder a slice runs sliced)."""
+    from chip_smoke import sharded_vs_one_card
+    from pheniqs_tpu_torch.device.flagship import flagship_ontology, mdd_flagship_ontology
+
+    for ontology in (flagship_ontology(), mdd_flagship_ontology()):
+        report = sharded_vs_one_card("two slices", ontology, 16384, ["cuda:0", "cuda:0"], seed=5)
+        assert report["slice_reads"] == 8192 and len(report["slice_kernel_launches"]) == 2

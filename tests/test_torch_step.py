@@ -178,7 +178,7 @@ def test_fast_counters_match(fast_case):
 def test_unported_configurations_refuse(case, item, monkeypatch):
     """What the port has no path for raises NotImplementedError naming its
     ROADMAP item, never a silent torch fallback: reads data parallelism
-    inside the PHENIQS_TP mesh (R > 1, item 10; K8's panel sharding runs
+    inside the PHENIQS_TP mesh (R > 1, ROADMAP A.3; K8's panel sharding runs
     at R = 1). MDD decoders (K6) and panels above LARGE_PANEL_B (K7), which
     the first slice refused, run through the decode step."""
     from pheniqs_tpu_torch.device.instrument import LARGE_PANEL_B, compile_instrument
@@ -190,7 +190,7 @@ def test_unported_configurations_refuse(case, item, monkeypatch):
     if case == "tp":
         monkeypatch.setenv("PHENIQS_TP", "2:2")
         for call in (lambda: TorchDeviceEngine({}, hybrid=True, device="cpu"), check_supported):
-            with pytest.raises(NotImplementedError, match=f"item 10.*{item}"):
+            with pytest.raises(NotImplementedError, match=rf"ROADMAP A\.3.*{item}"):
                 call()
         monkeypatch.setenv("PHENIQS_TP", "1:2")
         check_supported()

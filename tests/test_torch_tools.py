@@ -12,8 +12,14 @@ sums rtol 1e-5). panel_memory: the synthetic decoder's codes and
 concentrations equal the reference tool's; its classify against the JAX
 ``pamld_classify_device`` as tests/test_torch_large_panel.py holds the
 chunked path (decisions exact and confidences rtol 1e-5 on settled rows);
-``resident_bytes`` the sum of the tensors' nbytes. Each tool refuses
-``cuda`` on a machine without one."""
+``resident_bytes`` the sum of the tensors' nbytes. multichip_bench: the
+device step over CPU slices, the scaling gate read on the work partition
+(each slice's rows; no wall-clock comparison on cores that xdist workers
+share), the e2e line over two CPU slices. profile_step's device_ms and
+device_launches against a stub profiler: a trace holding fewer kernel
+events than the wrappers counted is taken again, then refused (launches)
+or replaced by CUDA events (time). Each tool refuses ``cuda`` on a machine
+without one."""
 
 import json
 
@@ -234,3 +240,129 @@ def test_tools_refuse_cuda_without_a_gpu(tool, argv, tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             tool.main(argv + device)
     assert not (tmp_path / "in_100_20260818").exists()
+
+
+# --- multichip_bench: ShardedDecodeStep's rate and the scaling gate ---------
+
+
+def test_multichip_device_step_on_the_cpu():
+    """run_device_step on --device cpu: 3 slices on the one CPU device,
+    placed round-robin and said so, each a third of the padded batch."""
+    from pheniqs_tpu_torch.tools import multichip_bench
+
+    row = multichip_bench.run_device_step(3, 2000, reps=2, device="cpu")
+    assert row["devices"] == ["cpu"] * 3 and row["round_robin"] is True
+    assert row["reads_per_device_shard"] == 667 and row["timer"] == "host clock" and row["kind"] == "cpu"
+    assert len(row["step_ms_all"]) == 2 and row["reads_per_s"] > 0
+
+
+@pytest.mark.parametrize("broken", [False, True])
+def test_multichip_scaling_gate_reads_the_partition(monkeypatch, broken):
+    """The port's counterpart of tests/test_scaling_gate.py, on the work
+    partition and not on wall-clock times (xdist workers share the cores):
+    with PHENIQS_SCALING_BREAK=1 every slice holds the whole batch, without
+    it a quarter."""
+    from pheniqs_tpu_torch.tools import multichip_bench
+
+    if broken:
+        monkeypatch.setenv("PHENIQS_SCALING_BREAK", "1")
+    else:
+        monkeypatch.delenv("PHENIQS_SCALING_BREAK", raising=False)
+    result = multichip_bench.run_scaling(4, reads=1024, device="cpu")
+    assert result["single"]["reads_per_device_shard"] == 1024
+    assert result["sharded"]["reads_per_device_shard"] == (1024 if broken else 256)
+    assert result["partition_efficiency"] > 0
+
+
+def test_multichip_bench_virtual_e2e(tmp_path, capsys, monkeypatch):
+    """--virtual 2: the e2e engine over two CPU slices, one JSON line."""
+    from pheniqs_tpu_torch.tools import multichip_bench
+
+    monkeypatch.setenv("PHENIQS_BENCH_DIR", str(tmp_path))
+    assert multichip_bench.main(["--virtual", "2", "--reads", "2000", "--batch-size", "1024",
+                                 "--threads", "2", "--fidelity", "fast"]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["metric"] == "multichip_e2e_fast" and row["hosts"] == 1
+    assert row["devices_per_host"] == 2 and row["reads"] == 2000 and row["kind"] == "cpu"
+
+
+def test_multichip_bench_refuses_cuda_without_a_gpu(monkeypatch):
+    from pheniqs_tpu_torch.tools import multichip_bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["--device-step"], ["--device-step", "--device", "cuda"], ["--reads", "100"]):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            multichip_bench.main(argv)
+
+
+# --- profile_step: readings held to the kernels' launch counters ------------
+
+
+class _Trace:
+    """A torch.profiler result with the given device activities."""
+
+    def __init__(self, names, device_us=1000.0):
+        from torch.autograd import DeviceType
+
+        self.names, self.device_us, self.cuda = names, device_us, DeviceType.CUDA
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def events(self):
+        from types import SimpleNamespace
+
+        return [SimpleNamespace(name=name, device_type=self.cuda) for name in self.names]
+
+    def key_averages(self):
+        from types import SimpleNamespace
+
+        return [SimpleNamespace(self_device_time_total=self.device_us)]
+
+
+def _stub_profiler(monkeypatch, traces):
+    """torch.profiler.profile handing out `traces` in turn; no card."""
+    import torch.profiler
+
+    queue = list(traces)
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kwargs: queue.pop(0))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
+    return queue
+
+
+def _launching():
+    """A call that counts two kernel launches, as K3 and K5 would."""
+    from pheniqs_tpu_torch.kernels import pack, unpack
+
+    unpack.launches += 1
+    pack.launches += 1
+
+
+def test_device_launches_refuses_a_short_trace(monkeypatch):
+    """Two traces with one kernel event for two counted launches (a memset
+    and a copy do not count as kernels): device_launches raises with both
+    counts; a whole second trace is taken instead."""
+    short = ["unpack_kernel", "Memset (Device)", "Memcpy DtoH (Device -> Pinned)"]
+    _stub_profiler(monkeypatch, [_Trace(short), _Trace(short)])
+    with pytest.raises(RuntimeError, match="1 in the trace, 2 launched"):
+        profile_step.device_launches(_launching)
+    whole = ["unpack_kernel", "Memset (Device)", "pack_kernel"]
+    queue = _stub_profiler(monkeypatch, [_Trace(short), _Trace(whole)])
+    assert profile_step.device_launches(_launching) == {"unpack_kernel": 1, "Memset (Device)": 1, "pack_kernel": 1}
+    assert not queue
+
+
+def test_device_ms_falls_back_on_a_short_trace(monkeypatch, capsys):
+    """device_ms gives no reading from a short trace: after two it times
+    with CUDA events and says so with both counts; a whole trace gives its
+    device time per call."""
+    short = _Trace(["unpack_kernel"] * 3, device_us=50.0)  # 3 kernels for 4 calls x 2 launches
+    _stub_profiler(monkeypatch, [short, short])
+    monkeypatch.setattr(profile_step, "event_ms", lambda fn, reps: 7.5)
+    assert profile_step.device_ms(_launching, reps=4) == 7.5
+    assert "3 kernel events and no whole trace of the 8 launches" in capsys.readouterr().err
+    _stub_profiler(monkeypatch, [short, _Trace(["unpack_kernel", "pack_kernel"] * 4, device_us=2000.0)])
+    assert profile_step.device_ms(_launching, reps=4) == 0.5

@@ -316,11 +316,11 @@ def test_tp_hybrid_decisions_match_strict(tmp_path):
 
 
 def test_tp_reads_axis_refuses(monkeypatch):
-    """R > 1 (reads data parallel inside the mesh) is ROADMAP item 10."""
+    """R > 1 (reads data parallel inside the mesh) is ROADMAP A.3."""
     from pheniqs_tpu_torch.device.distributed import tp_shape
 
     monkeypatch.setenv("PHENIQS_TP", "2:4")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.3"):
         tp_shape()
     monkeypatch.setenv("PHENIQS_TP", "1:4")
     assert tp_shape() == (1, 4)
