@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --nccl     # on a host with >= 2 cards: only the
                                      # PHENIQS_TP run over NCCL and its strict
-                                     # reference, and multichip_bench's
+                                     # reference, and the reads phase over
+                                     # cuda:0 and cuda:1 with multichip_bench's
                                      # whitelist rates over 1, 2 (and 4) cards
     python3 chip_smoke.py --times T  # only the tile loop's, K3's, K6's,
                                      # K4's, K5's (on each path's layout)
@@ -105,11 +106,13 @@ any failure propagates and the exit code is not 0:
                   (the wrappers' counts; one card's flagship step: 5,
                   9 device launches with memsets); the engine over two
                   slices hybrid on phase 4's flagship reads identical to
-                  strict; hybrid on 1M flagship reads at R = 1 and 2, the
-                  same records, wall and steady rates side by side;
-                  multichip_bench's device-step line at R = 1 and 2 (CUDA
-                  events); on a host with two or more cards, its whitelist
-                  fast e2e line at R = 1, 2 (and 4), 4 batches each
+                  strict; hybrid on 1M flagship reads at R = 1 and 2 (and
+                  fast over two cards), the same records and the same
+                  report (integers exact, floats within rtol 1e-6), wall
+                  and steady rates side by side; multichip_bench's
+                  device-step line at R = 1 and 2 (CUDA events); on a host
+                  with two or more cards, its whitelist fast e2e line at
+                  R = 1, 2 (and 4), 16 batches each
   8. tools        the measurement tools of pheniqs_tpu_torch/tools/, each
                   row on a line of its own: host_pipeline's parse,
                   parse+pack and full (null device) rungs over phase 5's
@@ -1973,6 +1976,9 @@ def tools(card: str, threads: int, flagship_paths) -> None:
 
 #: reads of the reads phase's e2e rate runs (hybrid flagship at R = 1 and 2)
 N_READS_E2E = 1_000_000
+#: batches of the whitelist fast e2e rate over several cards: past the
+#: cold start, a steady window of a dozen batches
+MULTI_CARD_BATCHES = 16
 
 
 def reads_axis() -> list[str]:
@@ -2128,16 +2134,42 @@ def sharded_vs_one_card(label: str, ontology, n: int, devices, seed: int, instru
     return report
 
 
+def report_apart(label: str, mine, theirs, where: str = ""):
+    """Raise unless two reports agree: every integer equal, every float
+    within rtol 1e-6 (the slices' counter vectors add in float64 before
+    the accumulators: tests/test_torch_distributed.py's rule)."""
+    if type(mine) is not type(theirs):
+        raise AssertionError(f"{label}: report{where} is {type(mine).__name__}, one card's {type(theirs).__name__}")
+    if isinstance(mine, dict):
+        if set(mine) != set(theirs):
+            raise AssertionError(f"{label}: report{where} keys {sorted(set(mine) ^ set(theirs))} differ")
+        for key in mine:
+            report_apart(label, mine[key], theirs[key], f"{where}/{key}")
+    elif isinstance(mine, list):
+        if len(mine) != len(theirs):
+            raise AssertionError(f"{label}: report{where} has {len(mine)} entries, one card's {len(theirs)}")
+        for k, (a, b) in enumerate(zip(mine, theirs)):
+            report_apart(label, a, b, f"{where}[{k}]")
+    elif isinstance(mine, float):
+        if not abs(mine - theirs) <= 1e-6 * abs(theirs):
+            raise AssertionError(f"{label}: report{where} {mine!r} off one card's {theirs!r} beyond rtol 1e-6")
+    elif mine != theirs:
+        raise AssertionError(f"{label}: report{where} {mine!r}, one card's {theirs!r}")
+
+
 def reads(card: str, threads: int, whitelist: Whitelist, decided) -> dict:
     """The reads phase: ShardedDecodeStep (two slices, reads_axis) against
-    the one-card step at N_KERNEL on the flagship, the MDD flagship and the
-    whitelist, each slice's plans and kernel launches beside one card's
-    (the flagship's one card: 5, 9 device launches); the engine over two slices, hybrid on the
-    decisions phase's flagship reads (`decided`: input paths and strict
-    SAM) identical to strict, then hybrid on N_READS_E2E flagship reads at
-    R = 1 and R = 2, the same records, their rates side by side; and
-    multichip_bench's device-step line at R = 1 and R = 2. Returns the
-    kernel launches of the engine runs (counts set to 0 before each)."""
+    the one-card step at N_KERNEL on the flagship, the MDD flagship and
+    the whitelist, each slice's plans and kernel launches beside one
+    card's (the flagship's one card: 5, 9 device launches); the engine
+    over two slices, hybrid on `decided` (input paths and strict SAM of
+    flagship reads) identical to strict; hybrid on N_READS_E2E flagship
+    reads at R = 1 and R = 2 (and, over two cards, fast too): the same
+    records and the same report (integers exact, floats within rtol
+    1e-6), their rates side by side; multichip_bench's device-step line
+    at R = 1 and R = 2; over two or more cards, multi_card_rates. Returns
+    the kernel launches of the engine runs (counts set to 0 before
+    each)."""
     import torch
 
     from pheniqs_tpu_torch.benchmark import run_e2e, sam_decisions, synthesize_fastq_input
@@ -2177,23 +2209,32 @@ def reads(card: str, threads: int, whitelist: Whitelist, decided) -> dict:
         f" launches {json.dumps(counts)}")
 
     paths = synthesize_fastq_input(os.path.join(WORK, "reads_flagship"), N_READS_E2E, ontology=flagship_ontology())
-    records = {}
-    for axis in (devices[:1], devices):
-        reset_launch_counts()
-        stats = run_e2e(paths, out, fidelity="hybrid", threads=threads, batch_size=BATCH, device="cuda", devices=axis)
-        counts = launch_counts()
-        records[len(axis)] = sam_decisions(out)
-        for name, count in counts.items():
-            total[name] += count
-        if stats["reads"] != N_READS_E2E or stats.get("resolved_fraction", 0.0) > RESOLVED_LIMIT:
-            raise AssertionError(f"reads: hybrid at R = {len(axis)} off: {stats}")
-        say(f"[reads] {card} | flagship hybrid e2e at R = {len(axis)} over {axis}: wall"
-            f" {stats['reads_per_s']} reads/s, steady {stats.get('steady_reads_per_s')} reads/s {json.dumps(stats)};"
-            f" launches {json.dumps(counts)}")
+    fidelities = ("hybrid", "fast") if devices[0] != devices[1] else ("hybrid",)
+    for fidelity in fidelities:
+        records, reports = {}, {}
+        for axis in (devices[:1], devices):
+            report_url = os.path.join(WORK, "reads_report.json")
+            reset_launch_counts()
+            stats = run_e2e(paths, out, fidelity=fidelity, threads=threads, batch_size=BATCH, device="cuda",
+                            devices=axis, report_url=report_url)
+            counts = launch_counts()
+            records[len(axis)] = sam_decisions(out)
+            with open(report_url) as stream:
+                reports[len(axis)] = json.load(stream)
+            for name, count in counts.items():
+                total[name] += count
+            if stats["reads"] != N_READS_E2E or stats.get("resolved_fraction", 0.0) > RESOLVED_LIMIT:
+                raise AssertionError(f"reads: {fidelity} at R = {len(axis)} off: {stats}")
+            say(f"[reads] {card} | flagship {fidelity} e2e at R = {len(axis)} over {axis}: wall"
+                f" {stats['reads_per_s']} reads/s, steady {stats.get('steady_reads_per_s')} reads/s"
+                f" {json.dumps(stats)}; launches {json.dumps(counts)}")
+        differ = sum(1 for x, y in zip(records[1], records[2]) if x != y)
+        if differ or len(records[1]) != len(records[2]):
+            raise AssertionError(f"reads: {differ} {fidelity} records at R = 2 differ from R = 1's")
+        report_apart(f"reads: {fidelity} at R = 2", reports[2], reports[1])
+        say(f"[reads] {card} | {fidelity} records at R = 2 over {devices} identical to R = 1 on {N_READS_E2E}"
+            " reads; the report's integers equal, its floats within rtol 1e-6")
     os.unlink(out)
-    if records[1] != records[2]:
-        raise AssertionError("reads: the hybrid records at R = 2 differ from R = 1's")
-    say(f"[reads] {card} | hybrid records at R = 2 identical to R = 1 on {N_READS_E2E} reads")
 
     for count in (1, 2):
         row = multichip_bench.run_device_step(count, N_KERNEL, reps=20)
@@ -2207,10 +2248,11 @@ def reads(card: str, threads: int, whitelist: Whitelist, decided) -> dict:
 
 def multi_card_rates(card: str, threads: int):
     """On a host with two or more cards: multichip_bench's device step on
-    the whitelist (K7 over R cards, one batch of N_KERNEL reads from the
-    first card, 3 calls) and its e2e line for the whitelist fast, 4
-    batches of BATCH reads, each at R = 1 and R = 2 (and 4 where there are
-    four cards): the rate of the device-bound path over several cards."""
+    the whitelist (K7 over R cards, N_KERNEL reads from pinned host rows
+    to pinned host buffers, as the engine runs it; 3 calls) and its e2e
+    line for the whitelist fast, MULTI_CARD_BATCHES batches of BATCH
+    reads, each at R = 1 and R = 2 (and 4 where there are four cards):
+    the rate of the device-bound path over several cards."""
     import torch
 
     from pheniqs_tpu_torch.tools import multichip_bench
@@ -2221,10 +2263,11 @@ def multi_card_rates(card: str, threads: int):
         if row["n_devices"] != count or row["round_robin"] or not row["step_ms_median"] > 0:
             raise AssertionError(f"multichip_bench --device-step whitelist at R = {count}: {row}")
         say(f"[reads] {card} | multichip_bench {json.dumps(row)}")
+    reads = MULTI_CARD_BATCHES * BATCH
     for count in (1, 2, 4) if cards >= 4 else (1, 2):
-        row = multichip_bench.run_bench(reads=4 * BATCH, batch_size=BATCH, threads=threads, fidelity="fast",
+        row = multichip_bench.run_bench(reads=reads, batch_size=BATCH, threads=threads, fidelity="fast",
                                         bench_dir=WORK, devices=count, path="whitelist")
-        if row["devices_per_host"] != count or row["reads"] != 4 * BATCH:
+        if row["devices_per_host"] != count or row["reads"] != reads:
             raise AssertionError(f"multichip_bench whitelist fast at R = {count}: {row}")
         say(f"[reads] {card} | multichip_bench {json.dumps(row)}")
 
@@ -2242,8 +2285,10 @@ def standalone_check():
 def nccl_only(card: str, threads: int) -> int:
     """--nccl: on a host with two or more cards, the PHENIQS_TP run over
     NCCL (2 ranks, and 4 where there are four cards) against its strict
-    reference, then the reads axis's multi-card rates (multi_card_rates),
-    and nothing else."""
+    reference, then the reads phase over cuda:0 and cuda:1 (reads: the
+    three instruments' ShardedDecodeStep against one card, the engine
+    against strict and R = 2 against R = 1, multi_card_rates), and nothing
+    else."""
     import torch
 
     from pheniqs_tpu_torch.device.flagship import flagship_ontology
@@ -2255,7 +2300,8 @@ def nccl_only(card: str, threads: int) -> int:
                                             N_K7_DECISIONS, threads, keep_strict=True)
     for ranks in (2, 4) if cards >= 4 else (2,):
         tp_run(card, paths, strict_sam, threads, ranks=ranks, nccl=True)
-    multi_card_rates(card, threads)
+    decided = decisions_vs_strict("flagship", flagship_ontology(), N_K7_DECISIONS, threads, keep_strict=True)
+    reads(card, threads, Whitelist(), decided)
     return 0
 
 
@@ -2520,7 +2566,8 @@ def kernel_times(card: str, tree: str):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on the GPU.")
-    parser.add_argument("--nccl", action="store_true", help="only the PHENIQS_TP run over NCCL (>= 2 cards)")
+    parser.add_argument("--nccl", action="store_true",
+                        help="only the PHENIQS_TP run over NCCL and the reads phase over two cards (>= 2 cards)")
     parser.add_argument("--times", metavar="TREE",
                         help="only time the tile loop (kernel_times), the package imported from TREE")
     args = parser.parse_args()

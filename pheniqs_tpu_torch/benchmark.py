@@ -266,6 +266,7 @@ def run_e2e(
     device="cuda",
     ontology: dict | None = None,
     devices=None,
+    report_url: str | None = None,
 ) -> dict:
     """Run the end-to-end engine over `paths` with the decoders of
     `ontology` (the flagship's by default), returning throughput stats
@@ -274,7 +275,8 @@ def run_e2e(
     reads the hybrid engine re-resolved in f64, and ``devices``: the
     slices a device engine cut each batch into (0 for strict).
     ``devices`` is a count, the ontology's ``"devices"`` cap on the local
-    cards, or a list of devices (cards may repeat). Under ``PHENIQS_TP`` every
+    cards, or a list of devices (cards may repeat). ``report_url`` names a
+    file to write the run's report to as JSON. Under ``PHENIQS_TP`` every
     rank calls it: rank 0 runs the engine, a follower rank follows rank 0's
     device steps (device/tp.py) and returns None."""
     from .device.distributed import is_leader
@@ -295,6 +297,9 @@ def run_e2e(
     engine.execute(batch_size=batch_size)
     wall = time.perf_counter() - start
     report = engine.finalize_report()
+    if report_url is not None:
+        with open(report_url, "w") as stream:
+            json.dump(report, stream)
 
     timeline = engine.timeline
     total_reads = timeline[-1][1] if timeline else 0

@@ -39,7 +39,7 @@ import torch
 from torch import nn
 
 from ..kernels import Decisions
-from ..kernels.counters import counters, counters_plain
+from ..kernels.counters import counters, counters_plain, row_slices
 from ..kernels.mdd import mdd_classify, mdd_classify_plain
 from ..kernels.pack import pack_outputs, pack_outputs_plain
 from ..kernels.pamld import pamld_classify, pamld_classify_plain, pamld_classify_sharded
@@ -205,13 +205,29 @@ def pad_rows(blob, multiple: int):
     return torch.cat([blob, rows])
 
 
+def slice_sum(counters):
+    """The counter vector of a batch from its slices' rows of `counters`
+    ((R, L), any float type): added in float64 in slice order, so the
+    bytes do not depend on which card finished first."""
+    total = counters[0].to(torch.float64, copy=True)
+    for row in counters[1:]:
+        total += row
+    return total
+
+
 class ShardedDecodeStep:
     """The decode step data parallel over the reads: slice r of a batch
     runs through its own ``DecodeStep`` on the device of ``instruments[r]``
     (``instrument.instruments_on``: cards may repeat, and two slices on one
     card run on two streams). One host thread enqueues every slice back to
-    back, each on its card's stream, so the cards run together. With one
-    instrument it is that instrument's DecodeStep, with nothing added."""
+    back, each on its card's stream, so the cards run together.
+
+    ``upload`` and ``launch`` are the one split, decode and gather that
+    every caller runs: the engine from its pinned staging rows into pinned
+    host buffers, ``forward`` from a tensor on any device into tensors on
+    that device, multichip_bench's device step as the engine does. With
+    one instrument ``forward`` is that instrument's DecodeStep, with
+    nothing added."""
 
     def __init__(self, instruments: list[DeviceInstrument], widths: list[int], qual_bits=6,
                  want_uncertain: bool = True):
@@ -227,6 +243,11 @@ class ShardedDecodeStep:
         self.streams = [
             torch.cuda.Stream(device) if sharded and device.type == "cuda" else None for device in self.devices
         ]
+        #: bytes of one row of the decision blob, entries of the counter vector
+        self.total = wire.d2h_layout(instruments[0], want_uncertain)["total"]
+        self.length = sum(size for _, _, size in wire.counter_layout(instruments[0]))
+        #: slice -> ((ccb, qcb) as given, (ccb, qcb) on the slice's card)
+        self._books: dict = {}
 
     @property
     def size(self) -> int:
@@ -250,43 +271,87 @@ class ShardedDecodeStep:
         with torch.cuda.device(self.devices[r]), torch.cuda.stream(stream):
             yield
 
+    def _mark(self, r: int, events: list):
+        """An event on slice r's current stream, added to `events` (nothing
+        on the CPU)."""
+        if self.devices[r].type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.devices[r]))
+            events.append(event)
+
+    def _codebooks(self, r: int, ccb, qcb):
+        """(ccb, qcb) on slice r's card, placed once for the books given."""
+        placed = self._books.get(r)
+        if placed is None or placed[0][0] is not ccb or placed[0][1] is not qcb:
+            placed = ((ccb, qcb), tuple(None if t is None else t.to(self.devices[r]) for t in (ccb, qcb)))
+            self._books[r] = placed
+        return placed[1]
+
+    def upload(self, rows):
+        """Slice r of `rows` (a multiple of the slice count: pad_rows) on
+        card r, copied on its card's stream, non-blocking from pinned host
+        rows: (pieces, events), one event a card after its copy (none on
+        the CPU), after which `rows` may be rewritten."""
+        source = torch.cuda.current_stream(rows.device) if rows.is_cuda else None
+        pieces, events = [], []
+        for r, (start, stop) in enumerate(self.bounds(rows.shape[0])):
+            stream = self.streams[r]
+            with self.on(r):
+                if stream is not None and source is not None:
+                    stream.wait_stream(source)
+                pieces.append(rows[start:stop].to(self.devices[r], non_blocking=True))
+                if stream is not None and pieces[-1].device == rows.device:
+                    rows.record_stream(stream)  # read on this stream after the caller lets go
+                self._mark(r, events)
+        return pieces, events
+
+    def launch(self, pieces, ccb=None, qcb=None, to="cpu"):
+        """Decode each slice of `upload` on its card and copy its decisions
+        into its rows of one blob on `to`, its counters into its row of an
+        (R, L) array there (f32, or float64 where K4 sums a slice in row
+        slices), both pinned on the host when the cards are CUDA: (blob,
+        counters, events), one event a card after its copies (none on the
+        CPU). Read them once every event has completed; slice_sum gives
+        the batch's counter vector."""
+        to = torch.device(to)
+        pin = to.type == "cpu" and self.devices[0].type == "cuda"
+        rows = sum(piece.shape[0] for piece in pieces)
+        wide = len(row_slices(self.steps[0].instrument, pieces[0].shape[0])) > 1
+        blob = torch.empty(rows * self.total, dtype=torch.uint8, device=to, pin_memory=pin)
+        counters = torch.empty((self.size, self.length), dtype=torch.float64 if wide else torch.float32,
+                               device=to, pin_memory=pin)
+        # the outputs' memory on a card: free of the target stream's work
+        target = torch.cuda.current_stream(to) if to.type == "cuda" else None
+        events, start = [], 0
+        for r, piece in enumerate(pieces):
+            stop = start + piece.shape[0]
+            with self.on(r):
+                if target is not None and self.streams[r] is not None:
+                    self.streams[r].wait_stream(target)
+                out, flat = self.steps[r](piece, *self._codebooks(r, ccb, qcb))
+                blob[start * self.total : stop * self.total].copy_(out, non_blocking=True)
+                counters[r].copy_(flat, non_blocking=True)
+                self._mark(r, events)
+            start = stop
+        return blob, counters, events
+
     def __call__(self, blob, ccb=None, qcb=None):
         return self.forward(blob, ccb, qcb)
 
     def forward(self, blob, ccb=None, qcb=None):
         """(blob_out, counters) of one batch, `blob` on any device: padded
-        to a multiple of the slice count (pad_rows), cut into slices, each
-        run on its card, then the decision blobs concatenated in slice order
-        (the padding rows' cut off: the bytes one DecodeStep gives) and the
-        counters added in float64 in slice order, both on `blob`'s device."""
+        to a multiple of the slice count (pad_rows), then upload and launch
+        into tensors on `blob`'s device, which its current stream waits
+        for; the padding rows' decisions cut off (the bytes one DecodeStep
+        gives) and the counters added in float64 in slice order."""
         if self.size == 1:
             return self.steps[0](blob, ccb, qcb)
         n = blob.shape[0]
-        padded = pad_rows(blob, self.size)
-        source = torch.cuda.current_stream(blob.device) if blob.is_cuda else None
-        outputs = []
-        for r, (start, stop) in enumerate(self.bounds(padded.shape[0])):
-            device, stream = self.devices[r], self.streams[r]
-            if stream is not None and source is not None:
-                stream.wait_stream(source)
-            with self.on(r):
-                piece = padded[start:stop].to(device, non_blocking=True)
-                if stream is not None and piece.device == padded.device:
-                    padded.record_stream(stream)  # read on this stream after the caller lets go
-                books = [None if t is None else t.to(device, non_blocking=True) for t in (ccb, qcb)]
-                outputs.append(self.steps[r](piece, *books))
-        blobs, total = [], None
-        for r, (out_blob, flat) in enumerate(outputs):
-            stream = self.streams[r]
-            if stream is not None:
-                # copies out of a card run on its current stream and the target's
-                for waiting in (torch.cuda.current_stream(self.devices[r]), source):
-                    if waiting is not None:
-                        waiting.wait_stream(stream)
-                for tensor in (out_blob, flat):
-                    tensor.record_stream(torch.cuda.current_stream(self.devices[r]))
-            blobs.append(out_blob.to(blob.device))
-            part = flat.to(blob.device, torch.float64)
-            total = part if total is None else total + part
-        out = torch.cat(blobs)
-        return out[: n * (out.numel() // padded.shape[0])], total
+        pieces, _ = self.upload(pad_rows(blob, self.size))
+        out, counters, events = self.launch(pieces, ccb, qcb, to=blob.device)
+        for event in events:
+            if blob.is_cuda:
+                torch.cuda.current_stream(blob.device).wait_event(event)
+            else:
+                event.synchronize()
+        return out[: n * self.total], slice_sum(counters)

@@ -21,11 +21,11 @@ NumPy decisions through shared memory only.
 Data parallel over the reads: with more than one device (every local
 card for ``device="cuda"``, capped by the ontology's ``"devices"``, or an
 explicit ``devices=[...]``) each batch's staging buffer is cut into
-contiguous slices, one per card; each slice is copied up, decoded
-(``device/step.py:ShardedDecodeStep``) and pulled back into its rows of
-one pinned buffer on its card's stream, with one event per card for the
-staging buffer and one for the results. The counters of the slices add in
-float64 in slice order.
+contiguous slices, one per card; ``device/step.py:ShardedDecodeStep``'s
+upload and launch copy each slice up, decode it and pull it back into its
+rows of one pinned buffer on its card's stream, with one event per card
+for the staging buffer and one for the results, on the CPU as on CUDA.
+The counters of the slices add in float64 in slice order.
 
 ``PHENIQS_TP="1:P"`` (device/distributed.py) runs this engine on rank 0
 of P: its instrument is compiled on the CPU and shared with the follower
@@ -47,7 +47,7 @@ from ..decode.oracle import BRANCH_PASS, ClassifyResult, mdd_classify, pamld_cla
 from ..device import wire
 from ..device.distributed import panel_group, reads_devices, tp_shape
 from ..device.instrument import compile_instrument, instruments_on, resolve_device
-from ..device.step import DecodeStep, ShardedDecodeStep
+from ..device.step import DecodeStep, ShardedDecodeStep, slice_sum
 from ..kernels import check_kernel_limits
 from ..model.batch import ReadBatch
 from ..transform import SegmentBatch
@@ -56,18 +56,6 @@ from .strict import ClassifierRuntime, StrictEngine
 
 def _round_up(value: int, multiple: int) -> int:
     return -(-value // multiple) * multiple
-
-
-def _slice_sum(parts):
-    """The counter vector of a batch: one tensor as it is, a list of the
-    slices' added in float64 in slice order (so the bytes do not depend on
-    which card finished first)."""
-    if not isinstance(parts, list):
-        return parts.numpy()
-    total = parts[0].numpy().astype(np.float64)
-    for part in parts[1:]:
-        total = total + part.numpy()
-    return total
 
 
 class TorchDeviceEngine(StrictEngine):
@@ -125,8 +113,6 @@ class TorchDeviceEngine(StrictEngine):
         self._runtimes.extend(self.molecular)
         self._runtimes.extend(self.cellular)
         self._step_cache: dict[tuple, DecodeStep | ShardedDecodeStep] = {}
-        #: device -> (ccb, qcb) on it, for the slices of a sharded step
-        self._codebooks: dict = {}
         self._pad_bucket: int | None = None
         self._width_buckets: list[int] | None = None
         self._current_batch: ReadBatch | None = None
@@ -225,14 +211,14 @@ class TorchDeviceEngine(StrictEngine):
                     f"{sorted(set(int(x) for x in qcb))}\n"
                 )
 
-    def _wire_batch(self, device_blob):
-        """(blob, ccb, qcb): the step's arguments for one device blob, with
-        the codebooks placed on the device once."""
+    def _codebooks(self):
+        """(ccb, qcb) of the sensed wire, placed on the device once (a
+        sharded step places them on its other cards once)."""
         if self._qcb is not None and self._qcb_device is None:
             self._qcb_device = torch.from_numpy(self._qcb).to(self.device)
             if self._ccb is not None:
                 self._ccb_device = torch.from_numpy(self._ccb).to(self.device)
-        return device_blob, self._ccb_device, self._qcb_device
+        return self._ccb_device, self._qcb_device
 
     def _pack_batch(self, batch: ReadBatch):
         """Pack the batch into a staging wire blob at a stable shape
@@ -312,25 +298,29 @@ class TorchDeviceEngine(StrictEngine):
 
     def _dispatch(self, batch, packed=None):
         """Start one batch on the device: (host blob, host counters, [done
-        events]), on CUDA still in flight (None for the events on the CPU);
-        over several cards the counters are a list too, one a card
-        (_dispatch_slices)."""
+        events]), on CUDA still in flight (no events on the CPU); over
+        several devices the counters are one row a slice
+        (ShardedDecodeStep.launch) and the events one a card."""
         if packed is None:
             packed = self._pack_batch(batch)
         signature, blob, key = packed
-        if len(self.devices) > 1 and self.device.type == "cuda":
-            return self._dispatch_slices(signature, key)
+        step = self._get_step(signature)
+        if isinstance(step, ShardedDecodeStep):
+            mark = time.perf_counter()
+            pieces, self._staging_events[key] = step.upload(self._staging[key][0])
+            self._stage_add("h2d", time.perf_counter() - mark)
+            with torch.no_grad():
+                return step.launch(pieces, *self._codebooks())
         mark = time.perf_counter()
         device_blob = self._upload(blob, key)
         self._stage_add("h2d", time.perf_counter() - mark)
-        arguments = self._wire_batch(device_blob)
+        arguments = (device_blob, *self._codebooks())
         if self._panel is not None:
             from ..device.tp import send_batch
 
             mark = time.perf_counter()
             send_batch(self._panel, signature, *arguments)
             self._stage_add("tp_broadcast", time.perf_counter() - mark)
-        step = self._get_step(signature)
         with torch.no_grad():
             out_blob, flat = step(*arguments)
         if self.device.type != "cuda":
@@ -345,48 +335,6 @@ class TorchDeviceEngine(StrictEngine):
         done = torch.cuda.Event()
         done.record()
         return host_blob, host_counters, [done]
-
-    def _dispatch_slices(self, signature, key):
-        """_dispatch over the cards of the reads axis: each card's rows of
-        the pinned staging buffer copied up on its stream (one event a card
-        guards the buffer), its slice decoded there, and its decisions and
-        counters pulled back into its rows of one pinned blob and a pinned
-        vector of its own, each card's pull ending in its own event."""
-        step = self._get_step(signature)
-        pinned = self._staging[key][0]
-        bounds = step.bounds(pinned.shape[0])
-        mark = time.perf_counter()
-        pieces, uploaded = [], []
-        for r, (start, stop) in enumerate(bounds):
-            with step.on(r):
-                pieces.append(pinned[start:stop].to(step.devices[r], non_blocking=True))
-                event = torch.cuda.Event()
-                event.record()
-                uploaded.append(event)
-        self._staging_events[key] = uploaded
-        self._stage_add("h2d", time.perf_counter() - mark)
-        total = wire.d2h_layout(self.instrument, self.hybrid)["total"]
-        host_blob = torch.empty(pinned.shape[0] * total, dtype=torch.uint8, pin_memory=True)
-        host_counters, done = [], []
-        for r, ((start, stop), piece) in enumerate(zip(bounds, pieces)):
-            with step.on(r), torch.no_grad():
-                out_blob, flat = step.steps[r](piece, *self._card_codebooks(step.devices[r]))
-                host_blob[start * total : stop * total].copy_(out_blob, non_blocking=True)
-                counters = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-                counters.copy_(flat, non_blocking=True)
-                host_counters.append(counters)
-                event = torch.cuda.Event()
-                event.record()
-                done.append(event)
-        return host_blob, host_counters, done
-
-    def _card_codebooks(self, device):
-        """(ccb, qcb) of the sensed wire on `device`, placed once."""
-        if device not in self._codebooks:
-            self._codebooks[device] = tuple(
-                None if book is None else torch.from_numpy(book).to(device) for book in (self._ccb, self._qcb)
-            )
-        return self._codebooks[device]
 
     def _classify_batch_on_device(self, batch: ReadBatch):
         if self._predispatched is not None:
@@ -440,7 +388,9 @@ class TorchDeviceEngine(StrictEngine):
         # into the runtime accumulators (the reference's thread-local
         # collect, transcode.cpp:317-320); hybrid-uncertain rows were
         # excluded on device and are recorded host-side from the oracle
-        self._merge_device_counters(_slice_sum(host_counters))
+        if host_counters.dim() == 2:
+            host_counters = slice_sum(host_counters)
+        self._merge_device_counters(host_counters.numpy())
         if self.hybrid:
             uncertain = blob[:, layout["uncertain_offset"]].astype(bool)
             self._batch_rows = np.flatnonzero(uncertain)

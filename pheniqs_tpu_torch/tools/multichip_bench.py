@@ -22,7 +22,9 @@ with the whole scale-out engaged:
     gloo and summed in rank order (its wall the longest host's).
 
 ``--device-step`` times ShardedDecodeStep alone on a fixed flagship batch
-(CUDA events on the first card; the host clock on the CPU). On a host with
+as the engine drives it, from pinned host rows to pinned host buffers
+(CUDA events on each slice's stream, the longest slice's time; the host
+clock on the CPU). On a host with
 fewer cards than asked for, the slices are placed on its cards round-robin
 and the JSON line says so. ``--scaling`` runs it at 1 and at R slices and
 reports ``partition_efficiency`` = t(1) / t(R). ``--virtual D`` runs D
@@ -116,13 +118,16 @@ def _kind(device) -> str:
 
 def run_device_step(n_devices: int, reads: int, reps: int = 5, device="cuda", path: str = "flagship") -> dict:
     """Time ShardedDecodeStep over `n_devices` slices on a FIXED total
-    workload (the scaling probe's inner body): `reads` flagship reads on
-    the j4 wire the hybrid engine ships, resident on the first card,
-    padded and cut as the engine cuts them. The slices go to this host's
-    devices (``reads_devices(device)``), round-robin where it has fewer.
-    Returns the median step time over `reps` calls after a warm-up call:
-    CUDA events on the first card (from before the first slice is cut to
-    after the last is gathered), the host clock on the CPU."""
+    workload (the scaling probe's inner body) as the engine runs it:
+    `reads` flagship reads on the j4 wire the hybrid engine ships, in
+    pinned host rows padded to a multiple of the slices, each slice copied
+    to its card, decoded there and its decisions and counters pulled back
+    into pinned host buffers (``upload`` then ``launch``). The slices go
+    to this host's devices (``reads_devices(device)``), round-robin where
+    it has fewer. Returns the median step time over `reps` calls after a
+    warm-up call: on CUDA the longest slice's, from an event on each
+    slice's stream before the first copy is enqueued to one after its
+    pull; the host clock on the CPU."""
     import numpy as np
     import torch
 
@@ -130,7 +135,7 @@ def run_device_step(n_devices: int, reads: int, reps: int = 5, device="cuda", pa
     from ..device import wire
     from ..device.distributed import reads_devices
     from ..device.instrument import compile_instrument, instruments_on
-    from ..device.step import ShardedDecodeStep
+    from ..device.step import ShardedDecodeStep, pad_rows
     from .profile_step import WIDTHS, wire_blob
 
     local = reads_devices(device)
@@ -144,26 +149,37 @@ def run_device_step(n_devices: int, reads: int, reps: int = 5, device="cuda", pa
         # batch n-fold, so every slice is the WHOLE workload: the
         # replication regression the scaling gate exists to catch
         blob = np.concatenate([blob] * n_devices)
-    blob, ccb, qcb = (torch.from_numpy(x).to(placement[0]) for x in (blob, ccb, qcb))
-    padded = -(-blob.shape[0] // n_devices) * n_devices
     cuda = placement[0].type == "cuda"
+    rows = pad_rows(torch.from_numpy(blob), n_devices)
+    if cuda:
+        rows = rows.pin_memory()
+    ccb, qcb = (torch.from_numpy(x).to(placement[0]) for x in (ccb, qcb))
 
     def call():
         with torch.no_grad():
-            return step(blob, ccb, qcb)
+            pieces, _ = step.upload(rows)
+            return step.launch(pieces, ccb, qcb)
+
+    def marks() -> list:
+        events = []
+        for r in range(step.size):
+            with step.on(r):
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record(torch.cuda.current_stream(step.devices[r]))
+        return events
 
     call()  # build, first launches, allocator
     walls = []
     for _ in range(reps):
         if cuda:
-            with torch.cuda.device(placement[0]):  # both events on the first card's stream
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                call()
-                end.record()
-            end.synchronize()
-            walls.append(start.elapsed_time(end) / 1e3)
+            for card in set(step.devices):
+                torch.cuda.synchronize(card)
+            starts = marks()
+            call()
+            ends = marks()
+            for end in ends:
+                end.synchronize()
+            walls.append(max(a.elapsed_time(b) for a, b in zip(starts, ends)) / 1e3)
         else:
             mark = time.perf_counter()
             call()
@@ -178,12 +194,12 @@ def run_device_step(n_devices: int, reads: int, reps: int = 5, device="cuda", pa
         "placement": (f"{n_devices} slices on {len(local)} device(s) round-robin" if len(local) < n_devices
                       else f"one slice a device over {n_devices}"),
         "reads": reads,
-        "reads_per_device_shard": padded // n_devices,
+        "reads_per_device_shard": rows.shape[0] // n_devices,
         "step_ms_median": round(median * 1e3, 4),
         "step_ms_all": [round(w * 1e3, 4) for w in walls],
         "reads_per_s": round(reads / median, 1),
         "reps": reps,
-        "timer": "cuda events" if cuda else "host clock",
+        "timer": "cuda events, longest slice, host rows to host buffers" if cuda else "host clock",
         "kind": _kind(placement[0]),
     }
 

@@ -131,60 +131,92 @@ def event_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: the port's kernel symbols (csrc/*.cu) that each group of the wrappers'
+#: launch counts (kernels.launch_counts) puts on the card: one or more a
+#: counted launch (K1/K7/K8 count one a kernel of a shared tile loop)
+KERNEL_SYMBOLS = (
+    (("unpack_tokens",), ("phq_unpack_kernel",)),
+    (("pamld_classify", "pamld_chunked", "pamld_panel_sharded"), ("phq_pamld_kernel", "phq_pamld_merge_kernel")),
+    (("mdd_classify",), ("phq_mdd_kernel",)),
+    (("counters",), ("phq_counters_accumulate",)),
+    (("pack_outputs",), ("phq_pack_kernel",)),
+)
+
+
 def kernel_events(prof) -> collections.Counter:
-    """{name: count} of the CUDA kernels in a torch.profiler trace: its
+    """{symbol: count} of the CUDA kernels in a torch.profiler trace (the
+    function name of each, without "void", arguments or template): its
     device activities less memsets and copies, which no wrapper counts."""
     from torch.autograd import DeviceType
 
     return collections.Counter(
-        e.name for e in prof.events()
+        e.name.split("(")[0].split("<")[0].split()[-1] for e in prof.events()
         if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memset", "Memcpy"))
     )
 
 
+def short_kernels(launched: dict, traced: collections.Counter) -> dict:
+    """{kernels: (launched, traced)} of each group of KERNEL_SYMBOLS whose
+    kernels the trace holds fewer times than its wrappers launched them:
+    a trace that dropped some of them, whatever else it holds."""
+    short = {}
+    for names, symbols in KERNEL_SYMBOLS:
+        want = sum(launched.get(name, 0) for name in names)
+        have = sum(traced[symbol] for symbol in symbols)
+        if have < want:
+            short["+".join(names)] = (want, have)
+    return short
+
+
 def profiled(fn, calls: int, tries: int = 2):
-    """(trace, launched, traced) of the first of `tries` torch.profiler
-    traces of `calls` calls of `fn` that holds every kernel launch the
-    port's wrappers counted (``kernels.launch_counts`` before and after):
-    a trace with fewer kernel events than that dropped some. Every wrapper
-    launch puts at least one kernel on the card, so a whole trace holds at
-    least as many. When each try is short, the trace is None and
-    (launched, traced) are the last try's counts."""
+    """(trace, short) of the first of `tries` torch.profiler traces of
+    `calls` calls of `fn` that holds every kernel launch the port's
+    wrappers counted (``kernels.launch_counts`` before and after), each
+    wrapper's kernels held apart (short_kernels): a trace with fewer of a
+    wrapper's kernels than it launched dropped some. When each try is
+    short, the trace is None and `short` the last try's {kernels:
+    (launched, traced)}."""
     from torch.profiler import ProfilerActivity, profile
 
     from ..kernels import launch_counts
 
-    launched = traced = 0
+    short = {}
     for _ in range(tries):
-        before = sum(launch_counts().values())
+        before = launch_counts()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        launched = sum(launch_counts().values()) - before
-        traced = sum(kernel_events(prof).values())
-        if traced >= launched:
-            return prof, launched, traced
-    return None, launched, traced
+        launched = {name: count - before[name] for name, count in launch_counts().items()}
+        short = short_kernels(launched, kernel_events(prof))
+        if not short:
+            return prof, short
+    return None, short
+
+
+def _counts(short: dict) -> str:
+    return ", ".join(f"{names}: {have} in the trace, {want} launched" for names, (want, have) in short.items())
 
 
 def device_ms(fn, reps: int = 10) -> float:
     """Device milliseconds per call of `fn`: the summed time of the CUDA
     kernels and copies it launched, from torch.profiler over `reps` calls
     (host launch overhead between them is not counted). A trace that holds
-    fewer kernel events than the wrappers launched, or no device time, is
-    taken again (profiled); after a second such try the time comes from
-    CUDA events (event_ms, launch gaps included) and a line on standard
-    error gives both counts."""
+    fewer of a wrapper's kernels than it launched (profiled) is taken
+    again; after a second such try, or a trace with no device time, the
+    time comes from CUDA events (event_ms, launch gaps included) and a
+    line on standard error gives the counts."""
     fn()
     torch.cuda.synchronize()
-    prof, launched, traced = profiled(fn, reps)
+    prof, short = profiled(fn, reps)
     if prof is not None:
         device_us = sum(e.self_device_time_total for e in prof.key_averages())
         if device_us > 0:
             return device_us / 1000.0 / reps
-    print(f"[profile_step] torch.profiler held {traced} kernel events and no whole trace of the {launched}"
-          " launches the kernels counted, twice: timed with CUDA events", file=sys.stderr, flush=True)
+        why = "no device time"
+    else:
+        why = f"no whole trace of the kernels' launches, twice ({_counts(short)})"
+    print(f"[profile_step] torch.profiler held {why}: timed with CUDA events", file=sys.stderr, flush=True)
     return event_ms(fn, reps)
 
 
@@ -192,16 +224,16 @@ def device_launches(fn, tries: int = 2) -> dict:
     """{name: count} of the device activities (kernels, memsets, copies)
     one call of `fn` puts on the card, from torch.profiler after a warm-up
     call. The profiler now and then drops a call's activities: a trace
-    with fewer kernel events than the wrappers launched is taken again, up
+    with fewer of a wrapper's kernels than it launched is taken again, up
     to `tries` times, and then refused (RuntimeError, with both counts)."""
     from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
-    prof, launched, traced = profiled(fn, 1, tries)
+    prof, short = profiled(fn, 1, tries)
     if prof is None:
-        raise RuntimeError(f"torch.profiler dropped kernel events in {tries} tries: {traced} in the trace,"
-                           f" {launched} launched by the kernels' wrappers")
+        raise RuntimeError(f"torch.profiler dropped kernel events in {tries} tries: {_counts(short)}"
+                           " by the kernels' wrappers")
     return dict(collections.Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA))
 
 

@@ -49,7 +49,7 @@ from pheniqs_tpu_torch.device import wire
 from pheniqs_tpu_torch.device.distributed import host_batch_slices, initialize_multihost, reads_devices
 from pheniqs_tpu_torch.device.flagship import flagship_ontology, mdd_flagship_ontology
 from pheniqs_tpu_torch.device.instrument import carry_instrument, compile_instrument, instruments_on
-from pheniqs_tpu_torch.device.step import DecodeStep, ShardedDecodeStep, pad_rows
+from pheniqs_tpu_torch.device.step import DecodeStep, ShardedDecodeStep, pad_rows, slice_sum
 from pheniqs_tpu_torch.tools.profile_step import WIDTHS, wire_blob
 from test_device_classify import make_pamld_ontology, random_panel, simulate_reads
 from test_hybrid import decisions
@@ -340,6 +340,39 @@ def test_engine_slices_fast_equals_one_device(flagship_input, tmp_path, slices):
     assert len(_records(one)) == 3000
     assert _records(many) == _records(one)
     _report_apart(many_report, one_report)
+
+
+def test_engine_slices_run_upload_and_launch(flagship_input, tmp_path, monkeypatch):
+    """The engine over slices decodes each batch through the one split,
+    decode and gather of ShardedDecodeStep (upload, then launch), the
+    methods that forward and multichip_bench drive: one of each a batch,
+    the staging rows cut into the slices' rows, and the report that of one
+    device (floats within rtol 1e-6)."""
+    paths, base = flagship_input
+    calls = []
+    for name in ("upload", "launch"):
+        original = getattr(ShardedDecodeStep, name)
+
+        def counted(self, pieces, *args, _name=name, _original=original, **kwargs):
+            rows = [pieces.shape[0]] if _name == "upload" else [piece.shape[0] for piece in pieces]
+            calls.append((_name, rows))
+            return _original(self, pieces, *args, **kwargs)
+
+        monkeypatch.setattr(ShardedDecodeStep, name, counted)
+    _, report, _ = _run(paths, base, tmp_path / "many.sam", "hybrid", ["cpu"] * 2)
+    assert calls == [("upload", [1024]), ("launch", [512, 512])] * 3  # 3000 reads, batches of 1024
+    monkeypatch.undo()
+    _, one_report, _ = _run(paths, base, tmp_path / "one.sam", "hybrid")
+    _report_apart(report, one_report)
+
+
+def test_slice_sum_adds_in_slice_order():
+    """slice_sum: float64, the rows added in order, the input untouched."""
+    rows = torch.tensor([[1.0, 2.0**-30], [2.0**24, 1.0], [3.0, 2.0**-30]], dtype=torch.float32)
+    total = slice_sum(rows)
+    assert total.dtype == torch.float64
+    assert total.tolist() == [1.0 + 2.0**24 + 3.0, 2.0**-30 + 1.0 + 2.0**-30]
+    assert rows[0].tolist() == [1.0, 2.0**-30]
 
 
 def test_engine_devices_key_caps_the_slices(flagship_input, tmp_path):

@@ -16,8 +16,8 @@ chunked path (decisions exact and confidences rtol 1e-5 on settled rows);
 device step over CPU slices, the scaling gate read on the work partition
 (each slice's rows; no wall-clock comparison on cores that xdist workers
 share), the e2e line over two CPU slices. profile_step's device_ms and
-device_launches against a stub profiler: a trace holding fewer kernel
-events than the wrappers counted is taken again, then refused (launches)
+device_launches against a stub profiler: a trace holding fewer of a
+wrapper's kernels than it counted is taken again, then refused (launches)
 or replaced by CUDA events (time). Each tool refuses ``cuda`` on a machine
 without one."""
 
@@ -341,17 +341,27 @@ def _launching():
     pack.launches += 1
 
 
-def test_device_launches_refuses_a_short_trace(monkeypatch):
-    """Two traces with one kernel event for two counted launches (a memset
-    and a copy do not count as kernels): device_launches raises with both
-    counts; a whole second trace is taken instead."""
-    short = ["unpack_kernel", "Memset (Device)", "Memcpy DtoH (Device -> Pinned)"]
+UNPACK = "phq_unpack_kernel(unsigned char const*, int, int)"
+PACK = "void phq_pack_kernel<4>(int, int, unsigned int)"
+TORCH = "void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>(int)"
+
+
+@pytest.mark.parametrize("dropped", ["a kernel", "a wrapper's kernel beside a torch kernel"])
+def test_device_launches_refuses_a_short_trace(monkeypatch, dropped):
+    """Two traces that miss K5's kernel for its counted launch (a memset
+    and a copy do not count as kernels, and neither does a kernel torch
+    launches itself, so a trace as long as the count may still be short):
+    device_launches raises with both counts; a whole second trace is taken
+    instead."""
+    short = [UNPACK, "Memset (Device)", "Memcpy DtoH (Device -> Pinned)"]
+    if dropped != "a kernel":
+        short.append(TORCH)
     _stub_profiler(monkeypatch, [_Trace(short), _Trace(short)])
-    with pytest.raises(RuntimeError, match="1 in the trace, 2 launched"):
+    with pytest.raises(RuntimeError, match="pack_outputs: 0 in the trace, 1 launched"):
         profile_step.device_launches(_launching)
-    whole = ["unpack_kernel", "Memset (Device)", "pack_kernel"]
+    whole = [UNPACK, "Memset (Device)", PACK]
     queue = _stub_profiler(monkeypatch, [_Trace(short), _Trace(whole)])
-    assert profile_step.device_launches(_launching) == {"unpack_kernel": 1, "Memset (Device)": 1, "pack_kernel": 1}
+    assert profile_step.device_launches(_launching) == {UNPACK: 1, "Memset (Device)": 1, PACK: 1}
     assert not queue
 
 
@@ -359,10 +369,10 @@ def test_device_ms_falls_back_on_a_short_trace(monkeypatch, capsys):
     """device_ms gives no reading from a short trace: after two it times
     with CUDA events and says so with both counts; a whole trace gives its
     device time per call."""
-    short = _Trace(["unpack_kernel"] * 3, device_us=50.0)  # 3 kernels for 4 calls x 2 launches
+    short = _Trace([UNPACK] * 4 + [PACK] * 3 + [TORCH], device_us=50.0)  # K5 3 times for 4 calls
     _stub_profiler(monkeypatch, [short, short])
     monkeypatch.setattr(profile_step, "event_ms", lambda fn, reps: 7.5)
     assert profile_step.device_ms(_launching, reps=4) == 7.5
-    assert "3 kernel events and no whole trace of the 8 launches" in capsys.readouterr().err
-    _stub_profiler(monkeypatch, [short, _Trace(["unpack_kernel", "pack_kernel"] * 4, device_us=2000.0)])
+    assert "pack_outputs: 3 in the trace, 4 launched" in capsys.readouterr().err
+    _stub_profiler(monkeypatch, [short, _Trace([UNPACK, PACK] * 4, device_us=2000.0)])
     assert profile_step.device_ms(_launching, reps=4) == 0.5
