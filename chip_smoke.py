@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --nccl     # on a host with >= 2 cards: only the
-                                     # PHENIQS_TP run over NCCL and its strict
-                                     # reference, and the reads phase over
+                                     # PHENIQS_TP runs over NCCL (1:2; 1:4 and
+                                     # the 2:2 grid on four cards) and their
+                                     # strict reference, and the reads phase over
                                      # cuda:0 and cuda:1 with multichip_bench's
                                      # whitelist rates over 1, 2 (and 4) cards
     python3 chip_smoke.py --times T  # only the tile loop's, K3's, K6's,
@@ -22,8 +23,9 @@ barcodes, PAMLD 384 cell barcodes, naive UMI), the MDD flagship (its sample
 decoder MDD at distance tolerance [1, 1]), the whitelist flagship (its
 cellular panel a 737,280-barcode 16 nt whitelist) and the panel-sharded
 path (PHENIQS_TP=1:2: two ranks, the 4096-barcode cellular panel of a
-flagship variant split between them) and the reads axis (the engine's
-batches cut over two slices, ShardedDecodeStep). Phases, each printing its own lines;
+flagship variant split between them; the 2:2 grid, four ranks, its reads
+split over two rows too) and the reads axis (the engine's batches cut
+over two slices, ShardedDecodeStep). Phases, each printing its own lines;
 any failure propagates and the exit code is not 0:
 
   1. environment  a CUDA GPU is present; its name and power limit
@@ -94,6 +96,22 @@ any failure propagates and the exit code is not 0:
                   strict run of phase 4; each rank's launch counts (set to
                   0 just before) and backend; on a host with two cards the
                   same run over NCCL
+  6b. grid        the (reads, panel) grid: PHENIQS_TP=2:2 as four processes
+                  sharing the card (gloo), hybrid on the same 20k reads,
+                  identical to strict, each role's launches (rank 0 and the
+                  other row's leader: K3, K1, K8, K4, K5; the followers: K3,
+                  K8), the report that of the 1:2 run (integers exact,
+                  floats within rtol 1e-6); the whitelist fast on two
+                  batches of 131072 at 2:2 against the 1:2 decode of the
+                  same batches (rank 0's instrument, both shards in one
+                  step on the card): each batch's decision rows byte-equal
+                  where every row's K1/K8 plans are 1:2's, else held by
+                  blob_apart; rank 0's batch seconds beside the 1:2 step's,
+                  each rank's collective seconds, the phase's time
+  6c. prior       the two-pass PAMLD workflow: pass 1 hybrid on 50k flagship
+                  reads writes its report, tools/prior folds the estimated
+                  noise and concentrations into the job, pass 2 hybrid on
+                  the adjusted job identical to strict on it
   7. reads        data parallelism over the reads: ShardedDecodeStep with
                   two slices (two cards where there are two, else two
                   streams on one) against the one-card DecodeStep at
@@ -219,6 +237,7 @@ PATH_KERNELS = {
     "mdd": ("unpack_tokens", "mdd_classify", "pamld_classify", "counters", "pack_outputs"),
     "whitelist": ("unpack_tokens", "pamld_classify", "pamld_chunked", "counters", "pack_outputs"),
     "tp leader": ("unpack_tokens", "pamld_classify", "pamld_panel_sharded", "counters", "pack_outputs"),
+    "tp row leader": ("unpack_tokens", "pamld_classify", "pamld_panel_sharded", "counters", "pack_outputs"),
     "tp follower": ("unpack_tokens", "pamld_panel_sharded"),
 }
 
@@ -1817,93 +1836,336 @@ def throughput(card: str, threads: int, whitelist: Whitelist) -> tuple[dict, lis
 
 
 TP_RANK = r"""
-import json, os, sys
+import json, os, sys, time
+
+import torch
 
 sys.path.insert(0, sys.argv[1])
 from pheniqs_tpu_torch.benchmark import run_e2e
 from pheniqs_tpu_torch.device import tp
-from pheniqs_tpu_torch.device.flagship import flagship_ontology
+from pheniqs_tpu_torch.device.flagship import flagship_ontology, whitelist_flagship_ontology
 from pheniqs_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-paths, out, threads, cellular, batch = json.loads(sys.argv[2])
-ontology = flagship_ontology(cellular_barcodes=cellular)
+paths, out, threads, cellular, batch, fidelity, report, record = json.loads(sys.argv[2])
+ontology = whitelist_flagship_ontology() if cellular == "whitelist" else flagship_ontology(cellular_barcodes=cellular)
+kept = {"signature": [], "wire": [], "blob": [], "batch_s": []}
+if int(os.environ["RANK"]) == 0:
+    # rank 0 times each batch from its dispatch to its decisions on the
+    # host, and keeps its wire rows and decision rows
+    from pheniqs_tpu_torch.engine.device import TorchDeviceEngine
+
+    dispatch, classify = TorchDeviceEngine._dispatch, TorchDeviceEngine._classify_batch_on_device
+    started = []
+
+    def kept_dispatch(self, batch, packed=None):
+        started.append(time.perf_counter())
+        kept["signature"].append(packed[0])
+        kept["wire"].append(torch.from_numpy(packed[1].copy()))
+        return dispatch(self, batch, packed)
+
+    def kept_classify(self, batch):
+        handles = self._predispatched
+        results = classify(self, batch)
+        kept["batch_s"].append(time.perf_counter() - started[len(kept["blob"])])
+        kept["blob"].append(handles[0].clone())
+        return results
+
+    TorchDeviceEngine._dispatch, TorchDeviceEngine._classify_batch_on_device = kept_dispatch, kept_classify
+    if record:
+        # and the instrument it compiled, which it shares with the grid
+        import dataclasses
+
+        share = tp.share_instrument
+
+        def kept_share(instrument, group):
+            kept["instrument"] = dataclasses.replace(
+                instrument, decoders=[dataclasses.replace(dec, spec=None) for dec in instrument.decoders])
+            return share(instrument, group)
+
+        tp.share_instrument = kept_share
 reset_launch_counts()
-stats = run_e2e(paths, out, fidelity="hybrid", threads=threads, batch_size=batch, device="cuda", ontology=ontology)
+stats = run_e2e(paths, out, fidelity=fidelity, threads=threads, batch_size=batch, device="cuda", ontology=ontology,
+                report_url=report)
 counts = launch_counts()
+if record:
+    torch.save(kept, record)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pheniqs_tpu"))
 print(json.dumps({"rank": int(os.environ["RANK"]), "stats": stats, "counts": counts, "loaded": loaded,
-                  "collective_s": tp.collective_seconds}))
+                  "collective_s": tp.collective_seconds, "header_s": tp.header_seconds, "batch_s": kept["batch_s"]}))
 """
 
 
-def tp_run(card: str, paths, strict_sam: str, threads: int, ranks: int = 2, nccl: bool = False) -> dict:
-    """PHENIQS_TP=1:`ranks` through run_e2e, one process per rank, hybrid on
-    the K7_PANEL variant's reads with its panel sharded (TP_THRESHOLD):
-    the ranks share the first card (gloo) or, with `nccl`, each has its
-    own. Each rank sets its launch counts to 0 just before its run and
-    reports them; rank 0's SAM must equal `strict_sam`'s decisions. Returns
-    the launches summed over the ranks."""
-    import socket
+def tp_role(rank: int, panel: int) -> str:
+    """A grid rank's role in PATH_KERNELS: rank 0, another row's leader
+    (column 0), or a panel follower."""
+    return "tp leader" if rank == 0 else "tp row leader" if rank % panel == 0 else "tp follower"
 
+
+def rank_run(shape: str, paths, out: str, threads: int, cellular=K7_PANEL, fidelity: str = "hybrid",
+             nccl: bool = False, report: str | None = None, record: str | None = None) -> tuple[list, float]:
+    """run_e2e on every rank of PHENIQS_TP=`shape` (threshold TP_THRESHOLD),
+    one process a rank, on the flagship with a `cellular`-barcode panel or
+    the whitelist flagship: the ranks share the first card (gloo) or, with
+    `nccl`, each has its own. The rendezvous store is held here on a port
+    bound once (TORCHELASTIC_USE_AGENT_STORE, as torchrun's agent holds
+    it), and every rank still running is killed when one fails. Each rank
+    sets its launch counts to 0 just before its run. Rank 0 writes
+    `report`, times each batch from its dispatch to its decisions on the
+    host, and with `record` keeps each batch's wire rows and decision rows
+    there, and the instrument it compiled (on the CPU). Returns each rank's line (its group line added) and
+    the seconds of the ranks' processes."""
     import torch
 
-    from pheniqs_tpu_torch.benchmark import sam_decisions
-
-    with socket.socket() as probe:
-        probe.bind(("localhost", 0))
-        port = probe.getsockname()[1]
-    out = os.path.join(WORK, "tp.sam")
-    argument = json.dumps([paths, out, threads, K7_PANEL, BATCH])
-    env = dict(os.environ, PHENIQS_TP=f"1:{ranks}", PHENIQS_TP_THRESHOLD=str(TP_THRESHOLD),
-               WORLD_SIZE=str(ranks), LOCAL_WORLD_SIZE=str(ranks), MASTER_ADDR="localhost",
-               MASTER_PORT=str(port))
+    reads, panel = (int(x) for x in shape.split(":"))
+    ranks = reads * panel
+    store = torch.distributed.TCPStore("localhost", 0, world_size=ranks, is_master=True, wait_for_workers=False)
+    argument = json.dumps([paths, out, threads, cellular, BATCH, fidelity, report, record])
+    env = dict(os.environ, PHENIQS_TP=shape, PHENIQS_TP_THRESHOLD=str(TP_THRESHOLD), WORLD_SIZE=str(ranks),
+               LOCAL_WORLD_SIZE=str(ranks), MASTER_ADDR="localhost", MASTER_PORT=str(store.port),
+               TORCHELASTIC_USE_AGENT_STORE="True")
     if not nccl:
         first = os.environ.get("CUDA_VISIBLE_DEVICES", str(torch.cuda.current_device())).split(",")[0]
         env["CUDA_VISIBLE_DEVICES"] = first
     start = time.perf_counter()
+    logs = [(open(os.path.join(WORK, f"rank{rank}.out"), "w+"), open(os.path.join(WORK, f"rank{rank}.err"), "w+"))
+            for rank in range(ranks)]
     procs = [
         subprocess.Popen([sys.executable, "-c", TP_RANK, HERE, argument],
-                         env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)),
-                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for rank in range(ranks)
+                         env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)), stdout=stdout, stderr=stderr, text=True)
+        for rank, (stdout, stderr) in enumerate(logs)
     ]
+    deadline = time.monotonic() + 900
     try:
-        outputs = [proc.communicate(timeout=900) for proc in procs]
+        while any(proc.poll() is None for proc in procs):
+            if any(proc.returncode for proc in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        del store
     seconds = time.perf_counter() - start
-    reports = []
-    for rank, (proc, (stdout, stderr)) in enumerate(zip(procs, outputs)):
+    lines = []
+    for rank, (proc, (stdout, stderr)) in enumerate(zip(procs, logs)):
+        stdout.seek(0)
+        stderr.seek(0)
+        text, errors = stdout.read(), stderr.read()
+        stdout.close()
+        stderr.close()
         if proc.returncode != 0:
-            raise AssertionError(f"PHENIQS_TP rank {rank} exited {proc.returncode}:\n{stderr[-4000:]}")
-        report = json.loads(stdout.strip().splitlines()[-1])
-        report["group"] = next(line for line in stderr.splitlines() if "PHENIQS_TP rank" in line).strip()
-        reports.append(report)
+            raise AssertionError(f"PHENIQS_TP={shape} rank {rank} exited {proc.returncode}:\n{errors[-4000:]}")
+        line = json.loads(text.strip().splitlines()[-1])
+        line["group"] = next(row for row in errors.splitlines() if "PHENIQS_TP rank" in row).strip()
+        lines.append(line)
+    return lines, seconds
+
+
+def tp_launches(card: str, shape: str, lines: list) -> dict:
+    """Each rank's launches against its role's kernels (PATH_KERNELS), no
+    module of JAX loaded on any rank; prints each rank's launches and
+    collective seconds. Returns the launches summed over the ranks."""
+    panel = int(shape.split(":")[1])
+    total = {name: 0 for name in KERNELS}
+    for line in lines:
+        missing = [name for name in PATH_KERNELS[tp_role(line["rank"], panel)] if line["counts"][name] <= 0]
+        if missing or line["loaded"]:
+            raise AssertionError(f"PHENIQS_TP={shape} rank {line['rank']} ({tp_role(line['rank'], panel)}): kernels"
+                                 f" never launched {missing}; loaded {line['loaded']}")
+        for name, count in line["counts"].items():
+            total[name] += count
+        say(f"[tp] {card} | {line['group']} ({tp_role(line['rank'], panel)}): launches {json.dumps(line['counts'])};"
+            f" {line['collective_s']:.3f} s in the grid's collectives, {line['header_s']:.3f} s waiting on batch"
+            " headers")
+    return total
+
+
+def tp_run(card: str, paths, strict_sam: str, threads: int, shape: str = "1:2", nccl: bool = False,
+           report: str | None = None) -> dict:
+    """PHENIQS_TP=`shape` through run_e2e (rank_run), hybrid on the
+    K7_PANEL variant's reads with its panel sharded (TP_THRESHOLD): rank
+    0's SAM must equal `strict_sam`'s decisions, and each rank launch its
+    role's kernels. Returns the launches summed over the ranks."""
+    from pheniqs_tpu_torch.benchmark import sam_decisions
+
+    out = os.path.join(WORK, "tp.sam")
+    lines, seconds = rank_run(shape, paths, out, threads, nccl=nccl, report=report)
     mode = "NCCL, a card per rank" if nccl else "gloo, ranks sharing one card"
     strict = sam_decisions(strict_sam)
     mismatches = sum(1 for a, b in zip(strict, sam_decisions(out)) if a != b)
     os.unlink(out)
-    leader = reports[0]["stats"]
+    leader = lines[0]["stats"]
     if leader["reads"] != len(strict) or mismatches:
-        raise AssertionError(f"PHENIQS_TP=1:{ranks} ({mode}): {mismatches} records differ from strict; {leader}")
-    total = {name: 0 for name in KERNELS}
-    for report in reports:
-        role = "tp leader" if report["rank"] == 0 else "tp follower"
-        missing = [name for name in PATH_KERNELS[role] if report["counts"][name] <= 0]
-        if missing or report["loaded"]:
-            raise AssertionError(f"rank {report['rank']}: kernels never launched {missing}; loaded {report['loaded']}")
-        for name, count in report["counts"].items():
-            total[name] += count
-        say(f"[tp] {card} | {report['group']}: launches {json.dumps(report['counts'])};"
-            f" {report['collective_s']:.3f} s in the group's collectives (broadcasts and merges)")
-    say(f"[tp] {card} | PHENIQS_TP=1:{ranks} ({mode}), threshold {TP_THRESHOLD}, B={K7_PANEL}: hybrid identical"
+        raise AssertionError(f"PHENIQS_TP={shape} ({mode}): {mismatches} records differ from strict; {leader}")
+    total = tp_launches(card, shape, lines)
+    say(f"[tp] {card} | PHENIQS_TP={shape} ({mode}), threshold {TP_THRESHOLD}, B={K7_PANEL}: hybrid identical"
         f" to strict on {len(strict)} reads; K8 launches per rank"
-        f" {[report['counts']['pamld_panel_sharded'] for report in reports]}; rank 0 e2e {json.dumps(leader)};"
-        f" {seconds:.1f} s for the ranks' processes")
+        f" {[line['counts']['pamld_panel_sharded'] for line in lines]}; rank 0 batch seconds {lines[0]['batch_s']};"
+        f" rank 0 e2e {json.dumps(leader)}; {seconds:.1f} s for the ranks' processes")
     return total
+
+
+#: the grid phase's whitelist reads: two batches
+N_GRID_WHITELIST = 2 * BATCH
+
+
+def grid_vs_one_row(label: str, record: str, reads: int, panel: int) -> dict:
+    """The decision rows of a PHENIQS_TP=R:P run, kept in `record` with its
+    rank 0's instrument, against the 1:P decode of the same batches: one
+    DecodeStep on the card holding all P shards of each sharded panel,
+    whose merge reduces the same stacked partials in the same shard order
+    as the 1:P ranks' (tests/test_torch_tp.py holds the two byte-equal).
+    Byte-equal where every row's K1/K8 plans (at N / R reads) are the 1:P
+    decode's (at N), else held by blob_apart (decoded indices bit-equal,
+    qcfail apart only where the two confidences straddle the threshold
+    within EDGE_ULPS ulps). Returns the rows apart, the plans and the 1:P
+    step's seconds a batch in this process (host clock around a
+    synchronized call, after one call to warm up)."""
+    import dataclasses
+
+    import torch
+
+    from pheniqs_tpu_torch.device.instrument import analytic_tpq_epsilon, instruments_on
+    from pheniqs_tpu_torch.device.step import DecodeStep
+    from pheniqs_tpu_torch.device.tp import shard_panel, sharded_positions
+
+    kept = torch.load(record, weights_only=False)
+    card = torch.device("cuda", torch.cuda.current_device())
+    instrument = instruments_on(kept["instrument"], [card])[0]
+    instrument = dataclasses.replace(instrument, tpq_analytic_eps=analytic_tpq_epsilon(card))
+    shards = {k: [shard_panel(instrument.decoders[k], column, panel) for column in range(panel)]
+              for k in sharded_positions(instrument, TP_THRESHOLD)}
+    apart, plans, seconds = [], [], []
+    for k, (signature, wire_rows) in enumerate(zip(kept["signature"], kept["wire"])):
+        n, widths, qual_bits = signature
+        pair = {"grid": pamld_plans(instrument, n // reads, panel), "one row": pamld_plans(instrument, n, panel)}
+        plans.append({key: {str(d): v for d, v in value.items()} for key, value in pair.items()})
+        step = DecodeStep(instrument, list(widths), qual_bits, want_uncertain=False, panel_shards=shards)
+        rows = wire_rows.to(card)
+        with torch.no_grad():
+            if k == 0:
+                step(rows)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            theirs, _ = step(rows)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - start)
+            tokens = step.run_to("unpack", rows)
+        mine = kept["blob"][k].to(card)
+        if pair["grid"] == pair["one row"]:
+            if not torch.equal(mine, theirs):
+                raise AssertionError(f"{label}: batch {k}'s decision rows differ from 1:{panel}'s under the same plans")
+            apart.append(0)
+        else:
+            apart.append(blob_apart(f"{label} batch {k}", instrument, step, tokens, mine, theirs,
+                                    want_uncertain=False))
+    return {"rows_apart": apart, "plans": plans, "one_row_step_s": seconds}
+
+
+def grid(card: str, threads: int, whitelist: Whitelist, tp_paths, tp_strict: str, one_row_report: str,
+         nccl: bool = False) -> dict:
+    """The (reads, panel) grid: PHENIQS_TP=2:2 as four processes sharing
+    the first card (gloo; with `nccl`, a card each), hybrid on the
+    K7_PANEL variant's reads, identical to strict, each rank launching its
+    role's kernels, the report that of the 1:2 run (`one_row_report`:
+    integers exact, floats within rtol 1e-6); then the whitelist fast on
+    N_GRID_WHITELIST reads at 2:2, held batch by batch to the 1:2 decode
+    of the same batches (grid_vs_one_row), with rank 0's batch seconds and
+    each rank's collective seconds. Returns the launches summed over the
+    ranks of every run."""
+    from pheniqs_tpu_torch.benchmark import sam_decisions, synthesize_fastq_input
+
+    start = time.perf_counter()
+    report = os.path.join(WORK, "grid_report.json")
+    total = tp_run(card, tp_paths, tp_strict, threads, shape="2:2", nccl=nccl, report=report)
+    with open(report) as mine, open(one_row_report) as theirs:
+        report_apart("PHENIQS_TP=2:2", json.load(mine), json.load(theirs))
+    say(f"[grid] {card} | PHENIQS_TP=2:2 report equal to 1:2's (integers exact, floats within rtol 1e-6)")
+    if nccl:
+        return total
+    paths = synthesize_fastq_input(os.path.join(WORK, "grid_whitelist"), N_GRID_WHITELIST,
+                                   ontology=whitelist.ontology)
+    out, record = os.path.join(WORK, "grid.sam"), os.path.join(WORK, "grid.pt")
+    lines, seconds = rank_run("2:2", paths, out, threads, cellular="whitelist", fidelity="fast", record=record)
+    records = sam_decisions(out)
+    os.unlink(out)
+    for name, count in tp_launches(card, "2:2", lines).items():
+        total[name] += count
+    leader = lines[0]
+    if leader["stats"]["reads"] != N_GRID_WHITELIST or len(records) != N_GRID_WHITELIST:
+        raise AssertionError(f"whitelist at PHENIQS_TP=2:2: {len(records)} records; {leader['stats']}")
+    say(f"[grid] {card} | whitelist fast PHENIQS_TP=2:2: rank 0 batch seconds (dispatch to decisions on the"
+        f" host) {leader['batch_s']}; collective seconds by rank {[round(line['collective_s'], 3) for line in lines]},"
+        f" header seconds by rank {[round(line['header_s'], 3) for line in lines]}; rank 0 e2e"
+        f" {json.dumps(leader['stats'])}; {seconds:.1f} s for the ranks' processes")
+    held = grid_vs_one_row("whitelist PHENIQS_TP=2:2", record, 2, 2)
+    os.unlink(record)
+    say(f"[grid] {card} | whitelist fast 2:2 against the 1:2 decode of the same {N_GRID_WHITELIST} reads:"
+        f" {json.dumps(held)}; the phase took {time.perf_counter() - start:.1f} s")
+    return total
+
+
+#: reads of the two-pass prior workflow
+N_PRIOR = 50_000
+
+
+def prior_workflow(card: str, threads: int) -> dict:
+    """The two-pass PAMLD workflow on the card: pass 1 a hybrid flagship run
+    that writes its report; the port's tools/prior folds the report's
+    estimated noise and concentrations into the configuration; pass 2
+    hybrid on the adjusted configuration (its concentrations no longer
+    uniform) identical to strict on it. Returns the launches of pass 2
+    (counts set to 0 just before it)."""
+    import contextlib
+    import io
+
+    from pheniqs_tpu_torch.benchmark import instruction, run_e2e, sam_decisions, synthesize_fastq_input
+    from pheniqs_tpu_torch.device.flagship import flagship_ontology
+    from pheniqs_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from pheniqs_tpu_torch.tools import prior
+
+    start = time.perf_counter()
+    ontology = flagship_ontology()
+    paths = synthesize_fastq_input(os.path.join(WORK, "prior"), N_PRIOR, ontology=ontology)
+    report, configuration = os.path.join(WORK, "prior_report.json"), os.path.join(WORK, "prior_job.json")
+    out = os.path.join(WORK, "prior.sam")
+    run_e2e(paths, out, fidelity="hybrid", threads=threads, batch_size=BATCH, device="cuda", ontology=ontology,
+            report_url=report)
+    with open(configuration, "w") as stream:
+        json.dump(instruction(paths, "/dev/null", ontology), stream)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        if prior.main(["--configuration", configuration, "--report", report]) != 0:
+            raise AssertionError("tools/prior did not exit 0")
+    adjusted = json.loads(printed.getvalue())
+    concentrations = {  # distinct values a decoder (cellular is a list of decoders)
+        kind: [len({barcode["concentration"] for barcode in decoder["codec"].values()})
+               for decoder in (adjusted[kind] if isinstance(adjusted[kind], list) else [adjusted[kind]])]
+        for kind in ("sample", "cellular")
+    }
+    if min(min(counts) for counts in concentrations.values()) < 2:
+        raise AssertionError(f"prior: the adjusted concentrations are uniform {concentrations}")
+    strict_out = os.path.join(WORK, "prior_strict.sam")
+    run_e2e(paths, strict_out, fidelity="strict", threads=threads, batch_size=min(16384, -(-N_PRIOR // threads)),
+            device="cuda", ontology=adjusted)
+    reset_launch_counts()
+    stats = run_e2e(paths, out, fidelity="hybrid", threads=threads, batch_size=BATCH, device="cuda",
+                    ontology=adjusted)
+    counts = launch_counts()
+    strict = sam_decisions(strict_out)
+    mismatches = sum(1 for a, b in zip(strict, sam_decisions(out)) if a != b)
+    os.unlink(out)
+    os.unlink(strict_out)
+    missing = [name for name in PATH_KERNELS["flagship"] if counts[name] <= 0]
+    if len(strict) != N_PRIOR or mismatches or missing:
+        raise AssertionError(f"prior pass 2: {mismatches} records differ from strict; kernels never launched"
+                             f" {missing}; {stats}")
+    say(f"[prior] {card} | pass 1 hybrid wrote its report; tools/prior adjusted noise"
+        f" {adjusted['sample']['noise']} (sample), distinct concentrations {json.dumps(concentrations)}; pass 2"
+        f" hybrid identical to strict on {N_PRIOR} reads, launches {json.dumps(counts)};"
+        f" {time.perf_counter() - start:.1f} s")
+    return counts
 
 
 def tools(card: str, threads: int, flagship_paths) -> None:
@@ -1989,31 +2251,38 @@ def reads_axis() -> list[str]:
     return ["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2 else ["cuda:0", "cuda:0"]
 
 
-def pamld_plans(instrument, n: int) -> dict:
+def pamld_plans(instrument, n: int, panel: int = 1) -> dict:
     """{decoder position: slices of the tile loop's plan} of each PAMLD
-    decoder at `n` reads on the first card (kernels/pamld.py:plan_for)."""
+    decoder at `n` reads on the instrument's card (kernels/pamld.py:
+    plan_for); with `panel` > 1, a panel past TP_THRESHOLD over its shard of
+    ceil(B / panel) barcodes, as K8 plans it."""
+    from pheniqs_tpu_torch.device.tp import shard_width
     from pheniqs_tpu_torch.kernels import pamld
 
-    return {
-        k: pamld.plan_for(n, dec.barcode_count, sum(dec.segment_widths), instrument.device).slices
-        for k, dec in enumerate(instrument.decoders) if dec.algorithm == "pamld" and dec.plans
-    }
+    plans = {}
+    for k, dec in enumerate(instrument.decoders):
+        if dec.algorithm == "pamld" and dec.plans:
+            b = shard_width(dec.barcode_count, panel) if dec.barcode_count > TP_THRESHOLD else dec.barcode_count
+            plans[k] = pamld.plan_for(n, b, sum(dec.segment_widths), instrument.device).slices
+    return plans
 
 
-def blob_apart(label: str, instrument, step, tokens, mine, theirs) -> int:
+def blob_apart(label: str, instrument, step, tokens, mine, theirs, want_uncertain: bool = True) -> int:
     """The decision blob of the slices (`mine`) against the one-card one
     (`theirs`) where a slice's K1/K7 plan differs from the one-card plan
     (the rule of pamld.against_one_launch, row by row): decoded indices
     bit-equal on every row; each PAMLD confidence within 2*gamma(B+2) + 8u
     relative; qcfail bits and the uncertain byte apart only on rows where
     some PAMLD decoder's two confidences straddle ct or an edge of its
-    uncertain margin, widened by EDGE_ULPS ulps. Returns the rows apart."""
+    uncertain margin, widened by EDGE_ULPS ulps. Without `want_uncertain`
+    (a fast blob) there is no uncertain byte, and only ct is an edge.
+    Returns the rows apart."""
     import torch
 
     from pheniqs_tpu_torch.device import wire
     from pheniqs_tpu_torch.kernels import pamld
 
-    layout = wire.d2h_layout(instrument, True)
+    layout = wire.d2h_layout(instrument, want_uncertain)
     a, b = mine.view(-1, layout["total"]), theirs.view(-1, layout["total"])
     ints = slice(0, layout["int_bytes"])
     if not torch.equal(a[:, ints], b[:, ints]):
@@ -2022,8 +2291,10 @@ def blob_apart(label: str, instrument, step, tokens, mine, theirs) -> int:
     conf_a = a[:, floats].contiguous().view(torch.float32).double()
     conf_b = b[:, floats].contiguous().view(torch.float32).double()
     qc = slice(layout["qcfail_offset"], layout["qcfail_offset"] + layout["qcfail_bytes"])
-    u = layout["uncertain_offset"]
-    differs = (a[:, qc] != b[:, qc]).any(dim=1) | (a[:, u] != b[:, u])
+    differs = (a[:, qc] != b[:, qc]).any(dim=1)
+    if want_uncertain:
+        u = layout["uncertain_offset"]
+        differs |= a[:, u] != b[:, u]
     at_edge = torch.zeros_like(differs)
     column = {k: c for c, k in enumerate(layout["confidence_positions"])}
     slot = 0
@@ -2045,6 +2316,8 @@ def blob_apart(label: str, instrument, step, tokens, mine, theirs) -> int:
         rel_eps = rel_eps.double()
         edges = torch.stack([torch.full_like(x, ct), ct - (rel_eps * ct + 4.0 * pamld.U32),
                              (ct + 4.0 * pamld.U32) / (1.0 - rel_eps)])
+        if not want_uncertain:
+            edges = edges[:1]
         ulps = pamld.EDGE_ULPS * pamld.U32 * max(ct, 1e-30)
         at_edge |= ((edges >= torch.minimum(x, y) - ulps) & (edges <= torch.maximum(x, y) + ulps)).any(dim=0)
     unexplained = int((differs & ~at_edge).sum())
@@ -2283,9 +2556,9 @@ def standalone_check():
 
 
 def nccl_only(card: str, threads: int) -> int:
-    """--nccl: on a host with two or more cards, the PHENIQS_TP run over
-    NCCL (2 ranks, and 4 where there are four cards) against its strict
-    reference, then the reads phase over cuda:0 and cuda:1 (reads: the
+    """--nccl: on a host with two or more cards, the PHENIQS_TP runs over
+    NCCL (1:2; 1:4 and the 2:2 grid, its report against 1:2's, where there
+    are four cards) against their strict reference, then the reads phase over cuda:0 and cuda:1 (reads: the
     three instruments' ShardedDecodeStep against one card, the engine
     against strict and R = 2 against R = 1, multi_card_rates), and nothing
     else."""
@@ -2298,8 +2571,11 @@ def nccl_only(card: str, threads: int) -> int:
         raise SystemExit(f"chip_smoke --nccl: needs two cards, this host has {cards}")
     paths, strict_sam = decisions_vs_strict(f"B={K7_PANEL} flagship", flagship_ontology(cellular_barcodes=K7_PANEL),
                                             N_K7_DECISIONS, threads, keep_strict=True)
-    for ranks in (2, 4) if cards >= 4 else (2,):
-        tp_run(card, paths, strict_sam, threads, ranks=ranks, nccl=True)
+    one_row_report = os.path.join(WORK, "tp_report.json")
+    tp_run(card, paths, strict_sam, threads, nccl=True, report=one_row_report)
+    if cards >= 4:
+        tp_run(card, paths, strict_sam, threads, shape="1:4", nccl=True)
+        grid(card, threads, None, paths, strict_sam, one_row_report, nccl=True)
     decided = decisions_vs_strict("flagship", flagship_ontology(), N_K7_DECISIONS, threads, keep_strict=True)
     reads(card, threads, Whitelist(), decided)
     return 0
@@ -2655,7 +2931,8 @@ def main() -> int:
         lap("decisions")
         counts, flagship_paths = throughput(card, threads, whitelist)
         lap("throughput")
-        for name, count in tp_run(card, tp_paths, tp_strict, threads).items():
+        one_row_report = os.path.join(WORK, "tp_report.json")
+        for name, count in tp_run(card, tp_paths, tp_strict, threads, report=one_row_report).items():
             counts[name] += count
         missing = [name for name, count in counts.items() if count <= 0]
         if missing:
@@ -2665,6 +2942,12 @@ def main() -> int:
         else:
             say("[tp] one card: the PHENIQS_TP run over NCCL needs two (python3 chip_smoke.py --nccl on such a host)")
         lap("tp")
+        for name, count in grid(card, threads, whitelist, tp_paths, tp_strict, one_row_report).items():
+            counts[name] += count
+        lap("grid")
+        for name, count in prior_workflow(card, threads).items():
+            counts[name] += count
+        lap("prior")
         for name, count in reads(card, threads, whitelist, decided).items():
             counts[name] += count
         lap("reads")

@@ -145,7 +145,9 @@ def e2e_ontology(paths: list[str], output_url: str, threads: int, base: dict | N
 
     base = base if base is not None else flagship_ontology()
     with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as handle:
-        json.dump(dict(instruction(paths, output_url, base), threads=threads), handle)
+        # one string: json.dump streams through the pure-Python encoder,
+        # 3x slower on a whitelist-sized codec
+        handle.write(json.dumps(dict(instruction(paths, output_url, base), threads=threads)))
         config_path = handle.name
     try:
         interface = Interface(
@@ -277,14 +279,15 @@ def run_e2e(
     ``devices`` is a count, the ontology's ``"devices"`` cap on the local
     cards, or a list of devices (cards may repeat). ``report_url`` names a
     file to write the run's report to as JSON. Under ``PHENIQS_TP`` every
-    rank calls it: rank 0 runs the engine, a follower rank follows rank 0's
-    device steps (device/tp.py) and returns None."""
-    from .device.distributed import is_leader
+    rank calls it: rank 0 runs the engine; the leader of each other row
+    decodes its row's slices (``tp.lead_row``) and every other rank
+    follows its row's device steps (``tp.follow``); those return None."""
+    from .device.distributed import is_leader, is_row_leader
 
     if not is_leader():
-        from .device.tp import follow
+        from .device.tp import follow, lead_row
 
-        follow(device)
+        (lead_row if is_row_leader() else follow)(device)
         return None
     base = ontology if ontology is not None else flagship_ontology()
     ontology = e2e_ontology(paths, output_url, threads, base)

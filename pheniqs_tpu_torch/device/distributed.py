@@ -13,14 +13,19 @@ engines held in one process.
 ``PHENIQS_TP="R:P"`` runs the engine as a (reads, panel) grid of R * P
 processes, one rank each, as ``torchrun`` starts them:
 
-    PHENIQS_TP=1:2 torchrun --standalone --nproc-per-node 2 \\
+    PHENIQS_TP=2:2 torchrun --standalone --nproc-per-node 4 \\
         -m pheniqs_tpu_torch mux --config job.json --fidelity hybrid
 
-The grid does not split reads yet (R = 1; R > 1 is ROADMAP A.3): rank 0
-leads the whole host pipeline, and every rank holds one shard of each
-large PAMLD panel (device/tp.py, K8). The group comes from the ``torchrun``
-environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
-``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; ``env://``).
+Grid rank g sits at row ``g // P`` and column ``g % P``. Rank 0 leads the
+whole host pipeline and row 0; it cuts each batch into R contiguous slices
+in read order and sends slice r to the leader of row r (rank r * P), which
+decodes it with the whole decode step and returns its decision rows and
+counter vector; the rows' counters add in float64 in row order on rank 0.
+Every rank of column p holds shard p of each large PAMLD panel
+(device/tp.py, K8), and the shards merge within a row. The group comes
+from the ``torchrun`` environment (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``;
+``env://``).
 
 The backend follows from where the ranks' tensors live, with no knob of
 its own: NCCL when every rank of the host has a GPU of its own, gloo on
@@ -44,19 +49,18 @@ DEFAULT_TP_THRESHOLD = 1 << 14
 
 
 def tp_shape() -> tuple[int, int] | None:
-    """(R, P) of ``PHENIQS_TP="R:P"``, None when unset. R > 1 (reads data
-    parallel inside the mesh) raises NotImplementedError."""
+    """(R, P) of ``PHENIQS_TP="R:P"``, None when unset: R rows of the reads
+    axis by P columns of the panel axis, each at least 1 (ValueError
+    otherwise)."""
     value = os.environ.get("PHENIQS_TP")
     if not value:
         return None
-    reads, panel = (int(x) for x in value.split(":"))
-    if reads != 1:
-        raise NotImplementedError(
-            f"PHENIQS_TP={value}: reads data parallelism inside the (reads, panel) "
-            "mesh is not ported yet (ROADMAP A.3); K8's panel sharding runs with R = 1"
-        )
-    if panel < 1:
-        raise ValueError(f"PHENIQS_TP={value}: the panel axis needs at least one rank")
+    try:
+        reads, panel = (int(x) for x in value.split(":"))
+    except ValueError:
+        raise ValueError(f"PHENIQS_TP={value}: expected R:P, two integers") from None
+    if reads < 1 or panel < 1:
+        raise ValueError(f"PHENIQS_TP={value}: the reads and panel axes need at least one rank each")
     return reads, panel
 
 
@@ -67,44 +71,84 @@ def tp_threshold() -> int:
 
 
 def is_leader() -> bool:
-    """False on a follower rank of a ``PHENIQS_TP`` run (RANK > 0)."""
+    """False on every rank of a ``PHENIQS_TP`` run but rank 0."""
     return not os.environ.get("PHENIQS_TP") or int(os.environ.get("RANK", "0")) == 0
+
+
+def is_row_leader() -> bool:
+    """True on the leader of a row of a ``PHENIQS_TP`` grid (column 0:
+    RANK a multiple of P), rank 0 included; True without PHENIQS_TP."""
+    shape = tp_shape()
+    return shape is None or int(os.environ.get("RANK", "0")) % shape[1] == 0
 
 
 @dataclass
 class PanelGroup:
-    """This process's place on the panel axis: its rank of ``size``, its
-    device, the process group that carries the per-batch collectives (on
-    ``device`` tensors) and the gloo group of the set-up (CPU objects)."""
+    """This process's place on the (reads, panel) grid: its global
+    ``rank`` of ``rows * size`` (``size`` ranks a row, the panel axis), its
+    device, the backend of the per-batch collectives, the process group of
+    its row (the batch broadcast and the panel merges, on ``device``
+    tensors), the group of the row leaders (the slices out and the rows'
+    results back; None off it) and the gloo group of the whole grid for the
+    set-up (CPU objects)."""
 
     rank: int
+    rows: int
     size: int
     device: torch.device
+    backend: str
     group: object
+    leaders: object
     setup: object
+
+    @property
+    def row(self) -> int:
+        return self.rank // self.size
+
+    @property
+    def column(self) -> int:
+        return self.rank % self.size
+
+    @property
+    def row_leader_rank(self) -> int:
+        """The global rank of this row's leader (column 0)."""
+        return self.row * self.size
 
     @property
     def leader(self) -> bool:
         return self.rank == 0
+
+    @property
+    def row_leader(self) -> bool:
+        return self.column == 0
+
+    @property
+    def transport(self) -> torch.device:
+        """Where the tensors between rank 0 and the row leaders live: the
+        card under NCCL, host memory under gloo (which would stage a CUDA
+        tensor through the host anyway)."""
+        return self.device if self.backend == "nccl" else torch.device("cpu")
 
 
 _GROUP: PanelGroup | None = None
 
 
 def panel_group(device) -> PanelGroup:
-    """The panel group of this process, set up on first call from the
+    """The grid group of this process, set up on first call from the
     ``torchrun`` environment. ``device`` is the engine's device type
     ("cuda" or "cpu"); on CUDA the rank's card is ``cuda:LOCAL_RANK`` when
-    the host has a card per rank, else the ranks share them."""
+    the host has a card per rank, else the ranks share them. Every rank
+    creates every row's group and the row leaders' group, in the same
+    order."""
     global _GROUP
     if _GROUP is not None:
         return _GROUP
-    _, panel = tp_shape()
+    reads, panel = tp_shape()
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world != panel:
+    if world != reads * panel:
         raise ValueError(
-            f"PHENIQS_TP=1:{panel} needs {panel} ranks (torchrun --nproc-per-node {panel}); "
-            f"WORLD_SIZE is {world}"
+            f"PHENIQS_TP={reads}:{panel} needs {reads * panel} ranks (torchrun --nproc-per-node "
+            f"{reads * panel}); WORLD_SIZE is {world}"
         )
     rank = int(os.environ.get("RANK", "0"))
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
@@ -123,10 +167,21 @@ def panel_group(device) -> PanelGroup:
         raise ValueError(f"unsupported device {device}")
     dist.init_process_group(backend=backend, init_method="env://", rank=rank, world_size=world)
     setup = dist.new_group(backend="gloo") if backend != "gloo" else dist.group.WORLD
+    if reads == 1:
+        row_group, leaders = dist.group.WORLD, None
+    else:
+        for row in range(reads):
+            created = dist.new_group(list(range(row * panel, (row + 1) * panel)))
+            if row == rank // panel:
+                row_group = created
+        leaders = dist.new_group(list(range(0, world, panel)))
+        if rank % panel:
+            leaders = None
     sys.stderr.write(
-        f"[pheniqs-tpu] PHENIQS_TP rank {rank} of {world}: {backend} on {device}\n"
+        f"[pheniqs-tpu] PHENIQS_TP rank {rank} of {world} (row {rank // panel} of {reads}, column "
+        f"{rank % panel} of {panel}): {backend} on {device}\n"
     )
-    _GROUP = PanelGroup(rank, world, device, dist.group.WORLD, setup)
+    _GROUP = PanelGroup(rank, reads, panel, device, backend, row_group, leaders, setup)
     return _GROUP
 
 

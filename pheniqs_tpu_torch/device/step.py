@@ -16,9 +16,14 @@ mask. Its forward pass is these kernels in order:
 With ``panel_shards`` it is also the counterpart of
 ``make_tp_sharded_decode_step`` (step.py:831-925): each PAMLD decoder in
 ``panel_shards`` classifies through K8 over the shards this process holds,
-merging over ``group`` (device/tp.py); on rank 0 everything else runs as
-above, on the merged decisions, so the counters come back whole there. A
-follower rank runs ``follow``: K3 and its shards' stages only.
+merging over ``group`` (device/tp.py); on a row leader of the grid (rank 0
+among them) everything else runs as above, on the merged decisions, so
+the row's counters come back whole there. A panel follower runs
+``follow``: K3 and its shards' stages only. Under ``PHENIQS_TP="R:P"``
+rank 0 pads a batch to a multiple of R (the engine's staging rows, as
+``pad_rows`` does), each row decodes one of R contiguous slices, and the
+rows' blobs are concatenated and their counters added with ``slice_sum``,
+as for ``ShardedDecodeStep``.
 
 ``ShardedDecodeStep`` is the counterpart of ``make_sharded_decode_step``
 and ``pad_batch`` (step.py:759, :804): a batch cut into R contiguous
@@ -45,15 +50,7 @@ from ..kernels.pack import pack_outputs, pack_outputs_plain
 from ..kernels.pamld import pamld_classify, pamld_classify_plain, pamld_classify_sharded
 from ..kernels.unpack import token_layout, unpack_tokens, unpack_tokens_plain
 from . import wire
-from .distributed import tp_shape
 from .instrument import DeviceInstrument, card_index
-
-
-def check_supported():
-    """Refuse what the port has no kernel for yet: reads data parallelism
-    inside the PHENIQS_TP mesh (R > 1, ROADMAP A.3; K8's panel sharding
-    runs with R = 1)."""
-    tp_shape()
 
 
 class DecodeStep(nn.Module):
@@ -71,7 +68,6 @@ class DecodeStep(nn.Module):
         group=None,
     ):
         super().__init__()
-        check_supported()
         self.instrument = instrument
         self.want_uncertain = want_uncertain
         #: decoder position -> the PanelShards of it this process holds

@@ -19,11 +19,17 @@ holds all P shards stacked on a leading axis. Both reduce the same
 stacked tensor in rank order, so they give the same bytes, on every rank
 and in every run with the same P.
 
-The engine's protocol (``PHENIQS_TP="1:P"``): rank 0 compiles the
-configuration and leads the whole host pipeline; ``share_instrument``
-sends every rank the instrument's layout and its panel shards; per batch
-``send_batch`` broadcasts the wire blob and codebooks, and each follower
-(``follow``) runs K3 and its shards' stages, taking part in the merges.
+The engine's protocol (``PHENIQS_TP="R:P"``, a grid of R rows by P
+columns; device/distributed.py): rank 0 compiles the configuration and
+leads the whole host pipeline; ``share_instrument`` sends every rank the
+instrument's layout and its column's panel shards, and each row leader
+(column 0) rank 0's whole instrument. Per batch, with R > 1, rank 0 sends
+each row leader the batch's header and its row's slice (``scatter_rows``)
+and the row leader (``lead_row``) runs the whole decode step on it; in
+every row, ``send_batch`` broadcasts the row's wire blob and codebooks to
+its followers (``follow``), which run K3 and their shards' stages, taking
+part in the row's merges; the row leaders send their decision rows and
+counters back to rank 0 (``gather_rows``).
 """
 
 from __future__ import annotations
@@ -43,18 +49,24 @@ from .instrument import DeviceInstrument, analytic_tpq_epsilon, tpq_constants
 #: the candidate index of a shard that does not hold the maximum
 BIG_INDEX = 2**30
 
-#: host seconds this process spent in the panel group's collectives (the
-#: merges and the batch broadcast): gloo stages CUDA tensors through host
-#: memory and returns when done, so this is their time apart from the
-#: kernels; NCCL returns at enqueue
+#: host seconds this process spent in the grid's collectives (the merges,
+#: the batch broadcast, and the slices out and results back): gloo stages
+#: CUDA tensors through host memory and returns when done, so this is their
+#: time apart from the kernels; NCCL returns at enqueue
 collective_seconds = 0.0
+#: host seconds this process spent waiting on a batch header: the time
+#: until the row leader (or rank 0) has the next batch, idle for this rank
+header_seconds = 0.0
 
 
-def _collective(call, *args, **kwargs):
-    global collective_seconds
+def _collective(call, *args, header: bool = False, **kwargs):
+    global collective_seconds, header_seconds
     start = time.perf_counter()
     call(*args, **kwargs)
-    collective_seconds += time.perf_counter() - start
+    if header:
+        header_seconds += time.perf_counter() - start
+    else:
+        collective_seconds += time.perf_counter() - start
 
 
 @dataclass
@@ -162,24 +174,50 @@ def tp_posterior(features, qpos_uniform, matrix, concentration, adjusted_noise: 
     return posterior_panel_sharded_plain(features, qpos_uniform, shards, adjusted_noise)
 
 
+def grid_posterior(features, qpos_uniform, matrix, concentration, adjusted_noise: float, reads: int,
+                   panel_size: int):
+    """``tp_posterior`` over a (reads, panel) grid in process: the rows
+    padded to a multiple of `reads` (zero features), cut into `reads`
+    contiguous slices in read order, each slice's posterior merged over
+    `panel_size` shards, the slices concatenated and the padding cut off
+    (the JAX ``tp_posterior`` on a (reads, panel) mesh)."""
+    n = features.shape[0]
+    padded = -(-n // reads) * reads
+    if padded != n:
+        features = torch.nn.functional.pad(features, (0, 0, 0, padded - n))
+        qpos_uniform = torch.nn.functional.pad(qpos_uniform, (0, padded - n))
+    share = padded // reads
+    slices = [
+        tp_posterior(features[r * share : (r + 1) * share], qpos_uniform[r * share : (r + 1) * share], matrix,
+                     concentration, adjusted_noise, panel_size)
+        for r in range(reads)
+    ]
+    return tuple(torch.cat(parts)[:n] for parts in zip(*slices))
+
+
 # --- the engine's set-up and per-batch protocol --------------------------
+def _strip(dec, **tensors):
+    """A decoder with its host-only ``spec`` dropped and `tensors` replaced."""
+    return dataclasses.replace(dec, spec=None, **tensors)
+
+
 def share_instrument(instrument: DeviceInstrument | None, group: PanelGroup):
-    """Send every rank the instrument and its panel shards from rank 0,
-    which passes its instrument compiled on the CPU (followers pass None).
-    Returns this rank's (instrument on its device, {position: [its
-    PanelShard]}). Rank 0's instrument keeps every tensor but G and the
-    concentrations of sharded panels (K2 reads the whole codes); a
-    follower's keeps only the decoders' layout, for K3. The panels above
-    PHENIQS_TP_THRESHOLD barcodes shard."""
+    """Send every rank of the grid the instrument and its panel shards from
+    rank 0, which passes its instrument compiled on the CPU (the others
+    pass None). Returns this rank's (instrument on its device, {position:
+    [its PanelShard]}). Rank 0's and every row leader's instrument keeps
+    every tensor but G and the concentrations of sharded panels (K2 reads
+    the whole codes; a row leader runs the whole step on its row's slice);
+    a panel follower's keeps only the decoders' layout, for K3. The panels
+    above PHENIQS_TP_THRESHOLD barcodes shard, and every rank of column p
+    holds shard p, so each row holds the whole panel."""
     if group.leader:
         positions = sharded_positions(instrument, tp_threshold())
         layout = dataclasses.replace(
             instrument,
             decoders=[
-                dataclasses.replace(
-                    dec, panel_codes=None, panel_codes_u8=None, key_table=None, likelihood_matrix=None,
-                    concentration=None, spec=None,
-                )
+                _strip(dec, panel_codes=None, panel_codes_u8=None, key_table=None, likelihood_matrix=None,
+                       concentration=None)
                 for dec in instrument.decoders
             ],
             tpq_constants=None,
@@ -189,7 +227,25 @@ def share_instrument(instrument: DeviceInstrument | None, group: PanelGroup):
         message = [None]
     dist.broadcast_object_list(message, src=0, group=group.setup)
     layout, positions = message[0]
+    if group.rows > 1:
+        # the row leaders' whole instrument, less what only the shards need
+        if group.leader:
+            full = dataclasses.replace(
+                instrument,
+                decoders=[
+                    _strip(dec, **({"likelihood_matrix": None, "concentration": None} if k in positions else {}))
+                    for k, dec in enumerate(instrument.decoders)
+                ],
+                tpq_constants=None,
+            )
+            for row in range(1, group.rows):
+                dist.send_object_list([full], dst=row * group.size, group=group.setup)
+        elif group.row_leader:
+            received = [None]
+            dist.recv_object_list(received, src=0, group=group.setup)
+            instrument = received[0]
     device = group.device
+    world = group.rows * group.size
     shards = {}
     for position in positions:
         b = layout.decoders[position].barcode_count
@@ -207,20 +263,22 @@ def share_instrument(instrument: DeviceInstrument | None, group: PanelGroup):
             scatter = None
             if group.leader:
                 whole = _padded(instrument.decoders[position], name, padded)
-                scatter = [
+                columns = [
                     (whole[k * local_b : (k + 1) * local_b] if name != "matrix"
                      else whole[:, k * local_b : (k + 1) * local_b]).contiguous()
                     for k in range(group.size)
                 ]
+                # grid rank g gets its column's shard
+                scatter = [columns[g % group.size] for g in range(world)]
             dist.scatter(out, scatter, src=0, group=group.setup)
             received[name] = out
-        shard = PanelShard(group.rank * local_b, local_b, b, None, None, None)
+        shard = PanelShard(group.column * local_b, local_b, b, None, None, None)
         count = shard.count
         shard.codes_u8 = received["codes_u8"][:count].to(device)
         shard.matrix = received["matrix"][:, :count].to(device)
         shard.concentration = received["concentration"][:count].to(device)
         shards[position] = [shard]
-    placed = instrument if group.leader else layout
+    placed = instrument if group.row_leader else layout
     decoders = []
     for position, dec in enumerate(placed.decoders):
         tensors = {}
@@ -265,72 +323,178 @@ BATCH = 1
 #: qual_bits on the wire header (the j4 wire's is a string)
 _QUAL_CODES = {6: 6, 2: 2, 4: 4, wire.JOINT4: 16}
 _QUAL_BITS = {code: bits for bits, code in _QUAL_CODES.items()}
+#: header fields before the segment widths: command, rows, qual code,
+#: qcb length, ccb length, want_uncertain
+_FIELDS = 6
 
 
-def _header(group: PanelGroup, segments: int, values=()) -> list[int]:
-    header = torch.zeros(5 + segments, dtype=torch.int64, device=group.device)
+def _broadcast(group: PanelGroup, tensor, grid: bool = False, header: bool = False):
+    """Broadcast `tensor` within this rank's row from its leader, or, with
+    `grid`, from rank 0 to the row leaders."""
+    if grid:
+        _collective(dist.broadcast, tensor, 0, group=group.leaders, header=header)
+    else:
+        _collective(dist.broadcast, tensor, group.row_leader_rank, group=group.group, header=header)
+
+
+def _header(group: PanelGroup, segments: int, values=(), grid: bool = False) -> list[int]:
+    """One batch's header (_broadcast). Its rows field is the batch's rows
+    within a row, the padded batch's over the grid (row r takes the r-th
+    of R equal contiguous slices)."""
+    header = torch.zeros(_FIELDS + segments, dtype=torch.int64, device=group.transport if grid else group.device)
     if values:
         header.copy_(torch.tensor(values, dtype=torch.int64))
-    _collective(dist.broadcast, header, 0, group=group.group)
+    _broadcast(group, header, grid, header=True)
     return header.tolist()
 
 
-def send_batch(group: PanelGroup, signature: tuple, blob, ccb=None, qcb=None):
-    """Rank 0: broadcast one batch's wire blob (on the device) and its
-    codebooks to the followers."""
+def _batch_header(signature: tuple, ccb, qcb, want_uncertain: bool) -> list[int]:
     padded_n, widths, qual_bits = signature
-    _header(group, len(widths), [
+    return [
         BATCH, padded_n, _QUAL_CODES[qual_bits],
-        0 if qcb is None else qcb.numel(), 0 if ccb is None else ccb.numel(), *widths,
-    ])
+        0 if qcb is None else qcb.numel(), 0 if ccb is None else ccb.numel(), int(want_uncertain), *widths,
+    ]
+
+
+def _receive_books(group: PanelGroup, qcb_len: int, ccb_len: int, grid: bool = False):
+    """(qcb, ccb) of a batch, broadcast after its header (None when absent)."""
+    on = group.transport if grid else group.device
+    books = tuple(torch.empty(k, dtype=torch.int32, device=on) if k else None for k in (qcb_len, ccb_len))
+    for tensor in books:
+        if tensor is not None:
+            _broadcast(group, tensor, grid)
+    return books
+
+
+def send_batch(group: PanelGroup, signature: tuple, blob, ccb=None, qcb=None):
+    """A row leader (rank 0 on row 0): broadcast one batch's wire blob (on
+    the device) and its codebooks to the followers of its row."""
+    _header(group, len(signature[1]), _batch_header(signature, ccb, qcb, False))
     for tensor in (blob, qcb, ccb):
         if tensor is not None:
-            _collective(dist.broadcast, tensor, 0, group=group.group)
+            _broadcast(group, tensor)
+
+
+def scatter_rows(group: PanelGroup, signature: tuple, rows, ccb=None, qcb=None, want_uncertain: bool = True):
+    """Rank 0 of a grid with R > 1 rows: send the row leaders the batch's
+    header, then slice r of `rows` (the padded batch's wire rows, host
+    memory; R equal contiguous slices in read order) to the leader of row
+    r, then the codebooks. Under gloo the slices go from host memory as
+    they are; under NCCL through rank 0's card."""
+    _header(group, len(signature[1]), _batch_header(signature, ccb, qcb, want_uncertain), grid=True)
+    share = rows.shape[0] // group.rows
+    for row in range(1, group.rows):
+        piece = rows[row * share : (row + 1) * share].to(group.transport)
+        _collective(dist.send, piece, row * group.size, group=group.leaders)
+    for tensor in (qcb, ccb):
+        if tensor is not None:
+            _broadcast(group, tensor.to(group.transport), grid=True)
+
+
+def gather_rows(group: PanelGroup, blob, counters):
+    """Rank 0 of a grid with R > 1 rows: receive each other row's decision
+    rows into its rows of `blob` ((R * share * total,) uint8, host memory)
+    and its counter vector into row r of `counters` ((R, L), host
+    memory), in row order. Under NCCL they arrive on rank 0's card and are
+    copied into the host buffers on the current stream, non-blocking."""
+    share = blob.numel() // group.rows
+    for row in range(1, group.rows):
+        for target in (blob[row * share : (row + 1) * share], counters[row]):
+            if group.transport.type == "cpu":
+                _collective(dist.recv, target, row * group.size, group=group.leaders)
+            else:
+                landed = torch.empty(target.shape, dtype=target.dtype, device=group.transport)
+                _collective(dist.recv, landed, row * group.size, group=group.leaders)
+                target.copy_(landed, non_blocking=True)
 
 
 def send_stop(group: PanelGroup, segments: int):
-    """Rank 0: the end of the run; the followers return."""
-    _header(group, segments, [STOP] + [0] * (4 + segments))
+    """Rank 0: the end of the run; the row leaders release their rows, and
+    every rank returns."""
+    stop = [STOP] + [0] * (_FIELDS - 1 + segments)
+    if group.rows > 1:
+        _header(group, segments, stop, grid=True)
+    _header(group, segments, stop)
     dist.barrier(group=group.setup)
     close_panel_group()
 
 
-def follow(device="cuda") -> int:
-    """A follower rank's whole run: take the instrument and this rank's
-    shards from rank 0, then for every batch rank 0 broadcasts run K3 and
-    K8's stages on the shards, taking part in the merges; write nothing.
-    Returns the number of batches followed."""
+def _step_for(steps: dict, instrument, signature: tuple, **options):
     from .step import DecodeStep
 
+    step = steps.get(signature)
+    if step is None:
+        step = steps[signature] = DecodeStep(instrument, list(signature[1]), signature[2], **options)
+    return step
+
+
+def follow(device="cuda") -> int:
+    """A panel follower's whole run (column p > 0): take the layout and this
+    rank's shards from rank 0, then for every batch its row leader
+    broadcasts run K3 and K8's stages on the shards, taking part in the
+    row's merges; write nothing. Returns the number of batches followed."""
     group = panel_group(device)
     instrument, shards = share_instrument(None, group)
     segments = len(instrument.used_segments)
-    steps: dict[tuple, DecodeStep] = {}
+    steps: dict = {}
     batches = 0
     with torch.no_grad():
         while True:
-            command, padded_n, qual_code, qcb_len, ccb_len, *widths = _header(group, segments)
+            command, padded_n, qual_code, qcb_len, ccb_len, _, *widths = _header(group, segments)
             if command == STOP:
                 break
             qual_bits = _QUAL_BITS[qual_code]
             blob = torch.empty(
                 (padded_n, wire.h2d_blob_bytes(widths, qual_bits)), dtype=torch.uint8, device=group.device
             )
-            qcb = torch.empty(qcb_len, dtype=torch.int32, device=group.device) if qcb_len else None
-            ccb = torch.empty(ccb_len, dtype=torch.int32, device=group.device) if ccb_len else None
-            for tensor in (blob, qcb, ccb):
-                if tensor is not None:
-                    _collective(dist.broadcast, tensor, 0, group=group.group)
+            _broadcast(group, blob)
+            qcb, ccb = _receive_books(group, qcb_len, ccb_len)
             signature = (padded_n, tuple(widths), qual_bits)
-            step = steps.get(signature)
-            if step is None:
-                step = steps[signature] = DecodeStep(
-                    instrument, list(widths), qual_bits, want_uncertain=False,
-                    panel_shards=shards, group=group,
-                )
+            step = _step_for(steps, instrument, signature, want_uncertain=False, panel_shards=shards, group=group)
             step.follow(blob, ccb, qcb)
             batches += 1
     dist.barrier(group=group.setup)
     close_panel_group()
     return batches
 
+
+def lead_row(device="cuda") -> int:
+    """A row leader's whole run (row r > 0, column 0): take rank 0's
+    instrument and this rank's shards, then for every batch receive the
+    row's slice of it from rank 0, broadcast it to the row's followers,
+    run the whole decode step on it (K3, K1/K6 on whole panels, K8 merged
+    within the row on sharded ones, K4, K5) and send its decision rows and
+    counter vector back to rank 0; write nothing. Returns the number of
+    batches led."""
+    group = panel_group(device)
+    instrument, shards = share_instrument(None, group)
+    segments = len(instrument.used_segments)
+    steps: dict = {}
+    batches = 0
+    with torch.no_grad():
+        while True:
+            header = _header(group, segments, grid=True)
+            command, padded_n, qual_code, qcb_len, ccb_len, uncertain, *widths = header
+            if command == STOP:
+                _header(group, segments, header)
+                break
+            qual_bits = _QUAL_BITS[qual_code]
+            share = padded_n // group.rows
+            blob = torch.empty(
+                (share, wire.h2d_blob_bytes(widths, qual_bits)), dtype=torch.uint8, device=group.transport
+            )
+            _collective(dist.recv, blob, 0, group=group.leaders)
+            books = _receive_books(group, qcb_len, ccb_len, grid=True)
+            blob = blob.to(group.device)
+            qcb, ccb = (None if t is None else t.to(group.device) for t in books)
+            signature = (share, tuple(widths), qual_bits)
+            send_batch(group, signature, blob, ccb, qcb)
+            step = _step_for(steps, instrument, signature, want_uncertain=bool(uncertain), panel_shards=shards,
+                             group=group)
+            out, flat = step(blob, ccb, qcb)
+            for tensor in (out, flat):
+                _collective(dist.send, tensor.to(group.transport), 0, group=group.leaders)
+            batches += 1
+    dist.barrier(group=group.setup)
+    close_panel_group()
+    return batches

@@ -27,11 +27,16 @@ rows of one pinned buffer on its card's stream, with one event per card
 for the staging buffer and one for the results, on the CPU as on CUDA.
 The counters of the slices add in float64 in slice order.
 
-``PHENIQS_TP="1:P"`` (device/distributed.py) runs this engine on rank 0
-of P: its instrument is compiled on the CPU and shared with the follower
-ranks, which hold the other shards of each large PAMLD panel
-(device/tp.py); each batch's wire blob is broadcast to them before the
-step runs.
+``PHENIQS_TP="R:P"`` (device/distributed.py) runs this engine on rank 0
+of the R x P grid: its instrument is compiled on the CPU and shared with
+the other ranks, which hold the other shards of each large PAMLD panel
+(device/tp.py). With R = 1 each batch's wire blob is broadcast to rank
+0's row before the step runs. With R > 1 the staging rows are padded to a
+multiple of R and cut into R contiguous slices: rank 0 uploads only its
+own, sends the others from the staging rows to their row leaders
+(``tp.scatter_rows``), runs its row's step, and takes the other rows'
+decision rows and counters back into its pinned buffers
+(``tp.gather_rows``); the rows' counters add in float64 in row order.
 """
 
 from __future__ import annotations
@@ -76,15 +81,15 @@ class TorchDeviceEngine(StrictEngine):
 
     def __init__(self, ontology: dict, hybrid: bool = False, device="cuda", devices=None):
         tp = tp_shape()
+        #: the grid group of a PHENIQS_TP run (this engine is its rank 0),
+        #: joined first: a world of the wrong size fails before the host set-up
+        self._panel = None if tp is None else panel_group(resolve_device(device))
         super().__init__(ontology)
         self.hybrid = hybrid
-        #: the panel group of a PHENIQS_TP run (this engine is its rank 0)
-        self._panel = None
         self._shards: dict = {}
         if tp is not None:
             from ..device.tp import share_instrument
 
-            self._panel = panel_group(resolve_device(device))
             if not self._panel.leader:
                 raise RuntimeError("a PHENIQS_TP follower rank runs device.tp.follow, not an engine")
             self.device = self._panel.device
@@ -92,6 +97,7 @@ class TorchDeviceEngine(StrictEngine):
                 compile_instrument(ontology, "cpu"), self._panel
             )
             self.devices = [self.device]
+            self._slices = self._panel.rows
         else:
             self.devices = reads_devices(device if devices is None else devices, ontology.get("devices"))
             self.device = self.devices[0]
@@ -99,6 +105,7 @@ class TorchDeviceEngine(StrictEngine):
                 # kernels launch on the current device's streams and events
                 torch.cuda.set_device(self.device)
             self.instrument = compile_instrument(ontology, self.device)
+            self._slices = len(self.devices)
         #: the instrument on each device of the reads axis
         self._instruments = instruments_on(self.instrument, self.devices)
         if self.device.type == "cuda":
@@ -225,8 +232,9 @@ class TorchDeviceEngine(StrictEngine):
         signature (host only: runs on the ingest thread ahead of
         dispatch). Returns (signature, blob, staging key)."""
         n = batch.size
-        # a whole number of rows for each slice of the reads axis
-        padded_n = _round_up(max(_round_up(n, 1024), 1024), len(self.devices))
+        # a whole number of rows for each slice of the reads axis (each
+        # card's, or each row's of a PHENIQS_TP grid)
+        padded_n = _round_up(max(_round_up(n, 1024), 1024), self._slices)
         # pin the batch-size bucket after the first (full) batch so the
         # last partial batch reuses the same step and staging buffers
         if self._pad_bucket is None or padded_n > self._pad_bucket:
@@ -311,6 +319,8 @@ class TorchDeviceEngine(StrictEngine):
             self._stage_add("h2d", time.perf_counter() - mark)
             with torch.no_grad():
                 return step.launch(pieces, *self._codebooks())
+        if self._slices > 1:
+            return self._dispatch_grid(signature, key, step)
         mark = time.perf_counter()
         device_blob = self._upload(blob, key)
         self._stage_add("h2d", time.perf_counter() - mark)
@@ -332,6 +342,51 @@ class TorchDeviceEngine(StrictEngine):
         host_counters = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
         host_blob.copy_(out_blob, non_blocking=True)
         host_counters.copy_(flat, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host_blob, host_counters, [done]
+
+    def _dispatch_grid(self, signature, key, step):
+        """One batch over the rows of a PHENIQS_TP grid (R > 1): the other
+        rows' slices go from the staging rows to their leaders, rank 0's
+        own slice up to its card, its row's step runs, and the other rows'
+        results come back into rank 0's pinned buffers: (host blob, (R, L)
+        host counters, [done event]) as ``ShardedDecodeStep.launch``
+        returns them (no event on the CPU)."""
+        from ..device.tp import gather_rows, scatter_rows, send_batch
+
+        rows = self._staging[key][0]
+        share = rows.shape[0] // self._slices
+        ccb, qcb = self._codebooks()
+        mark = time.perf_counter()
+        scatter_rows(self._panel, signature, rows, ccb, qcb, want_uncertain=self.hybrid)
+        self._stage_add("tp_scatter", time.perf_counter() - mark)
+        mark = time.perf_counter()
+        own = rows[:share]
+        cuda = self.device.type == "cuda"
+        if cuda:
+            own = own.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            self._staging_events[key] = [event]
+        else:
+            # the CPU step reads the rows synchronously within dispatch
+            self._staging_events.pop(key, None)
+        self._stage_add("h2d", time.perf_counter() - mark)
+        mark = time.perf_counter()
+        send_batch(self._panel, (share, *signature[1:]), own, ccb, qcb)
+        self._stage_add("tp_broadcast", time.perf_counter() - mark)
+        with torch.no_grad():
+            out_blob, flat = step(own, ccb, qcb)
+        host_blob = torch.empty(out_blob.numel() * self._slices, dtype=torch.uint8, pin_memory=cuda)
+        host_counters = torch.empty((self._slices, flat.numel()), dtype=flat.dtype, pin_memory=cuda)
+        host_blob[: out_blob.numel()].copy_(out_blob, non_blocking=True)
+        host_counters[0].copy_(flat, non_blocking=True)
+        mark = time.perf_counter()
+        gather_rows(self._panel, host_blob, host_counters)
+        self._stage_add("tp_gather", time.perf_counter() - mark)
+        if not cuda:
+            return host_blob, host_counters, None
         done = torch.cuda.Event()
         done.record()
         return host_blob, host_counters, [done]
@@ -436,7 +491,7 @@ class TorchDeviceEngine(StrictEngine):
         without autograd. PHENIQS_PROFILE=<dir> wraps the run in
         torch.profiler (host ops, and the card's kernels and copies on CUDA)
         and writes its Chrome trace into <dir>. A PHENIQS_TP run ends by
-        releasing the follower ranks."""
+        releasing every other rank of the grid."""
         profile_dir = os.environ.get("PHENIQS_PROFILE")
         with torch.no_grad():
             if not profile_dir:

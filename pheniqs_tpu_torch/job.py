@@ -6,8 +6,10 @@ Modes: --validate (describe only), --compile (emit compiled instruction),
 ``--fidelity fast`` or ``hybrid`` classifies on the port's device engines,
 on the device named by ``PHENIQS_TORCH_DEVICE`` (default ``cuda``; ``cpu``
 runs every kernel's plain version); ``strict`` runs the strict f64
-engines. Under ``PHENIQS_TP="1:P"`` rank 0 runs the job and the other
-ranks only follow its device steps (device/tp.py).
+engines. Under ``PHENIQS_TP="R:P"`` rank 0 runs the job; the leader of
+each other row of the grid decodes its row's slices of rank 0's batches
+(``device.tp.lead_row``) and every other rank follows its row's device
+steps (``device.tp.follow``).
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ class TranscodeJob:
         stderr = stderr if stderr is not None else sys.stderr
 
         if os.environ.get("PHENIQS_TP"):
-            from .device.distributed import is_leader, tp_shape
+            from .device.distributed import is_leader, is_row_leader, tp_shape
 
             tp_shape()
             if (
@@ -66,9 +68,9 @@ class TranscodeJob:
                     "PHENIQS_TP shards the device engines' panels: run with --fidelity fast or hybrid"
                 )
             if not is_leader():
-                from .device.tp import follow
+                from .device.tp import follow, lead_row
 
-                follow(torch_device())
+                (lead_row if is_row_leader() else follow)(torch_device())
                 return
 
         self.compiler.assemble()

@@ -176,24 +176,25 @@ def test_fast_counters_match(fast_case):
 
 @pytest.mark.parametrize("case,item", [("mdd", "K6"), ("large", "K7"), ("tp", "K8")])
 def test_unported_configurations_refuse(case, item, monkeypatch):
-    """What the port has no path for raises NotImplementedError naming its
-    ROADMAP item, never a silent torch fallback: reads data parallelism
-    inside the PHENIQS_TP mesh (R > 1, ROADMAP A.3; K8's panel sharding runs
-    at R = 1). MDD decoders (K6) and panels above LARGE_PANEL_B (K7), which
-    the first slice refused, run through the decode step."""
+    """Configurations the first slice refused now run, never through a
+    silent torch fallback: MDD decoders (K6) and panels above LARGE_PANEL_B
+    (K7) through the decode step; the PHENIQS_TP grid with R > 1 (K8 over
+    the rows, tests/test_torch_grid.py), whose engine refuses a world that
+    is not R * P ranks before it joins any group."""
+    from pheniqs_tpu_torch.device import distributed
     from pheniqs_tpu_torch.device.instrument import LARGE_PANEL_B, compile_instrument
-    from pheniqs_tpu_torch.device.step import check_supported
     from pheniqs_tpu_torch.engine.device import TorchDeviceEngine
     from test_device_classify import make_mdd_ontology, make_pamld_ontology, random_panel, simulate_reads
 
     rng = np.random.default_rng(2)
     if case == "tp":
-        monkeypatch.setenv("PHENIQS_TP", "2:2")
-        for call in (lambda: TorchDeviceEngine({}, hybrid=True, device="cpu"), check_supported):
-            with pytest.raises(NotImplementedError, match=rf"ROADMAP A\.3.*{item}"):
-                call()
-        monkeypatch.setenv("PHENIQS_TP", "1:2")
-        check_supported()
+        monkeypatch.setattr(distributed, "_GROUP", None)
+        monkeypatch.setenv("WORLD_SIZE", "1")
+        for shape in ("2:2", "1:2"):
+            monkeypatch.setenv("PHENIQS_TP", shape)
+            assert distributed.tp_shape() == tuple(int(x) for x in shape.split(":"))
+            with pytest.raises(ValueError, match=rf"PHENIQS_TP={shape} needs .* ranks.*WORLD_SIZE is 1"):
+                TorchDeviceEngine({}, hybrid=True, device="cpu")
         return
     if case == "mdd":
         panel = random_panel(rng, 8, 8)
@@ -202,7 +203,6 @@ def test_unported_configurations_refuse(case, item, monkeypatch):
         panel = random_panel(rng, 1100, 12)
         sample = make_pamld_ontology(panel)
     instrument = compile_instrument({"sample": sample, "input segment cardinality": 1}, "cpu")
-    check_supported()
     dec = instrument.decoders[0]
     assert dec.algorithm == ("mdd" if case == "mdd" else "pamld")
     assert (dec.barcode_count > LARGE_PANEL_B) == (case == "large")

@@ -3,7 +3,8 @@ tests/test_tp.py): the port's in-process merge against the single-panel
 posterior and against the JAX ``tp_posterior`` on the virtual 8-device
 mesh, the gloo merge against the in-process one, the sharded decode step
 against JAX's ``make_tp_sharded_decode_step``, and ``PHENIQS_TP=1:2`` end
-to end over two gloo ranks (``run_e2e`` and ``torchrun ... mux``).
+to end over two gloo ranks (``run_e2e`` and ``torchrun ... mux``). The
+grid with R > 1 is tests/test_torch_grid.py.
 
 Tolerances, each with its reason:
   * best0, decisions and qcfail: exact (the shift and the maxima are
@@ -23,6 +24,8 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -118,23 +121,43 @@ def _rank_env(rank: int, size: int, port: int, **extra) -> dict:
     return env
 
 
-def _run_ranks(code: str, size: int, args=(), **extra) -> list[str]:
+def _run_ranks(code: str, size: int, args=(), timeout: float = 300, **extra) -> list[str]:
     """Run `code` in `size` rank processes. The rendezvous store is held
     here, as torchrun's agent holds it, on a port bound once and kept: a
     port freed after probing could be taken by another test process before
-    rank 0 bound it, and every rank connects to this store as a client."""
+    rank 0 bound it, and every rank connects to this store as a client.
+    When a rank fails or the time runs out, every rank still running is
+    killed, so no rank is left holding the others."""
     store = torch.distributed.TCPStore("localhost", 0, world_size=size, is_master=True, wait_for_workers=False)
     port = store.port
+    files = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")) for _ in range(size)]
     procs = [
         subprocess.Popen(
             [sys.executable, "-c", code, *args], env=_rank_env(rank, size, port, **extra),
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            stdout=out, stderr=err, text=True,
         )
-        for rank in range(size)
+        for rank, (out, err) in enumerate(files)
     ]
-    outputs = [proc.communicate(timeout=300) for proc in procs]
-    for proc, (_, err) in zip(procs, outputs):
-        assert proc.returncode == 0, err[-3000:]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(proc.poll() is None for proc in procs):
+            if any(proc.returncode for proc in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    outputs = []
+    for rank, (proc, (out, err)) in enumerate(zip(procs, files)):
+        out.seek(0)
+        err.seek(0)
+        outputs.append((out.read(), err.read()))
+        out.close()
+        err.close()
+    for rank, (proc, (_, err)) in enumerate(zip(procs, outputs)):
+        assert proc.returncode == 0, f"rank {rank} of {size} exited {proc.returncode}:\n{err[-3000:]}"
     return [out for out, _ in outputs]
 
 
@@ -316,11 +339,14 @@ def test_tp_hybrid_decisions_match_strict(tmp_path):
 
 
 def test_tp_reads_axis_refuses(monkeypatch):
-    """R > 1 (reads data parallel inside the mesh) is ROADMAP A.3."""
+    """R > 1 (reads data parallel inside the grid) is accepted since the
+    grid was ported; an axis of no ranks is refused with the value named."""
     from pheniqs_tpu_torch.device.distributed import tp_shape
 
     monkeypatch.setenv("PHENIQS_TP", "2:4")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.3"):
+    assert tp_shape() == (2, 4)
+    monkeypatch.setenv("PHENIQS_TP", "0:4")
+    with pytest.raises(ValueError, match=r"PHENIQS_TP=0:4"):
         tp_shape()
     monkeypatch.setenv("PHENIQS_TP", "1:4")
     assert tp_shape() == (1, 4)
