@@ -17,8 +17,9 @@
                                      # imported from tree T, a copy of
                                      # another commit inside this checkout
 
-It drives five paths of the port, all on the flagship read layout
-(150 + 8 + 8 + 26 nt, RTA3 qualities): the flagship (PAMLD 96 sample
+It drives six paths of the port, all on the flagship read layout
+(150 + 8 + 8 + 26 nt, RTA3 qualities; the wide flagship's segment 3 is
+106 nt): the wide flagship (a 96-nt cellular panel), the flagship (PAMLD 96 sample
 barcodes, PAMLD 384 cell barcodes, naive UMI), the MDD flagship (its sample
 decoder MDD at distance tolerance [1, 1]), the whitelist flagship (its
 cellular panel a 737,280-barcode 16 nt whitelist) and the panel-sharded
@@ -78,6 +79,23 @@ any failure propagates and the exit code is not 0:
                   timed once each; and K8 at the whitelist over P = 2 and
                   4 shards in one process, held to K7 and to its plain
                   version, per shard timed
+  3b. wide        the inputs the kernels once refused, N=131072: K1 at
+                  W = 65-300 (its MAXW 128 and looped instances) on 96 and
+                  384 barcodes, K7 at 96 x 4096 and K8 over two shards of
+                  it, each launched twice (identical), its decisions
+                  bit-equal to the tile-order twin and apart from the plain
+                  version only on near ties in f64 or at a threshold both
+                  flag (wide_pamld_entry, wide_k8_entry); K6 at 9 and 12
+                  segments of 80 and 130 positions, K3's programs of ~3,000
+                  and ~10,000 ints staged and read in place, K4 and K5 at
+                  33 and 64 decoders and K5's rows in place, byte-exact
+                  (their edge cases also in the kernels phase); each timed
+                  beside its bound (the kernels line's extra.wide); the
+                  wide flagship (a 96-nt cellular barcode) hybrid identical
+                  to strict on 20k reads, its f64 re-resolution rate beside
+                  the bound's prediction, its launches, and fast against
+                  strict on 200k reads, every record apart a near tie; the
+                  same on its 4096-barcode variant on fewer reads
   4. decisions    the hybrid port (streamed engine, forked render workers)
                   identical to the strict f64 engine: on 200k flagship
                   reads, on 200k MDD-flagship reads and on 20k reads of a
@@ -239,6 +257,9 @@ PATH_KERNELS = {
     "tp leader": ("unpack_tokens", "pamld_classify", "pamld_panel_sharded", "counters", "pack_outputs"),
     "tp row leader": ("unpack_tokens", "pamld_classify", "pamld_panel_sharded", "counters", "pack_outputs"),
     "tp follower": ("unpack_tokens", "pamld_panel_sharded"),
+    # the wide phase's flagship variants (96-nt cellular barcodes)
+    "wide": ("unpack_tokens", "pamld_classify", "counters", "pack_outputs"),
+    "wide K7": ("unpack_tokens", "pamld_classify", "pamld_chunked", "counters", "pack_outputs"),
 }
 
 
@@ -463,7 +484,8 @@ def flagship_blob(ontology, instrument, n: int, seed: int, short: float = 0.0, p
     qual = np.concatenate([q.ravel() for _, q, _ in used])
     pairs = np.unique((code.astype(np.int64) & 15) << 8 | np.minimum(qual, 63))
     ccb, qcb, lut_idx, lut_exact = wire.sense_joint_codebook(pairs)
-    widths = [8, 8, 28]
+    # each segment's wire lane in whole 4-position steps ([8, 8, 28] on the flagship)
+    widths = [-(-c.shape[1] // 4) * 4 for c, _, _ in used]
     blob = wire.pack_h2d_blob(widths, used, batch["qcfail"], qual_bits=wire.JOINT4,
                               qual_lut=(lut_idx, lut_exact))
     blob[-512:] = 0
@@ -521,6 +543,54 @@ def gather_blob(n: int, mode, seed: int = 9):
     return instrument, layout, program, blob, ccb, qcb
 
 
+def program_blob(n: int, count: int, seed: int = 11):
+    """gather_blob's shape for a token program past 2048 ints: three
+    decoders of `count` token plans in all over two j4 wire segments (24 +
+    32; negative starts, reverse complement, several plans into one
+    observation segment): (instrument, layout, program, blob, ccb, qcb)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from pheniqs_tpu_torch.device import wire
+    from pheniqs_tpu_torch.device.instrument import DeviceDecoder, TokenPlan
+    from pheniqs_tpu_torch.kernels import unpack
+
+    rng = np.random.default_rng(seed)
+    widths = [24, 32]
+    segments = [(rng.choice(np.array([1, 2, 4, 8, 15], np.uint8), size=(n, w)),
+                 rng.choice(np.array([2, 23, 37], np.uint8), size=(n, w)),
+                 rng.integers(0, w + 1, size=n).astype(np.int32)) for w in widths]
+    decoders = []
+    for d in range(3):
+        plans = [TokenPlan(p % 2, (p % 20) - (6 if p % 7 == 0 else 0), p % 20 + 1 + p % 3, bool(p % 4),
+                           p % 5 == 0, p % 6, 1 + p % 3) for p in range(d, count, 3)]
+        out = [sum(plan.width for plan in plans if plan.output_segment_index == k) for k in range(6)]
+        decoders.append(DeviceDecoder("mdd" if d == 1 else "pamld", "cellular", d, True, plans, out))
+    instrument = SimpleNamespace(decoders=decoders)
+    # 15 (code, quality) pairs: the j4 codebook holds them all
+    pairs = np.unique(np.concatenate([(c.astype(np.int64) << 8 | q).ravel() for c, q, _ in segments]))
+    ccb, qcb, lut_idx, lut_exact = wire.sense_joint_codebook(pairs)
+    cuda = torch.device("cuda")
+    blob = wire.pack_h2d_blob(widths, segments, rng.random(n) < 0.05, qual_bits=wire.JOINT4,
+                              qual_lut=(lut_idx, lut_exact))
+    layout = unpack.token_layout(instrument, widths, wire.JOINT4)
+    return (instrument, layout, torch.from_numpy(layout.program).to(cuda), torch.from_numpy(blob).to(cuda),
+            torch.from_numpy(ccb).to(cuda), torch.from_numpy(qcb).to(cuda))
+
+
+def forced_program(layout, row_bytes: int, staged: bool):
+    """K3's plan for `layout` with its program staged or read in place as
+    asked (block_plan's stage_program), put in the layout's cache so the
+    wrapper launches it. Returns the plan."""
+    from pheniqs_tpu_torch.kernels import unpack
+
+    plan = unpack.block_plan(layout, row_bytes, stage_program=staged)
+    layout.block_plans[(row_bytes, layout.program.size)] = plan.ints()
+    return plan
+
+
 TOKEN_FIELDS = ("codes", "quals", "lengths", "short", "qcfail", "pad", "forced")
 
 
@@ -570,7 +640,9 @@ def unpack_edge_checks() -> int:
     """K3 on the ragged and unaligned cases, byte-exact against its plain
     version and across two launches: N = 0, 1, R - 1, R + 1 and 16384 + 7
     reads (R the reads a block owns) on the 6-bit and j4 wires with the
-    general gather, each also as a view 3 bytes into a larger buffer.
+    general gather, each also as a view 3 bytes into a larger buffer; and
+    token programs past 2048 ints (program_blob: ~3,000 and ~10,000),
+    each staged in shared memory and read in place (forced_program).
     Returns the cases held."""
     from pheniqs_tpu_torch.device import wire
     from pheniqs_tpu_torch.kernels import unpack
@@ -591,8 +663,19 @@ def unpack_edge_checks() -> int:
                     raise AssertionError(f"K3 edge case: the view is {rows.data_ptr() % 16} bytes off, not {offset}")
                 hold_unpack(f"{mode}-wire N={n} at offset {offset}", instrument, layout, program, rows, ccb, qcb)
                 held += 1
+    programs = []
+    for count in WIDE_PROGRAM_PLANS:
+        instrument, layout, program, blob, ccb, qcb = program_blob(16384 + 7, count)
+        for staged in (True, False):
+            forced = forced_program(layout, blob.shape[1], staged)
+            for rows in (blob, unaligned(blob, 3)):
+                hold_unpack(f"program of {program.numel()} ints {'in shared memory' if staged else 'in place'}",
+                            instrument, layout, program, rows, ccb, qcb)
+                held += 1
+        programs.append(f"{program.numel()} ints (R = {forced.reads})")
     say(f"[kernels] K3 byte-exact and two launches identical on {held} edge cases: N = 0, 1, {plan.reads - 1},"
-        f" {plan.reads + 1}, 16391 on the 6-bit and j4 wires, aligned and 3 bytes off")
+        f" {plan.reads + 1}, 16391 on the 6-bit and j4 wires, aligned and 3 bytes off; programs of"
+        f" {', '.join(programs)} in shared memory and read in place, 16391 reads aligned and 3 bytes off")
     return held
 
 
@@ -606,6 +689,8 @@ PACK_LAYOUTS = (
     ("naive last, 14 B", (("pamld", 96), ("pamld", 384), ("naive", 0)), True),
     ("9 decoders, 2 qcfail bytes", (("pamld", 1000), ("mdd", 40)) * 4 + (("naive", 0),), True),
     ("32 wide PAMLD decoders, 261 B", (("pamld", 40_000),) * 32, True),
+    ("33 decoders, two mask words, 94 B", ((("pamld", 96), ("mdd", 40), ("naive", 0)) * 11), True),
+    ("64 decoders, 183 B", ((("pamld", 96), ("mdd", 40), ("naive", 0)) * 22)[:64], True),
 )
 #: the read counts each K5 layout is held at
 PACK_READS = (0, 1, 15, 17, 255, 257, N_KERNEL - 1)
@@ -701,12 +786,14 @@ def pack_edge_checks() -> int:
     return held
 
 
-def mdd_synthetic(widths, barcodes: int, n: int, tolerance: int, qmt: int, short: float, seed: int):
+def mdd_synthetic(widths, barcodes: int, n: int, tolerance: int, qmt: int, short: float, seed: int,
+                  error_rate: float = 0.08):
     """A synthetic MDD decoder on the card (random A/C/G/T panel of
     `barcodes` x sum(widths), its last barcode a copy of its second) and
-    `n` reads drawn from it with 8 % substitutions (N among them), some cut
-    short, their rows one byte into wider buffers (unaligned views, as the
-    unpack outputs' slots are): (dec, codes, quals, lengths, qcfail)."""
+    `n` reads drawn from it with `error_rate` substitutions (N among them),
+    some segments (`short` of them) cut short, their rows one byte into
+    wider buffers (unaligned views, as the unpack outputs' slots are):
+    (dec, codes, quals, lengths, qcfail)."""
     import numpy as np
     import torch
 
@@ -718,7 +805,7 @@ def mdd_synthetic(widths, barcodes: int, n: int, tolerance: int, qmt: int, short
     panel = rng.choice(np.array([1, 2, 4, 8], np.uint8), size=(barcodes, w))
     panel[-1] = panel[1]
     reads = panel[rng.integers(barcodes, size=n)]
-    errors = rng.random((n, w)) < 0.08
+    errors = rng.random((n, w)) < error_rate
     reads[errors] = rng.choice(np.array([1, 2, 4, 8, 15], np.uint8), size=int(errors.sum()))
     quals = rng.integers(2, 41, size=(n, w)).astype(np.uint8)
     lengths = np.tile(np.array(widths, np.int32), (n, 1))
@@ -748,11 +835,13 @@ def mdd_edge_checks(n: int = N_KERNEL) -> int:
     """K6 byte-exact against its plain version and across two launches
     (classify_pair) where its design branches: the MDD flagship's panel
     with one barcode copied twice (reads equal to it decode to its lowest
-    index), and synthetic panels of 5, 24 and 64 positions (the 4-, 8- and
+    index), synthetic panels of 5, 24 and 64 positions (the 4-, 8- and
     16-word instances; 1 to 2 segments) and of 2000 barcodes (a key table
-    too large for shared memory, read from L2), at tolerance 1 and at
-    tolerance 2 with quality masking and 20 % short reads, on unaligned
-    rows of 16384 + 7 reads. Returns the cases held."""
+    too large for shared memory, read from L2), and the wide ones (WIDE_MDD:
+    9 and 12 segments of 80 and 130 positions, the 32-word and looped
+    instances), at tolerance 1 and at tolerance 2 with quality masking and
+    20 % short segments, on unaligned rows of 16384 + 7 reads. Returns the
+    cases held."""
     import dataclasses
 
     import torch
@@ -785,14 +874,19 @@ def mdd_edge_checks(n: int = N_KERNEL) -> int:
     say(f"[kernels] mdd flagship, barcode 6 copied to 41 and 91, N={n}: {pair['line']}")
     held = 1
     cases = (([5], 40), ([12, 12], 300), ([30, 34], 70), ([8, 8], 2000))
-    for widths, barcodes in cases:
-        for tolerance, qmt, cut in ((1, 0, 0.0), (2, 20, 0.2)):
-            dec, codes, quals, lengths, qcfail = mdd_synthetic(widths, barcodes, 16384 + 7, tolerance, qmt, cut,
-                                                               seed=barcodes + tolerance)
+    for widths, barcodes in cases + WIDE_MDD:
+        # the wide cases (past 8 segments or 64 positions) at 0.5 errors a
+        # read and a quality masking threshold of 5: at 8 % and 20 the
+        # tolerance would leave nothing to decode
+        wide = (widths, barcodes) in WIDE_MDD
+        for tolerance, qmt, cut in ((1, 0, 0.0), (2, 5 if wide else 20, 0.2)):
+            dec, codes, quals, lengths, qcfail = mdd_synthetic(
+                widths, barcodes, 16384 + 7, tolerance, qmt, cut, seed=barcodes + tolerance,
+                error_rate=0.5 / sum(widths) if wide else 0.08)
             short = torch.zeros(codes.shape[0], dtype=torch.bool, device=cuda)
             pair = classify_pair(dec, instrument, codes, quals, lengths, qcfail, short,
                                  pamld.empty_result(codes.shape[0], cuda))
-            say(f"[kernels] K6 W={widths} B={barcodes} tolerance {tolerance} qmt {qmt} short {cut:.0%}"
+            say(f"[kernels] K6 S={len(widths)} W={widths} B={barcodes} tolerance {tolerance} qmt {qmt} short {cut:.0%}"
                 f" N={codes.shape[0]}, unaligned rows: {pair['line']}")
             held += 1
     return held
@@ -1216,6 +1310,9 @@ K4_CASES = {
     "forced": (K4_FLAGSHIP, 4096),
     "empty": (K4_FLAGSHIP, 0),
     "ragged": (K4_FLAGSHIP, 4096 + 37),
+    # past 32 decoders: the uncertain mask in two words and more
+    "33 decoders": ((("pamld", 96, 16), ("mdd", 40, 8), ("naive", 0, 0)) * 11, 4096),
+    "64 decoders": (((("pamld", 96, 16), ("mdd", 40, 8), ("naive", 0, 0)) * 22)[:64], 4096),
 }
 
 
@@ -1384,7 +1481,8 @@ def k4_threshold_sweep(n: int = N_KERNEL) -> list:
 
 def tile_loop_report(n: int, panels) -> dict:
     """The tile loop as the card runs it (csrc/pamld.cu phq_pamld_info):
-    per instance (MAXW 16, 32, 64; classify, stage A, stage B) its
+    per instance (MAXW 16, 32, 64 and 128, and the looped one at W = 160
+    and 300; classify, stage A, stage B) its
     registers, local (spill) bytes and resident blocks per SM; threads,
     reads and barcodes a step, tiles and the slice unit; and for each panel
     of `panels` at `n` reads the slice plan as pamld_classify runs it (K1's
@@ -1396,11 +1494,12 @@ def tile_loop_report(n: int, panels) -> dict:
     from pheniqs_tpu_torch.kernels import pamld
 
     cuda = torch.device("cuda")
-    for w in (16, 32, 64):
+    for w in (16, 32, 64, 128, 160, 300):
         loop = pamld.tile_loop(w, cuda)
         parts = ", ".join(f"{name} {blocks} blocks/SM, {registers} registers, {local} B local"
                           for name, (blocks, registers, local) in loop.instances.items())
-        say(f"[kernels] tile loop MAXW={loop.maxw}: {loop.threads} threads x {loop.reads_per_block // loop.threads}"
+        instance = f"MAXW={loop.maxw}" if loop.maxw else f"looped (MAXW=0) at W={w}"
+        say(f"[kernels] tile loop {instance}: {loop.threads} threads x {loop.reads_per_block // loop.threads}"
             f" reads a block, {loop.unroll} barcodes a step, tiles of {loop.tile} barcodes, slices cut below a tile"
             f" at {loop.unit}, {loop.sms} SMs; {parts}")
     loop = pamld.tile_loop(16, cuda)
@@ -1758,13 +1857,400 @@ def k8_checks(whitelist: Whitelist, n: int = N_KERNEL) -> dict:
     return result
 
 
+# --- the wide phase: the inputs the kernels once refused -------------------
+#: K1's observation widths (65-128: the MAXW 128 instance; past 128 the
+#: looped one) and cellular panels in the wide phase
+WIDE_WIDTHS = (65, 96, 128, 160, 300)
+WIDE_PANELS = (96, 384)
+#: K7 (and K8 over two shards) at 96 positions
+WIDE_K7_PANEL = 4096
+#: K6 past 8 segments or 64 positions: (segment widths, barcodes) of 9 and
+#: 12 segments of 80 and 130 positions (the 32-word and looped instances)
+WIDE_MDD = (([9] * 8 + [8], 80), ([7] * 8 + [6] * 4, 60), ([15] * 4 + [14] * 5, 50), ([11] * 10 + [10, 10], 40))
+#: token plans of K3's programs past 2048 ints (~3,000 and ~10,000 ints)
+WIDE_PROGRAM_PLANS = (330, 1100)
+#: K4's and K5's decoder counts past 32
+WIDE_DECODERS = (33, 64)
+#: K5's rows past the shared budget (assembled in place): decoders of
+#: int32 indices, and the reads they are held at
+WIDE_PACK_IN_PLACE = (300, 4097)
+#: the wide flagship's e2e runs (W = 96): hybrid == strict, then fast
+#: against strict; the same on its 4096-barcode variant, on fewer reads
+N_WIDE_HYBRID = 20_000
+N_WIDE_FAST = 200_000
+N_WIDE_K7_HYBRID = 4_000
+N_WIDE_K7_FAST = 20_000
+
+
+def wide_decoders(n: int):
+    """(name, B, W, dec, instrument, codes, quals, qcfail, short) of each
+    wide K1/K7 case: the wide flagship's cellular decoder at each of
+    WIDE_WIDTHS x WIDE_PANELS and at WIDE_K7_PANEL x 96, on `n` of its reads
+    (j4 wire, K3's plain version)."""
+    from pheniqs_tpu_torch.device.flagship import wide_flagship_ontology
+
+    cases = [(b, w) for w in WIDE_WIDTHS for b in WIDE_PANELS] + [(WIDE_K7_PANEL, 96)]
+    for b, w in cases:
+        instrument, observations = pamld_observations(wide_flagship_ontology(b, w), n, seed=w + b)
+        dec, codes, quals, qcfail, short = observations[1]
+        yield ("pamld_chunked" if b > 1024 else "pamld_classify"), b, w, dec, instrument, codes, quals, qcfail, short
+
+
+def apart_rows(what: str, dec, codes, quals, mine: dict, other: dict, differs) -> str:
+    """The rows `differs` where two runs of one PAMLD decoder decide apart
+    at a width where sigma's f32 rounding in two orders moves a confidence
+    by ~1e-3 of itself: a row whose best barcodes differ is a near tie in
+    f64 (near_tie_rows); a row with the same best barcode sits at a
+    threshold's edge (the confidence or the noise filter), which both runs
+    must flag uncertain (the hybrid host re-resolves it). Returns the
+    line's report."""
+    apart = differs & (mine["argmax"] != other["argmax"])
+    edge = differs & ~apart
+    unflagged = int((edge & ~(mine["uncertain"] & other["uncertain"])).sum())
+    if unflagged:
+        raise AssertionError(f"{what}: {unflagged} rows decided apart at a threshold are not flagged by both")
+    ties = near_tie_rows(what, dec, codes, quals, mine["argmax"].long() - 1, other["argmax"].long() - 1, apart)
+    return f"{ties}; {int(edge.sum())} more at a threshold's edge, flagged by both"
+
+
+def wide_pamld_entry(dec, instrument, codes, quals, qcfail, short) -> dict:
+    """One wide K1/K7 case on the card: launched twice, byte-identical; the
+    sliced launches held to the one-launch instance (sliced_vs_one_launch,
+    where the panel is one tile); decisions bit-equal on every row to its
+    tile-order twin (pamld_classify_tile_order: the same sigma order, the
+    posterior's sum in another), confidences within that sum's bound
+    2*gamma(B+2) + 8u of the twin's, uncertain flags apart on at most
+    FLAG_DISAGREE_LIMIT of the rows; against the plain version (the
+    contraction F.G) every row whose decisions differ a near tie in f64
+    or a threshold's edge both flag (apart_rows), settled rows equal, and
+    confidences where the
+    decisions agree within the bound's own margin rel_eps(read) of each
+    other (at these widths sigma is ~10^3, whose f32 rounding in two orders
+    moves an ambiguous read's confidence by ~1e-4 of itself). Returns its
+    extra.wide entry."""
+    import torch
+
+    from pheniqs_tpu_torch.kernels import pamld
+
+    n, w = codes.shape
+    b = dec.barcode_count
+    name = f"K{7 if b > pamld.LARGE_PANEL_B else 1} W={w} B={b} N={n}"
+    kwargs = dict(want_uncertain=True, eps=instrument.tpq_analytic_eps, short=short)
+    mine, ms = once_ms(lambda: pamld.pamld_classify(dec, codes, quals, qcfail, tpq_constants=instrument.tpq_constants,
+                                                    **kwargs))
+    again = pamld.pamld_classify(dec, codes, quals, qcfail, tpq_constants=instrument.tpq_constants, **kwargs)
+    for key in mine:
+        if not torch.equal(mine[key], again[key]):
+            raise AssertionError(f"{name}: two launches differ in {key} on {int((mine[key] != again[key]).sum())} rows")
+    one_launch = ""
+    if b <= pamld.LARGE_PANEL_B:
+        one_launch = "; " + sliced_vs_one_launch(dec, instrument, codes, quals, qcfail, short)
+    keys = ("decoded", "argmax", "distance", "branch", "qcfail")
+    twin = pamld.pamld_classify_tile_order(dec, codes, quals, qcfail, **kwargs)
+    for key in keys:
+        if not torch.equal(mine[key], twin[key]):
+            raise AssertionError(f"{name}: {key} differs from the tile-order twin on {int((mine[key] != twin[key]).sum())}"
+                                 " rows")
+    twin_rel = float(((mine["confidence"] - twin["confidence"]).abs() / twin["confidence"].abs().clamp(min=1e-30)).max())
+    tolerance = 2.0 * pamld.gamma(b + 2) + 8.0 * pamld.U32
+    if twin_rel > tolerance:
+        raise AssertionError(f"{name}: confidence {twin_rel:.3e} of the tile-order twin's, beyond {tolerance:.3e}")
+    twin_flags = int((mine["uncertain"] != twin["uncertain"]).sum())
+    if twin_flags > int(n * FLAG_DISAGREE_LIMIT):
+        raise AssertionError(f"{name}: uncertain flags differ from the tile-order twin's on {twin_flags} rows")
+    plain, plain_ms = once_ms(lambda: pamld.pamld_classify_plain(dec, codes, quals, qcfail, **kwargs))
+    differs = torch.zeros_like(mine["uncertain"])
+    for key in keys:
+        differs |= mine[key] != plain[key]
+    ties = apart_rows(f"{name} vs plain", dec, codes, quals, mine, plain, differs)
+    settled = ~(mine["uncertain"] | plain["uncertain"])
+    for key in keys:
+        if not torch.equal(mine[key][settled], plain[key][settled]):
+            raise AssertionError(f"{name}: {key} differs from the plain version on settled rows")
+    held = ~differs & ~short
+    rel_eps, _ = pamld._uncertain_margins(dec, w, instrument.tpq_analytic_eps, quals.sum(dim=1).to(torch.float32))
+    a, c = mine["confidence"][held], plain["confidence"][held]
+    beyond = int(((a - c).abs() > rel_eps[held] * torch.maximum(a, c)).sum())
+    if beyond:
+        raise AssertionError(f"{name}: {beyond} confidences beyond rel_eps(read) of the plain version's")
+    err = float((a - c).abs().max()) if a.numel() else 0.0
+    plain_rel = float(((a - c).abs() / c.abs().clamp(min=1e-30)).max()) if a.numel() else 0.0
+    plan = pamld.plan_for(n, b, w, codes.device)
+    loop = pamld.tile_loop(w, codes.device)
+    blocks, registers, local = loop.instances["classify" if plan.slices == 1 else "stage B"]
+    moved, ops = classify_work(dec, n, w, plain)
+    entry = {"W": w, "B": b, "N": n, "instance": loop.maxw, "slices": plan.slices,
+             "launches": (1 if plan.slices == 1 else 3) + (1 if w > pamld.LOOPED_PAST else 0),
+             "ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bytes": moved, "ops": ops,
+             "registers": registers, "local_bytes": local, "blocks_per_sm": blocks,
+             "flagged": float(mine["uncertain"].float().mean()), "twin_confidence_rel": twin_rel}
+    entry["bound_ms"], entry["bound_by"] = bound(entry)
+    say(f"[wide] {name}: two launches byte-identical; decisions bit-equal to the tile-order twin (confidence max"
+        f" relative {twin_rel:.3e}, flags apart on {twin_flags} rows); vs plain {ties}, settled rows"
+        f" {float(settled.float().mean()):.4%}, confidence max relative {plain_rel:.3e} (each within rel_eps(read));"
+        f" flagged {entry['flagged']:.4%}{one_launch}; instance MAXW={loop.maxw} ({registers} registers, {local} B"
+        f" local, {blocks} blocks/SM), {entry['launches']} launches; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (one"
+        f" call each), bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+    return entry
+
+
+def wide_k8_entry(dec, instrument, codes, quals, qcfail, short, panels: int = 2) -> dict:
+    """K8 at 96 positions: the WIDE_K7_PANEL panel over `panels` shards in
+    one process, launched twice (identical), argmax equal to K7's on every
+    row, against its plain version (apart_rows; settled rows equal) and
+    its decisions bit-equal to the tile-order twin. Returns its
+    extra.wide entry (the whole K8 over its shards)."""
+    import torch
+
+    from pheniqs_tpu_torch.device import tp
+    from pheniqs_tpu_torch.kernels import pamld
+
+    n, w = codes.shape
+    label = f"K8 W={w} P={panels} B={dec.barcode_count} N={n}"
+    shards = [tp.shard_panel(dec, rank, panels) for rank in range(panels)]
+    kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True, eps=instrument.tpq_analytic_eps,
+                  short=short)
+    before = pamld.panel_sharded_launches
+    k8, ms = once_ms(lambda: pamld.pamld_classify_sharded(dec, shards, codes, quals, qcfail, **kwargs))
+    launches = pamld.panel_sharded_launches - before
+    again = pamld.pamld_classify_sharded(dec, shards, codes, quals, qcfail, **kwargs)
+    for key in k8:
+        if not torch.equal(k8[key], again[key]):
+            raise AssertionError(f"{label}: two launches differ in {key}")
+    k7 = pamld.pamld_classify(dec, codes, quals, qcfail, **kwargs)
+    if not torch.equal(k8["argmax"], k7["argmax"]):
+        raise AssertionError(f"{label}: argmax differs from K7's on {int((k8['argmax'] != k7['argmax']).sum())} rows")
+    plain, plain_ms = once_ms(lambda: pamld.pamld_classify_sharded(dec, shards, codes, quals, qcfail, plain=True,
+                                                                   **kwargs))
+    keys = ("decoded", "argmax", "distance", "branch", "qcfail")
+    differs = torch.zeros_like(k8["uncertain"])
+    for key in keys:
+        differs |= k8[key] != plain[key]
+    ties = apart_rows(f"{label} vs plain", dec, codes, quals, k8, plain, differs)
+    settled = ~(k8["uncertain"] | plain["uncertain"])
+    twin = pamld.pamld_classify_tile_order(dec, codes, quals, qcfail, want_uncertain=True,
+                                           eps=instrument.tpq_analytic_eps, short=short)
+    for key in keys:
+        if not torch.equal(k8[key][settled], plain[key][settled]):
+            raise AssertionError(f"{label}: {key} differs from the plain version's on settled rows")
+        if not torch.equal(k8[key], twin[key]):
+            raise AssertionError(f"{label}: {key} differs from the tile-order twin on {int((k8[key] != twin[key]).sum())}"
+                                 " rows")
+    moved, ops = classify_work(dec, n, w, plain)
+    entry = {"W": w, "B": dec.barcode_count, "N": n, "shards": panels, "ms": ms, "plain_ms": plain_ms,
+             "bytes": moved, "ops": ops, "launches": launches}
+    entry["bound_ms"], entry["bound_by"] = bound(entry)
+    say(f"[wide] {label}: two launches identical; argmax = K7's on every row; vs plain {ties}; decisions bit-equal to"
+        f" the tile-order twin; whole K8 {ms:.4f} ms in {launches} launches, plain {plain_ms:.4f} ms (one call each), bound"
+        f" {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+    return entry
+
+
+def wide_checks(n: int = N_KERNEL) -> dict:
+    """The wide phase's kernel checks and times at `n` reads, each row on
+    its own line: K1 at WIDE_WIDTHS x WIDE_PANELS, K7 at 96 x WIDE_K7_PANEL
+    and K8 over two shards of it (wide_pamld_entry, wide_k8_entry); K6's
+    WIDE_MDD cases timed (byte-exact: classify_pair); K3's programs past
+    2048 ints staged and in place (byte-exact: hold_unpack); K4 and K5 at
+    WIDE_DECODERS (byte-exact: k4_hold, hold_pack) and K5's rows in place.
+    The edge cases of each are held in the kernels phase. Returns {kernel:
+    [extra.wide entries]}."""
+    import torch
+
+    from pheniqs_tpu_torch.kernels import pack, pamld, unpack
+
+    cuda = torch.device("cuda")
+    entries = {name: [] for name in KERNELS}
+    k7_case = None
+    for name, b, w, dec, instrument, codes, quals, qcfail, short in wide_decoders(n):
+        entries[name].append(wide_pamld_entry(dec, instrument, codes, quals, qcfail, short))
+        if b > pamld.LARGE_PANEL_B:
+            k7_case = (dec, instrument, codes, quals, qcfail, short)
+    entries["pamld_panel_sharded"].append(wide_k8_entry(*k7_case))
+    for widths, barcodes in (WIDE_MDD[0], WIDE_MDD[-1]):
+        dec, codes, quals, lengths, qcfail = mdd_synthetic(widths, barcodes, n, 2, 5, 0.2, seed=barcodes,
+                                                           error_rate=0.5 / sum(widths))
+        short = torch.zeros(n, dtype=torch.bool, device=cuda)
+        pair = classify_pair(dec, None, codes, quals, lengths, qcfail, short, pamld.empty_result(n, cuda))
+        moved, ops = classify_work(dec, n, sum(widths), pair["plain"])
+        entry = {"S": len(widths), "W": sum(widths), "B": barcodes, "N": n, "ms": pair["ms"],
+                 "plain_ms": pair["plain_ms"], "bytes": moved, "ops": ops, "launches": 1}
+        entry["bound_ms"], entry["bound_by"] = bound(entry)
+        entries["mdd_classify"].append(entry)
+        say(f"[wide] K6 S={len(widths)} W={sum(widths)} B={barcodes} tolerance 2 qmt 5 short 20% N={n}: {pair['line']};"
+            f" kernel {pair['ms']:.4f} ms, plain {pair['plain_ms']:.4f} ms (one call), bound {entry['bound_ms']:.4f} ms"
+            f" ({entry['bound_by']})")
+    for count in WIDE_PROGRAM_PLANS:
+        instrument, layout, program, blob, ccb, qcb = program_blob(n, count)
+        for staged in (True, False):
+            plan = forced_program(layout, blob.shape[1], staged)
+            where = "in shared memory" if staged else "read in place"
+            tokens = hold_unpack(f"program of {program.numel()} ints {where} N={n}", instrument, layout, program, blob,
+                                 ccb, qcb)
+            ms = event_ms(lambda: unpack.unpack_tokens(instrument, layout, program, blob, ccb, qcb))
+            _, plain_ms = once_ms(lambda: unpack.unpack_tokens_plain(instrument, layout, blob, ccb=ccb, qcb=qcb))
+            moved = nbytes(blob, program, *(getattr(tokens, field) for field in TOKEN_FIELDS))
+            entry = {"program_ints": program.numel(), "staged": staged, "N": n, "reads_per_block": plan.reads,
+                     "ms": ms, "plain_ms": plain_ms, "bytes": moved, "launches": 1}
+            entry["bound_ms"], entry["bound_by"] = bound(entry)
+            entries["unpack_tokens"].append(entry)
+            say(f"[wide] K3 program of {program.numel()} ints {where} (R = {plan.reads}, {plan.shared_bytes} shared"
+                f" bytes), N={n}: byte-exact, two launches identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+                f" bound {entry['bound_ms']:.4f} ms (bytes)")
+    for d in WIDE_DECODERS:
+        decoders = ((("pamld", 96, 16), ("mdd", 40, 8), ("naive", 0, 0)) * 22)[:d]
+        instrument, arrays = k4_case(f"{d} decoders", n, decoders=decoders)
+        rows, pad, forced = k4_tensors(arrays, cuda)
+        k4_hold(f"K4 {d} decoders N={n}", instrument, rows, pad, forced)
+        from pheniqs_tpu_torch.kernels import counters
+
+        entry = {"decoders": d, "N": n, "launches": 1, "bytes": k4_bytes(instrument, n),
+                 "ms": event_ms(lambda: counters.counters(instrument, rows, pad, forced, True)),
+                 "plain_ms": once_ms(lambda: counters.counters_plain(instrument, rows, pad, forced, True))[1]}
+        entry["bound_ms"], entry["bound_by"] = bound(entry)
+        entries["counters"].append(entry)
+        instrument, decisions, forced = pack_case([(a, b) for a, b, _ in decoders], n, d, cuda)
+        hold_pack(f"{d} decoders N={n}", instrument, decisions, forced, True)
+        plan = pack.pack_plan(instrument, True)
+        pentry = {"decoders": d, "N": n, "launches": 1, "row_bytes": plan.layout["total"], "reads_per_block": plan.reads,
+                  "bytes": pack_bytes(plan, d, n, True),
+                  "ms": event_ms(lambda: pack.pack_outputs(instrument, decisions, forced, True)),
+                  "plain_ms": once_ms(lambda: pack.pack_outputs_plain(instrument, decisions, forced, True))[1]}
+        pentry["bound_ms"], pentry["bound_by"] = bound(pentry)
+        entries["pack_outputs"].append(pentry)
+        say(f"[wide] {d} decoders N={n}: K4 byte-exact, two launches identical, kernel {entry['ms']:.4f} ms, plain"
+            f" {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms; K5 ({plan.layout['total']} B a row, R ="
+            f" {plan.reads}) byte-exact, kernel {pentry['ms']:.4f} ms, plain {pentry['plain_ms']:.4f} ms, bound"
+            f" {pentry['bound_ms']:.4f} ms")
+    d, m = WIDE_PACK_IN_PLACE
+    instrument, decisions, forced = pack_case((("pamld", 40_000),) * d, m, d, cuda)
+    hold_pack(f"{d} decoders, rows in place, N={m}", instrument, decisions, forced, True)
+    plan = pack.pack_plan(instrument, True)
+    if plan.staged:
+        raise AssertionError(f"K5 {d} decoders: {plan.layout['total']} B rows staged")
+    say(f"[wide] K5 {d} decoders ({plan.layout['total']} B a row, assembled in place), N={m}: byte-exact, two launches"
+        f" identical, nothing written past the span")
+    return entries
+
+
+def wide_predicted(ontology, n: int = 16384) -> float:
+    """The hybrid re-resolution share the bound predicts for `ontology`'s
+    reads: the share of a batch of the same distribution (synthetic_batch,
+    another seed) that the plain versions flag uncertain, short rows
+    included."""
+    import torch
+
+    from pheniqs_tpu_torch.kernels import pamld
+
+    instrument, observations = pamld_observations(ontology, n, seed=5)
+    flagged = torch.zeros(n, dtype=torch.bool, device=observations[0][1].device)
+    for dec, codes, quals, qcfail, short in observations:
+        flagged |= pamld.pamld_classify_plain(dec, codes, quals, qcfail, want_uncertain=True,
+                                              eps=instrument.tpq_analytic_eps, short=short)["uncertain"]
+    return float(flagged.float().mean())
+
+
+def fast_near_ties(label: str, ontology, n: int, threads: int) -> str:
+    """The fast port (f32, no re-resolution) against the strict f64 engine
+    on `n` reads of a wide flagship: every record whose cellular barcode
+    (CB) differs between the two is a near tie in f64 between the two
+    barcodes (pamld.tie_gaps on the read's observation, parsed from the
+    FASTQ); the other differing records (a filter or the confidence
+    threshold decided apart) at most WIDE_DISAGREE_LIMIT of the reads."""
+    import numpy as np
+    import torch
+
+    from pheniqs_tpu_torch.benchmark import run_e2e, sam_decisions, synthesize_fastq_input
+    from pheniqs_tpu_torch.device.instrument import compile_instrument
+    from pheniqs_tpu_torch.iupac import encode_ascii
+    from pheniqs_tpu_torch.kernels import pamld
+
+    tag = label.replace(" ", "_").replace("=", "")
+    paths = synthesize_fastq_input(os.path.join(WORK, f"fast_{tag}"), n, ontology=ontology)
+    strict_sam, fast_sam = os.path.join(WORK, "wide_strict.sam"), os.path.join(WORK, "wide_fast.sam")
+    run_e2e(paths, strict_sam, fidelity="strict", threads=threads, batch_size=min(16384, -(-n // threads)),
+            device="cuda", ontology=ontology)
+    stats = run_e2e(paths, fast_sam, fidelity="fast", threads=threads, batch_size=BATCH, device="cuda",
+                    ontology=ontology)
+    strict, fast = sam_decisions(strict_sam), sam_decisions(fast_sam)
+    os.unlink(strict_sam)
+    os.unlink(fast_sam)
+    if len(strict) != n or len(fast) != n:
+        raise AssertionError(f"{label} fast: record counts {len(strict)} / {len(fast)}")
+
+    def barcode(record):
+        return next((field[5:] for field in record if field.startswith("CB:Z:")), None)
+
+    differ = [i for i in range(n) if strict[i] != fast[i]]
+    apart = [i for i in differ if barcode(strict[i]) and barcode(fast[i]) and barcode(strict[i]) != barcode(fast[i])]
+    other = len(differ) - len(apart)
+    if other > int(n * WIDE_DISAGREE_LIMIT):
+        raise AssertionError(f"{label} fast: {other} records differ other than by their cellular barcode")
+    ties = "no record differs by its cellular barcode"
+    if apart:
+        cuda = torch.device("cuda")
+        dec = compile_instrument(ontology, cuda).decoders[2]
+        w = dec.width
+        index = {word: k for k, word in enumerate(
+            "".join("ACGT"[[1, 2, 4, 8].index(c)] for c in row) for row in dec.panel_codes_u8.cpu().numpy())}
+        with open(paths[3], "rb") as stream:
+            lines = stream.read().split(b"\n")
+        codes = np.stack([encode_ascii(lines[4 * i + 1][:w].decode()) for i in apart]).astype(np.uint8)
+        quals = np.stack([np.frombuffer(lines[4 * i + 3][:w], np.uint8) - 33 for i in apart]).astype(np.uint8)
+        first = torch.tensor([index[barcode(strict[i])] for i in apart], device=cuda)
+        second = torch.tensor([index[barcode(fast[i])] for i in apart], device=cuda)
+        gap, window = pamld.tie_gaps(dec, torch.from_numpy(codes).to(cuda), torch.from_numpy(quals).to(cuda), first,
+                                     second)
+        if not bool((gap <= window).all()):
+            raise AssertionError(f"{label} fast: {int((gap > window).sum())} records differ by their cellular barcode"
+                                 " beyond a near tie in f64")
+        ties = (f"{len(apart)} records differ by their cellular barcode, each a near tie in f64 (largest gap"
+                f" {float((gap / window).max()):.3f} of the window)")
+    return (f"fast against strict on {n} {label} reads: {len(differ)} records differ; {ties}; {other} otherwise (at"
+            f" most {int(n * WIDE_DISAGREE_LIMIT)}); fast {stats['reads_per_s']:.0f} reads/s over {stats['wall_s']} s")
+
+
+def wide_e2e(card: str, threads: int) -> dict:
+    """The wide flagship (a 96-nt cellular barcode: K1's MAXW 128 instance)
+    through the engine: hybrid identical to strict on N_WIDE_HYBRID reads,
+    its f64 re-resolution rate beside the rate the bound predicts
+    (wide_predicted; RESOLVED_LIMIT does not apply: the bound flags nearly
+    every confident read at this width), its kernel launches (counts set to
+    0 just before the run); fast against strict on N_WIDE_FAST reads, every
+    record apart a near tie (fast_near_ties); the same two on the
+    WIDE_K7_PANEL variant (K7) on fewer reads. Returns the hybrid runs'
+    launches summed."""
+    from pheniqs_tpu_torch.device.flagship import wide_flagship_ontology
+    from pheniqs_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    total = {name: 0 for name in KERNELS}
+    runs = (("wide flagship", wide_flagship_ontology(), N_WIDE_HYBRID, N_WIDE_FAST, "wide"),
+            (f"wide flagship B={WIDE_K7_PANEL}", wide_flagship_ontology(WIDE_K7_PANEL), N_WIDE_K7_HYBRID,
+             N_WIDE_K7_FAST, "wide K7"))
+    for label, ontology, n_hybrid, n_fast, path in runs:
+        predicted = wide_predicted(ontology)
+        reset_launch_counts()
+        stats = decisions_vs_strict(label, ontology, n_hybrid, threads, resolved_limit=None)
+        counts = launch_counts()
+        missing = [name for name in PATH_KERNELS[path] if counts[name] <= 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
+        say(f"[wide] {card} | {label} hybrid: identical to strict on {n_hybrid} reads; f64 re-resolution rate"
+            f" {stats['resolved_fraction']:.4%}, predicted from the bound {predicted:.4%}; launches {json.dumps(counts)}")
+        for name, count in counts.items():
+            total[name] += count
+        say(f"[wide] {card} | {fast_near_ties(label, ontology, n_fast, threads)}")
+    return total
+
+
 def decisions_vs_strict(label: str, ontology, n: int, threads: int, fidelity: str = "hybrid", limit: int = 0,
-                        keep_strict: bool = False):
+                        keep_strict: bool = False, resolved_limit: float | None = RESOLVED_LIMIT):
     """The port's SAM decisions against the strict f64 engine's on `n`
     reads of `ontology`: hybrid identical, re-resolving at most
-    RESOLVED_LIMIT of them; fast (no re-resolution) differing in at most
-    `limit` records. With `keep_strict`, returns (input paths, the strict
-    SAM's path) and keeps that file."""
+    `resolved_limit` of them (None: any share); fast (no re-resolution)
+    differing in at most `limit` records. With `keep_strict`, returns
+    (input paths, the strict SAM's path) and keeps that file; else the
+    port's run's stats."""
     from pheniqs_tpu_torch.benchmark import run_e2e, sam_decisions, synthesize_fastq_input
 
     paths = synthesize_fastq_input(os.path.join(WORK, f"decisions_{label.replace(' ', '_')}"), n, ontology=ontology)
@@ -1783,8 +2269,8 @@ def decisions_vs_strict(label: str, ontology, n: int, threads: int, fidelity: st
     if mismatches > limit:
         raise AssertionError(f"{label}: {mismatches} {fidelity} decisions differ from strict (at most {limit})")
     resolved = stats.get("resolved_fraction", 0.0)
-    if resolved > RESOLVED_LIMIT:
-        raise AssertionError(f"{label}: f64 re-resolution rate {resolved} above {RESOLVED_LIMIT}")
+    if resolved_limit is not None and resolved > resolved_limit:
+        raise AssertionError(f"{label}: f64 re-resolution rate {resolved} above {resolved_limit}")
     say(f"[decisions] {fidelity} port against strict on {n} {label} reads: {mismatches} records differ"
         f" (at most {limit}); f64 re-resolution rate {resolved:.4%};"
         f" classified fraction {stats['classified_fraction']}")
@@ -1792,6 +2278,7 @@ def decisions_vs_strict(label: str, ontology, n: int, threads: int, fidelity: st
     if keep_strict:
         return paths, strict_sam
     os.unlink(strict_sam)
+    return stats
 
 
 def throughput(card: str, threads: int, whitelist: Whitelist) -> tuple[dict, list]:
@@ -2663,10 +3150,10 @@ def variant_library(source: str, define: str):
     from pheniqs_tpu_torch.kernels import build
 
     path = build.CSRC / source
-    if define not in path.read_text():
+    if define.split("=")[0] not in path.read_text():
         return None
     os.makedirs(WORK, exist_ok=True)
-    target = os.path.join(WORK, f"{path.stem}.{define}.so")
+    target = os.path.join(WORK, f"{path.stem}.{define.replace('=', '_')}.so")
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS, f"-D{define}", "-shared", "-o", target, str(path)],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(target)
@@ -2675,6 +3162,40 @@ def variant_library(source: str, define: str):
             getattr(lib, name).argtypes = list(argtypes)
             getattr(lib, name).restype = ctypes.c_int
     return lib
+
+
+def wide_variant_times() -> dict:
+    """--times: K1's MAXW 128 instance at its register cap of 4 blocks/SM
+    (the build's) against a copy built with PHQ_PAMLD_BLOCKS_128=2 (no cap
+    below 255 registers), one pamld_classify call each (CUDA events, after
+    a warm-up), in turns (build, copy, copy, build), at W = 96 on the wide
+    flagship's 96- and 384-barcode panels; {} where the tree has no such
+    macro."""
+    from pheniqs_tpu_torch.device.flagship import wide_flagship_ontology
+    from pheniqs_tpu_torch.kernels import build, pamld
+
+    variant = variant_library("pamld.cu", "PHQ_PAMLD_BLOCKS_128=2")
+    if variant is None:
+        return {}
+    own = build.library()
+    times = {}
+    for b in (96, 384):
+        instrument, observations = pamld_observations(wide_flagship_ontology(b, 96), N_KERNEL, seed=b)
+        dec, codes, quals, qcfail, short = observations[1]
+        kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True, eps=instrument.tpq_analytic_eps,
+                      short=short)
+        for label, lib in (("4 blocks/SM", own), ("2 blocks/SM", variant), ("2 blocks/SM", variant),
+                           ("4 blocks/SM", own)):
+            build._LIBRARY = lib
+            pamld._TILE_LOOPS.clear()
+            pamld.pamld_classify(dec, codes, quals, qcfail, **kwargs)
+            loop = pamld.tile_loop(96, codes.device)
+            key = f"K1 W=96 B={b} {label}"
+            times.setdefault(key, {"registers": loop.instances["classify"][1], "ms": []})
+            times[key]["ms"].append(once_ms(lambda: pamld.pamld_classify(dec, codes, quals, qcfail, **kwargs))[1])
+    build._LIBRARY = own
+    pamld._TILE_LOOPS.clear()
+    return times
 
 
 def unpack_mdd_times() -> dict:
@@ -2775,6 +3296,7 @@ def kernel_times(card: str, tree: str):
     one call each with CUDA events,
     K7 and K8 at P = 2 and 4 on a synthetic panel of the whitelist's size
     (random codes from a seed); K3, K6, K4 and K5 (unpack_mdd_times); the
+    MAXW 128 instance at 4 and 2 blocks/SM (wide_variant_times); the
     plan's choice on panels of one tile (slice_rule_times); and, where the
     tree takes a plan, K1's slice unit (slice_cut_sweep). The steps are also timed with CUDA events over 10
     and, three times, over 200 back-to-back calls: their launches, not the
@@ -2833,6 +3355,7 @@ def kernel_times(card: str, tree: str):
         times[f"K8 P={panels} shard"] = once_ms(lambda: pamld.pamld_classify_sharded(
             wide, shards[:1], codes, quals, None, finish=False, **kwargs))[1]
     times.update(unpack_mdd_times())
+    times.update(wide_variant_times())
     takes_plan = "plan" in inspect.signature(pamld._classify_launches).parameters
     times.update(slice_rule_times(takes_plan))
     if takes_plan:
@@ -2911,6 +3434,12 @@ def main() -> int:
             f" {k4_wide['peak_bytes']} B")
         measured["pamld_panel_sharded"] = k8_checks(whitelist)
         lap("whitelist and K8")
+        # the inputs the kernels once refused: every extended kernel against
+        # its plain version, then the wide flagship through the engine
+        for name, entries in wide_checks().items():
+            measured[name].setdefault("extra", {})["wide"] = entries
+        wide_counts = wide_e2e(card, threads)
+        lap("wide")
         for name in KERNELS:
             m = measured[name]
             bound_ms, bound_by = bound(m)
@@ -2933,6 +3462,8 @@ def main() -> int:
         lap("throughput")
         one_row_report = os.path.join(WORK, "tp_report.json")
         for name, count in tp_run(card, tp_paths, tp_strict, threads, report=one_row_report).items():
+            counts[name] += count
+        for name, count in wide_counts.items():
             counts[name] += count
         missing = [name for name, count in counts.items() if count <= 0]
         if missing:

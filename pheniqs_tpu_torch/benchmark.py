@@ -42,6 +42,7 @@ from .device.flagship import (
     panel_codes,
     synthetic_batch,
     whitelist_flagship_ontology,
+    wide_flagship_ontology,
 )
 
 #: the paths the program runs, by name
@@ -49,6 +50,7 @@ ONTOLOGIES = {
     "flagship": flagship_ontology,
     "mdd": mdd_flagship_ontology,
     "whitelist": whitelist_flagship_ontology,
+    "wide": wide_flagship_ontology,
 }
 
 def synthesize_fastq_input(

@@ -86,7 +86,7 @@ __global__ void __launch_bounds__(PHQ_COUNTER_THREADS) phq_counters_accumulate(
     const int8_t* __restrict__ branch, const float* __restrict__ confidence,
     const uint8_t* __restrict__ qcfail, const uint8_t* __restrict__ pad,
     const uint8_t* __restrict__ forced, const uint8_t* __restrict__ uncertain,
-    unsigned uncertain_mask, int n_decoders, unsigned* __restrict__ acc,
+    const unsigned* __restrict__ uncertain_mask, int n_decoders, unsigned* __restrict__ acc,
     unsigned long long* __restrict__ wide) {
   PHQ_DYNAMIC_SMEM(smem);
   const int d = blockIdx.y;
@@ -126,8 +126,10 @@ __global__ void __launch_bounds__(PHQ_COUNTER_THREADS) phq_counters_accumulate(
     if (i < n) {
       // every load first, none behind another's value: one latency a row
       unsigned unsure = forced != nullptr ? forced[i] : 0u;
-      for (int k = 0; k < n_decoders; ++k) {
-        if ((uncertain_mask >> k) & 1u) unsure |= uncertain[(size_t)k * n + i];
+      if (uncertain_mask != nullptr) {
+        for (int k = 0; k < n_decoders; ++k) {
+          if ((uncertain_mask[k >> 5] >> (k & 31)) & 1u) unsure |= uncertain[(size_t)k * n + i];
+        }
       }
       const unsigned padded = pad[i];
       const unsigned pf = qcfail[row + i] ? 0u : 1u;
@@ -226,12 +228,14 @@ __global__ void phq_counters_finalize(int total, int n_decoders, const int* __re
 // counter_layout order, as f32 to scratch + 8 * wide_total; `scratch`
 // holds wide_total fixed-point sums and then those `total` 4-byte slots.
 // `table` is n_decoders rows of PHQ_COUNTER_FIELDS ints on the device;
-// `shared_bytes` is the largest shared histogram among them.
+// `shared_bytes` is the largest shared histogram among them;
+// `uncertain_mask` the decoders whose uncertain row counts, bit k & 31 of
+// word k >> 5 of a device array (null for none: a fast run).
 PHQ_EXPORT int phq_counters(
     int n, int n_decoders, int total, int wide_total, int shared_bytes, const void* table,
     const void* decoded, const void* argmax, const void* distance, const void* branch,
     const void* confidence, const void* qcfail, const void* pad, const void* forced,
-    const void* uncertain, unsigned uncertain_mask, void* scratch, void* stream) {
+    const void* uncertain, const void* uncertain_mask, void* scratch, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (shared_bytes > PHQ_COUNTER_SHARED_MAX) return (int)cudaErrorInvalidValue;
   unsigned long long* wide = (unsigned long long*)scratch;
@@ -250,7 +254,7 @@ PHQ_EXPORT int phq_counters(
         n, (const int*)table, (const int*)decoded, (const int*)argmax, (const int*)distance,
         (const int8_t*)branch, (const float*)confidence, (const uint8_t*)qcfail,
         (const uint8_t*)pad, (const uint8_t*)forced, (const uint8_t*)uncertain,
-        uncertain_mask, n_decoders, acc, wide);
+        (const unsigned*)uncertain_mask, n_decoders, acc, wide);
     status = cudaGetLastError();
     if (status != cudaSuccess) return (int)status;
   }

@@ -39,6 +39,11 @@
 // ptxas (sm_90a): 32 registers, no spills, no static shared memory; at
 // R = 256 and 3,584 shared bytes (the flagship) 8 blocks fit an SM, so a
 // 131072-read batch's 512 blocks are half a wave of the card's 1,056.
+// Any number of decoders: which decoders send an index, a confidence and
+// an uncertain row that counts are bit masks of ceil(D / 32) words in a
+// device array (kernels/pack.py:PackPlan.masks), and rows too wide
+// for 32 of them to fit the 48 KB (past ~1,500 bytes, some 250 decoders)
+// are assembled in place in the output, one thread a row (`staged` 0).
 #include "common.cuh"
 
 #define PHQ_PACK_MAX_READS 256
@@ -59,10 +64,15 @@ __device__ __forceinline__ void phq_pack_put(uint8_t* row, int offset, unsigned 
   }
 }
 
+// bit d of a decoder mask of `masks` words
+__device__ __forceinline__ bool phq_pack_bit(const unsigned* __restrict__ masks, int d) {
+  return (masks[d >> 5] >> (d & 31)) & 1u;
+}
+
 __global__ void __launch_bounds__(PHQ_PACK_MAX_READS) phq_pack_kernel(
-    int n, int n_decoders, unsigned decoded_mask, unsigned confidence_mask,
-    int index_size, int qcfail_bytes, int want_uncertain,
-    unsigned uncertain_mask, int total, const int* __restrict__ decoded,
+    int n, int n_decoders, const unsigned* __restrict__ decoded_mask,
+    const unsigned* __restrict__ confidence_mask, int index_size, int qcfail_bytes, int want_uncertain,
+    const unsigned* __restrict__ uncertain_mask, int total, int staged, const int* __restrict__ decoded,
     const float* __restrict__ confidence, const uint8_t* __restrict__ qcfail,
     const uint8_t* __restrict__ uncertain, const uint8_t* __restrict__ forced,
     uint8_t* __restrict__ out) {
@@ -74,16 +84,18 @@ __global__ void __launch_bounds__(PHQ_PACK_MAX_READS) phq_pack_kernel(
   const int align = (total & 3) == 0 ? 4 : (total & 1) == 0 ? 2 : 1;
   if (t < rows) {
     const size_t i = (size_t)r0 + t;
-    uint8_t* row = smem + t * total;
+    // rows [r0, r0 + R) are one 16-byte aligned span of the output, so a
+    // row in place has the alignment of its staged copy
+    uint8_t* row = staged ? smem + t * total : out + i * total;
     int offset = 0;
     for (int d = 0; d < n_decoders; ++d) {
-      if ((decoded_mask >> d) & 1u) {
+      if (phq_pack_bit(decoded_mask, d)) {
         phq_pack_put(row, offset, (unsigned)decoded[(size_t)d * n + i], index_size, align);
         offset += index_size;
       }
     }
     for (int d = 0; d < n_decoders; ++d) {
-      if ((confidence_mask >> d) & 1u) {
+      if (phq_pack_bit(confidence_mask, d)) {
         phq_pack_put(row, offset, __float_as_uint(confidence[(size_t)d * n + i]), 4, align);
         offset += 4;
       }
@@ -98,11 +110,12 @@ __global__ void __launch_bounds__(PHQ_PACK_MAX_READS) phq_pack_kernel(
     if (want_uncertain) {
       bool unsure = forced != nullptr && forced[i] != 0;
       for (int d = 0; d < n_decoders; ++d) {
-        if ((uncertain_mask >> d) & 1u) unsure = unsure || uncertain[(size_t)d * n + i] != 0;
+        if (phq_pack_bit(uncertain_mask, d)) unsure = unsure || uncertain[(size_t)d * n + i] != 0;
       }
       row[offset] = unsure ? 1 : 0;
     }
   }
+  if (!staged) return;
   __syncthreads();
 
   // the block's rows are one span of the output, 16-byte aligned
@@ -113,23 +126,25 @@ __global__ void __launch_bounds__(PHQ_PACK_MAX_READS) phq_pack_kernel(
   for (int b = 16 * words + threadIdx.x; b < span; b += reads) dst[b] = smem[b];
 }
 
-// `reads` (a multiple of 32, at most PHQ_PACK_MAX_READS) comes from
-// kernels/pack.py:pack_plan; `out` is 16-byte aligned.
+// `reads` (a multiple of 32, at most PHQ_PACK_MAX_READS) and `staged`
+// come from kernels/pack.py:pack_plan; `masks` holds its decoded,
+// confidence and uncertain masks of `mask_words` words each; `out` is
+// 16-byte aligned.
 PHQ_EXPORT int phq_pack(
-    int n, int n_decoders, unsigned decoded_mask, unsigned confidence_mask,
+    int n, int n_decoders, const void* masks, int mask_words,
     int index_size, int qcfail_bytes, int want_uncertain,
-    unsigned uncertain_mask, int total, int reads, const void* decoded,
+    int total, int reads, int staged, const void* decoded,
     const void* confidence, const void* qcfail, const void* uncertain,
     const void* forced, void* out, void* stream) {
-  if (reads < 32 || reads > PHQ_PACK_MAX_READS || reads % 32 != 0) {
+  if (reads < 32 || reads > PHQ_PACK_MAX_READS || reads % 32 != 0 || mask_words < (n_decoders + 31) / 32) {
     return (int)cudaErrorInvalidValue;
   }
-  const int shared_bytes = (reads * total + 15) / 16 * 16;
+  const int shared_bytes = staged ? (reads * total + 15) / 16 * 16 : 0;
   if (shared_bytes > 48 * 1024 || ((uintptr_t)out & 15) != 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     PHQ_LAUNCH(phq_pack_kernel, (n + reads - 1) / reads, reads, shared_bytes, (cudaStream_t)stream)(
-        n, n_decoders, decoded_mask, confidence_mask, index_size, qcfail_bytes,
-        want_uncertain, uncertain_mask, total, (const int*)decoded,
+        n, n_decoders, (const unsigned*)masks, (const unsigned*)masks + mask_words, index_size, qcfail_bytes,
+        want_uncertain, (const unsigned*)masks + 2 * mask_words, total, staged, (const int*)decoded,
         (const float*)confidence, (const uint8_t*)qcfail,
         (const uint8_t*)uncertain, (const uint8_t*)forced, (uint8_t*)out);
   }

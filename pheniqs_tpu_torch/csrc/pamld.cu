@@ -82,10 +82,22 @@
 //    W <= 16) and each step of the barcode loop PHQ_PAMLD_UNROLL barcodes, so
 //    one shared-memory load feeds every read and each thread keeps several
 //    sigma sums in flight.
+//  - Any width. An observation of up to 64 positions keeps its W match
+//    features in registers (instances MAXW 16, 32, 64). Up to 128 (MAXW
+//    128) a read keeps its qualities packed four to a word beside its codes
+//    and reads a matching position's feature from the block's 256-entry
+//    table fm[q] = tpq(q) - q (the same two f32 operations, so the same
+//    bits); past 128 (the looped instance, MAXW 0) one launch first writes
+//    each read's codes, quality words and C to device memory, word k of
+//    read i at [k * N + i], and the tile loop walks them position by
+//    position, its tile sized to the row. Both keep the sigma order above,
+//    so pamld_classify_tile_order stays their twin.
 // Kept from K1: an exact f32 sigma (products by 0 or 1 only, -fmad=false),
 // CUDA's expf, first-maximum ties (strict p > best), a runner-up that keeps
 // duplicated maxima (classify.py:_second_max), and padding columns never
 // visited.
+#include <type_traits>
+
 #include "common.cuh"
 #include <math.h>
 
@@ -101,13 +113,39 @@
 // PERF.md)
 #define PHQ_PAMLD_SLICE_UNIT 48
 
+// The MAXW 128 instance's resident blocks asked of the compiler, its
+// register cap: at 4 blocks/SM, 128 registers with some spills, against
+// 2 blocks/SM at ~234 (chip_smoke.py --times' wide_variant_times holds
+// the two). It is a kernel of its own (phq_pamld_kernel_128), so the
+// other instances keep their one-argument bound: a second argument, even
+// 1, moves their register allocation (125 -> 136 at MAXW 16), and a bound
+// of 4 x 128 threads in its place gives 64 registers and 744 B of spills.
+#ifndef PHQ_PAMLD_BLOCKS_128
+#define PHQ_PAMLD_BLOCKS_128 4
+#endif
+
+// The looped instance (MAXW 0, observations wider than 128 positions):
+// its read state lives in device memory (phq_pamld_state_kernel), its
+// positions are looped, and its tile and row size are set at run time.
+#define PHQ_PAMLD_LOOPED 0
+
 // reads a thread takes: two while the register arrays stay small
 template <int MAXW>
 struct PhqPamldShape {
-  static constexpr int reads = MAXW <= 16 ? 2 : 1;
-  static constexpr int words = MAXW / 4;  // 32-bit words of a read or a barcode row
-  static constexpr int tile_b = PHQ_PAMLD_TILE_BYTES / MAXW;
+  static constexpr int reads = MAXW != PHQ_PAMLD_LOOPED && MAXW <= 16 ? 2 : 1;
+  // 32-bit words of a read or a barcode row (the looped instance's are
+  // counted at run time: phq_pamld_row_bytes)
+  static constexpr int words = MAXW != PHQ_PAMLD_LOOPED ? MAXW / 4 : 4;
+  static constexpr int tile_b = MAXW != PHQ_PAMLD_LOOPED ? PHQ_PAMLD_TILE_BYTES / MAXW : 0;
+  // whether the read keeps its qualities packed beside its codes and reads
+  // its match features from the block's shared table fm[q] = tpq(q) - q
+  // (MAXW 128 and the looped instance) rather than keeping W of them in
+  // registers
+  static constexpr bool fm_table = MAXW == PHQ_PAMLD_LOOPED || MAXW > 64;
 };
+
+// bytes of a barcode row in the tile: whole 16-byte vectors
+__host__ __device__ __forceinline__ int phq_pamld_row_bytes(int W) { return 16 * ((W + 15) / 16); }
 
 struct PhqPamldParams {
   int n, B, W, ld_obs, short_stride;
@@ -157,13 +195,16 @@ __device__ __forceinline__ bool phq_strict(uint32_t c) {
 }
 
 // The 256-entry TPQ table in shared memory (needs a
-// __syncthreads() before it is read).
+// __syncthreads() before it is read); with FM the match features
+// tpq(q) - q instead, the same two f32 operations as PhqRead::load's.
+template <bool FM>
 __device__ __forceinline__ void phq_tpq_table(float* s_tpq, float* s_consts,
                                               const float* tpq_consts) {
   if (threadIdx.x < 24) s_consts[threadIdx.x] = tpq_consts[threadIdx.x];
   __syncthreads();
   for (int t = threadIdx.x; t < 256; t += blockDim.x) {
-    s_tpq[t] = phq_analytic_tpq(t, s_consts);
+    const float tpq = phq_analytic_tpq(t, s_consts);
+    s_tpq[t] = FM ? tpq - (float)t : tpq;
   }
 }
 
@@ -193,12 +234,14 @@ struct PhqPamldArgs {
   float* confidence;
   uint8_t* qcfail_out;
   uint8_t* uncertain;
+  // the looped instance's read state (phq_pamld_state_kernel)
+  const uint32_t* state;
   int base;
 };
 
 // Whether the observation rows and the panel can be read as 32-bit words:
 // W a multiple of 4 and every row 4-byte aligned, as the token layout's are.
-__device__ __forceinline__ bool phq_words(const PhqPamldParams& p, const PhqPamldArgs& a) {
+__host__ __device__ __forceinline__ bool phq_words(const PhqPamldParams& p, const PhqPamldArgs& a) {
   return (p.W & 3) == 0 && (p.ld_obs & 3) == 0 && ((uintptr_t)a.obs_code & 3) == 0 &&
          ((uintptr_t)a.obs_qual & 3) == 0 && ((uintptr_t)a.panel & 3) == 0;
 }
@@ -237,10 +280,14 @@ struct PhqRaw {
 // and qpos*U alone for the interleaved loop.
 template <int MAXW>
 struct PhqRead {
+  static constexpr int maxw = MAXW;
   uint32_t code[PhqPamldShape<MAXW>::words];
   float fm[MAXW];
   float c;
   float qpos_u;
+
+  // fm of position w (w a constant once the loops are unrolled)
+  __device__ __forceinline__ float fm_of(int w) const { return fm[w]; }
 
   __device__ __forceinline__ void load(const PhqPamldParams& p, const PhqRaw<MAXW>& raw,
                                        const float* s_tpq) {
@@ -271,6 +318,104 @@ struct PhqRead {
   }
 };
 
+// The MAXW 128 instance's read (64 < W <= 128): the same strict codes and
+// C, and the quality bytes packed four to a word in place of W features in
+// registers (which would pass the 255-register cap): a matching position's
+// fm is read from the block's table s_fm[q] = tpq(q) - q, the same f32
+// value PhqRead keeps, so sigma is the same bit for bit.
+template <int MAXW>
+struct PhqReadPacked {
+  static constexpr int maxw = MAXW;
+  uint32_t code[PhqPamldShape<MAXW>::words];
+  uint32_t qual[PhqPamldShape<MAXW>::words];
+  const float* s_fm;
+  const uint8_t* oc;  // the read's code row (the interleaved loop's)
+  float c;
+  float qpos_u;
+
+  __device__ __forceinline__ float fm_of(int w) const {
+    return s_fm[(qual[w >> 2] >> (8 * (w & 3))) & 0xFFu];
+  }
+
+  __device__ __forceinline__ void load(const PhqPamldParams& p, const PhqRaw<MAXW>& raw,
+                                       const float* table) {
+    s_fm = table;
+    int qpos = 0;
+    float fs_sum = 0.0f;
+#pragma unroll
+    for (int k = 0; k < PhqPamldShape<MAXW>::words; ++k) {
+      code[k] = 0u;
+      qual[k] = raw.quals[k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (4 * k + j < p.W) {
+          const uint32_t cw = (raw.codes[k] >> (8 * j)) & 0xFFu;
+          const int q = (int)((raw.quals[k] >> (8 * j)) & 0xFFu);
+          if (phq_strict(cw) && q > 0) {
+            code[k] |= cw << (8 * j);
+            fs_sum = fs_sum + ((float)q - p.U);
+          }
+          qpos += q > 0 ? 1 : 0;
+        }
+      }
+    }
+    qpos_u = (float)qpos * p.U;
+    c = fs_sum + qpos_u;
+  }
+};
+
+// The looped instance's read (W > 128): the strict codes and the quality
+// bytes as words in device memory, word k of read i at [k * n + i] (a warp
+// reads one word of 32 reads in one transaction), C and qpos*U beside them,
+// all written once per batch by phq_pamld_state_kernel; positions are
+// looped, and fm comes from the block's table as in PhqReadPacked.
+struct PhqReadLooped {
+  const uint32_t* code;
+  const uint32_t* qual;
+  const float* s_fm;
+  size_t n;
+  int words;
+  float c;
+  float qpos_u;
+};
+
+// The looped instance's state: per read, its strict codes, its quality
+// words, C and qpos*U (PhqReadLooped), computed as PhqRead::load does.
+// `state` holds 2 * words * n words, then n floats of C, then n of qpos*U.
+__global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_state_kernel(
+    PhqPamldParams p, const uint8_t* __restrict__ obs_code, const uint8_t* __restrict__ obs_qual,
+    int words_ok, uint32_t* __restrict__ state) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n) return;
+  const size_t n = (size_t)p.n;
+  const int words = (p.W + 3) / 4;
+  const uint8_t* oc = obs_code + (size_t)i * p.ld_obs;
+  const uint8_t* oq = obs_qual + (size_t)i * p.ld_obs;
+  int qpos = 0;
+  float fs_sum = 0.0f;
+  for (int k = 0; k < words; ++k) {
+    const uint32_t cw = phq_row_word(oc, k, p.W, words_ok != 0);
+    const uint32_t qw = phq_row_word(oq, k, p.W, words_ok != 0);
+    uint32_t kept = 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t code = (cw >> (8 * j)) & 0xFFu;
+      const int q = (int)((qw >> (8 * j)) & 0xFFu);
+      if (phq_strict(code) && q > 0) {
+        kept |= code << (8 * j);
+        fs_sum = fs_sum + ((float)q - p.U);
+      }
+      qpos += q > 0 ? 1 : 0;
+    }
+    state[k * n + i] = kept;
+    state[(words + k) * n + i] = qw;
+  }
+  float* tail = (float*)(state + 2 * words * n);
+  const float qpos_u = (float)qpos * p.U;
+  tail[i] = fs_sum + qpos_u;
+  tail[n + i] = qpos_u;
+}
+
 // word k of a barcode row held as 16-byte vectors
 template <int K>
 __device__ __forceinline__ uint32_t phq_word(const uint4* e) {
@@ -280,31 +425,49 @@ __device__ __forceinline__ uint32_t phq_word(const uint4* e) {
 
 // M: the match terms of an all-strict barcode row `e`, added in position
 // order (each a feature times 0 or 1: only the matching ones are added).
-template <int MAXW, int K>
-__device__ __forceinline__ float phq_match_from(const PhqRead<MAXW>& r, const uint4* e, int W,
-                                                float acc) {
+template <typename Read, int K>
+__device__ __forceinline__ float phq_match_from(const Read& r, const uint4* e, int W, float acc) {
+  constexpr int MAXW = Read::maxw;
   if constexpr (K < PhqPamldShape<MAXW>::words) {
     if (MAXW == 16 || 4 * K < W) {
       const uint32_t x = phq_word<K>(e) & r.code[K];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (x & (0xFu << (8 * j))) acc = acc + r.fm[4 * K + j];
+        if (x & (0xFu << (8 * j))) acc = acc + r.fm_of(4 * K + j);
       }
     }
-    return phq_match_from<MAXW, K + 1>(r, e, W, acc);
+    return phq_match_from<Read, K + 1>(r, e, W, acc);
   } else {
     return acc;
   }
 }
 
-template <int MAXW>
-__device__ __forceinline__ float phq_match(const PhqRead<MAXW>& r, const uint4* e, int W) {
-  return phq_match_from<MAXW, 0>(r, e, W, 0.0f);
+template <typename Read>
+__device__ __forceinline__ float phq_match(const Read& r, const uint4* e, int W) {
+  return phq_match_from<Read, 0>(r, e, W, 0.0f);
+}
+
+__device__ __forceinline__ float phq_match(const PhqReadLooped& r, const uint4* e, int W) {
+  const uint32_t* row = (const uint32_t*)e;
+  float acc = 0.0f;
+  for (int k = 0; k < r.words; ++k) {
+    const uint32_t x = row[k] & r.code[k * r.n];
+    if (x) {
+      const uint32_t q = r.qual[k * r.n];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (x & (0xFu << (8 * j))) acc = acc + r.s_fm[(q >> (8 * j)) & 0xFFu];
+      }
+    }
+  }
+  return acc;
 }
 
 // sigma of a barcode with codes other than A, C, G and T: per position the
 // match term, then its strictness term (q - U, from the read's quality
-// byte `oq`), then qpos*U, as the (5W, B) contraction orders them.
+// byte `oq`), then qpos*U, as the (5W, B) contraction orders them. A
+// position the read does not keep adds fm = 0 (PhqRead) or nothing (the
+// table instances), which leaves the sum as it is.
 template <int MAXW>
 __device__ __forceinline__ float phq_sigma_mixed(const PhqRead<MAXW>& r, const uint8_t* e,
                                                  const uint8_t* oq, const PhqPamldParams& p) {
@@ -314,8 +477,49 @@ __device__ __forceinline__ float phq_sigma_mixed(const PhqRead<MAXW>& r, const u
     if (w < p.W) {
       const uint32_t ew = e[w];
       const uint32_t ow = (r.code[w >> 2] >> (8 * (w & 3))) & 0xFFu;
-      if (ew == ow) acc = acc + r.fm[w];
+      if (ew == ow) acc = acc + r.fm_of(w);
       if (ow != 0u && phq_strict(ew)) acc = acc + ((float)oq[w] - p.U);
+    }
+  }
+  return acc + r.qpos_u;
+}
+
+// The MAXW 128 instance's: the same sum, its positions looped over the
+// read's rows (unrolled over its registers, the W code bytes of this
+// barcode-invariant loop would be hoisted out of the barcode loop into W
+// registers); a barcode with other codes is rare.
+template <int MAXW>
+__device__ __forceinline__ float phq_sigma_mixed(const PhqReadPacked<MAXW>& r, const uint8_t* e,
+                                                 const uint8_t* oq, const PhqPamldParams& p) {
+  float acc = 0.0f;
+#pragma unroll 1
+  for (int w = 0; w < p.W; ++w) {
+    const uint32_t ew = e[w];
+    const uint32_t q = oq[w];
+    const uint32_t code = r.oc[w];
+    const uint32_t ow = phq_strict(code) && q > 0 ? code : 0u;
+    if (ew == ow && ow != 0u) acc = acc + r.s_fm[q];
+    if (ow != 0u && phq_strict(ew)) acc = acc + ((float)q - p.U);
+  }
+  return acc + r.qpos_u;
+}
+
+__device__ __forceinline__ float phq_sigma_mixed(const PhqReadLooped& r, const uint8_t* e,
+                                                 const uint8_t* oq, const PhqPamldParams& p) {
+  float acc = 0.0f;
+  for (int k = 0; k < r.words; ++k) {
+    const uint32_t code = r.code[k * r.n];
+    const uint32_t qual = r.qual[k * r.n];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int w = 4 * k + j;
+      if (w < p.W) {
+        const uint32_t ew = e[w];
+        const uint32_t ow = (code >> (8 * j)) & 0xFFu;
+        const uint32_t q = (qual >> (8 * j)) & 0xFFu;
+        if (ew == ow && ow != 0u) acc = acc + r.s_fm[q];
+        if (ow != 0u && phq_strict(ew)) acc = acc + ((float)q - p.U);
+      }
     }
   }
   return acc + r.qpos_u;
@@ -426,9 +630,10 @@ __device__ __forceinline__ void phq_pamld_finish(
 #define PHQ_BIG_INDEX 0x40000000
 
 // Loads `count` barcode rows of W codes from `src` (global) into the tile:
-// each row as MAXW / 4 words (zero past W), the barcode's concentration
-// when `conc` is given, and whether all its codes are A, C, G or T.
-// Returns (to every thread) whether every barcode of the tile is.
+// each row as MAXW / 4 words (the looped instance: phq_pamld_row_bytes(W)
+// / 4; zero past W), the barcode's concentration when `conc` is given, and
+// whether all its codes are A, C, G or T. Returns (to every thread)
+// whether every barcode of the tile is.
 template <int MAXW>
 __device__ __forceinline__ bool phq_load_tile(const PhqPamldParams& p, const uint8_t* src,
                                               const float* conc, int count, uint4* s_rows,
@@ -437,6 +642,26 @@ __device__ __forceinline__ bool phq_load_tile(const PhqPamldParams& p, const uin
   __syncthreads();  // every thread is done with the previous tile
   const bool aligned = (p.W & 3) == 0;
   bool all_strict = true;
+  if constexpr (MAXW == PHQ_PAMLD_LOOPED) {
+    const int row_words = phq_pamld_row_bytes(p.W) / 4;
+    uint32_t* s_words = (uint32_t*)s_rows;
+    for (int b = threadIdx.x; b < count; b += blockDim.x) {
+      const uint8_t* row = src + (size_t)b * p.W;
+      bool strict = true;
+      for (int k = 0; k < row_words; ++k) {
+        const uint32_t v = 4 * k < p.W ? phq_row_word(row, k, p.W, aligned) : 0u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (4 * k + j < p.W) strict = strict && phq_strict((v >> (8 * j)) & 0xFFu);
+        }
+        s_words[(size_t)b * row_words + k] = v;
+      }
+      s_strict[b] = strict ? 1 : 0;
+      all_strict = all_strict && strict;
+      if (conc != nullptr) s_conc[b] = conc[b];
+    }
+    return __syncthreads_and(all_strict ? 1 : 0) != 0;
+  }
   for (int b = threadIdx.x; b < count; b += blockDim.x) {
     const uint8_t* row = src + (size_t)b * p.W;
     uint32_t words[WORDS];
@@ -469,26 +694,32 @@ __device__ __forceinline__ bool phq_load_tile(const PhqPamldParams& p, const uin
   return __syncthreads_and(all_strict ? 1 : 0) != 0;
 }
 
-// sigma of barcode b of the tile for read r
-template <int MAXW>
-__device__ __forceinline__ float phq_sigma(const PhqRead<MAXW>& r, const uint4* s_rows,
+// sigma of barcode b of the tile (rows of V 16-byte vectors) for read r
+template <typename Read>
+__device__ __forceinline__ float phq_sigma(const Read& r, const uint4* s_rows, int V,
                                            const uint8_t* s_strict, int b, const uint8_t* oq,
                                            const PhqPamldParams& p) {
-  constexpr int V = PhqPamldShape<MAXW>::words / 4;
   const uint4* e = s_rows + b * V;
-  if (s_strict[b]) return phq_match<MAXW>(r, e, p.W) + r.c;
-  return phq_sigma_mixed<MAXW>(r, (const uint8_t*)e, oq, p);
+  if (s_strict[b]) return phq_match(r, e, p.W) + r.c;
+  return phq_sigma_mixed(r, (const uint8_t*)e, oq, p);
 }
 
+// the read a thread keeps, by instance
+template <int MAXW>
+using PhqReadOf = typename std::conditional<
+    MAXW == PHQ_PAMLD_LOOPED, PhqReadLooped,
+    typename std::conditional<PhqPamldShape<MAXW>::fm_table, PhqReadPacked<MAXW>, PhqRead<MAXW>>::type>::type;
+
 template <int MAXW, int MODE>
-__global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
-    PhqPamldParams p, PhqPamldArgs a, int tile_b, int cut, int shift_rows) {
+__device__ __forceinline__ void phq_pamld_body(PhqPamldParams p, PhqPamldArgs a, int tile_b, int cut,
+                                               int shift_rows) {
   using Shape = PhqPamldShape<MAXW>;
   constexpr int R = Shape::reads;
-  constexpr int V = Shape::words / 4;  // 16-byte vectors of a barcode row
   constexpr int U = PHQ_PAMLD_UNROLL;
+  // 16-byte vectors of a barcode row
+  const int V = MAXW != PHQ_PAMLD_LOOPED ? Shape::words / 4 : phq_pamld_row_bytes(p.W) / 16;
   PHQ_DYNAMIC_SMEM(smem);
-  float* s_tpq = (float*)smem;                                // 256
+  float* s_tpq = (float*)smem;                                // 256 (fm with Shape::fm_table)
   float* s_conc = s_tpq + 256;                                // tile_b, rounded up to 4
   uint4* s_rows = (uint4*)(s_conc + ((tile_b + 3) & ~3));     // tile_b * V
   uint8_t* s_strict = (uint8_t*)(s_rows + (size_t)tile_b * V);  // tile_b
@@ -504,9 +735,11 @@ __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
   for (int k = 0; k < R; ++k) {
     const int i = (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x;
     row[k] = i < p.n ? i : p.n - 1;
-    raw[k].fetch(p, a.obs_code + (size_t)row[k] * p.ld_obs, a.obs_qual + (size_t)row[k] * p.ld_obs, words);
+    if constexpr (MAXW != PHQ_PAMLD_LOOPED) {
+      raw[k].fetch(p, a.obs_code + (size_t)row[k] * p.ld_obs, a.obs_qual + (size_t)row[k] * p.ld_obs, words);
+    }
   }
-  phq_tpq_table(s_tpq, s_consts, a.tpq_consts);
+  phq_tpq_table<Shape::fm_table>(s_tpq, s_consts, a.tpq_consts);
   __syncthreads();
 
   // this block's slice of the columns: cuts [s*C/S, (s+1)*C/S) of the
@@ -515,12 +748,25 @@ __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
   const int col0 = (int)((long long)blockIdx.y * units / gridDim.y) * cut;
   const int col1 = min((int)((long long)(blockIdx.y + 1) * units / gridDim.y) * cut, p.B);
 
-  PhqRead<MAXW> r[R];
+  PhqReadOf<MAXW> r[R];
   float mmin[R], smin[R], shift[R];
   PhqPosterior post[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    r[k].load(p, raw[k], s_tpq);
+    if constexpr (MAXW == PHQ_PAMLD_LOOPED) {
+      const int state_words = (p.W + 3) / 4;
+      const float* tail = (const float*)(a.state + 2 * state_words * n);
+      r[k].code = a.state + row[k];
+      r[k].qual = a.state + state_words * n + row[k];
+      r[k].s_fm = s_tpq;
+      r[k].n = n;
+      r[k].words = state_words;
+      r[k].c = tail[row[k]];
+      r[k].qpos_u = tail[n + row[k]];
+    } else {
+      r[k].load(p, raw[k], s_tpq);
+      if constexpr (Shape::fm_table) r[k].oc = a.obs_code + (size_t)row[k] * p.ld_obs;
+    }
     mmin[k] = INFINITY;
     smin[k] = INFINITY;
     shift[k] = INFINITY;
@@ -554,14 +800,14 @@ __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
             for (int u = 0; u < U; ++u) {
 #pragma unroll
               for (int k = 0; k < R; ++k) {
-                mmin[k] = fminf(mmin[k], phq_match<MAXW>(r[k], s_rows + (b + u) * V, p.W));
+                mmin[k] = fminf(mmin[k], phq_match(r[k], s_rows + (b + u) * V, p.W));
               }
             }
           }
           for (; b < count; ++b) {
 #pragma unroll
             for (int k = 0; k < R; ++k) {
-              mmin[k] = fminf(mmin[k], phq_match<MAXW>(r[k], s_rows + b * V, p.W));
+              mmin[k] = fminf(mmin[k], phq_match(r[k], s_rows + b * V, p.W));
             }
           }
         } else {
@@ -569,12 +815,12 @@ __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
             const uint4* e = s_rows + b * V;
             if (s_strict[b]) {
 #pragma unroll
-              for (int k = 0; k < R; ++k) mmin[k] = fminf(mmin[k], phq_match<MAXW>(r[k], e, p.W));
+              for (int k = 0; k < R; ++k) mmin[k] = fminf(mmin[k], phq_match(r[k], e, p.W));
             } else {
 #pragma unroll
               for (int k = 0; k < R; ++k) {
                 const uint8_t* oq = a.obs_qual + (size_t)row[k] * p.ld_obs;
-                smin[k] = fminf(smin[k], phq_sigma_mixed<MAXW>(r[k], (const uint8_t*)e, oq, p));
+                smin[k] = fminf(smin[k], phq_sigma_mixed(r[k], (const uint8_t*)e, oq, p));
               }
             }
           }
@@ -588,7 +834,7 @@ __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
               const float conc = s_conc[b + u];
 #pragma unroll
               for (int k = 0; k < R; ++k) {
-                const float s = phq_match<MAXW>(r[k], s_rows + (b + u) * V, p.W) + r[k].c;
+                const float s = phq_match(r[k], s_rows + (b + u) * V, p.W) + r[k].c;
                 post[k].add(expf(p.lam * (s - shift[k])) * conc, s, t0 + b + u);
               }
             }
@@ -599,7 +845,7 @@ __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
 #pragma unroll
           for (int k = 0; k < R; ++k) {
             const uint8_t* oq = a.obs_qual + (size_t)row[k] * p.ld_obs;
-            const float s = phq_sigma<MAXW>(r[k], s_rows, s_strict, b, oq, p);
+            const float s = phq_sigma(r[k], s_rows, V, s_strict, b, oq, p);
             post[k].add(expf(p.lam * (s - shift[k])) * conc, s, t0 + b);
           }
         }
@@ -632,6 +878,30 @@ __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
                        a.qcfail_in, a.short_flags, a.decoded, a.argmax, a.distance, a.branch,
                        a.confidence, a.qcfail_out, a.uncertain);
     }
+  }
+}
+
+template <int MAXW, int MODE>
+__global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
+    PhqPamldParams p, PhqPamldArgs a, int tile_b, int cut, int shift_rows) {
+  phq_pamld_body<MAXW, MODE>(p, a, tile_b, cut, shift_rows);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(PHQ_PAMLD_THREADS, PHQ_PAMLD_BLOCKS_128) phq_pamld_kernel_128(
+    PhqPamldParams p, PhqPamldArgs a, int tile_b, int cut, int shift_rows) {
+  phq_pamld_body<128, MODE>(p, a, tile_b, cut, shift_rows);
+}
+
+// the kernel of an instance
+typedef void (*PhqPamldKernel)(PhqPamldParams, PhqPamldArgs, int, int, int);
+
+template <int MAXW, int MODE>
+static PhqPamldKernel phq_pamld_kernel_of() {
+  if constexpr (MAXW == 128) {
+    return phq_pamld_kernel_128<MODE>;
+  } else {
+    return phq_pamld_kernel<MAXW, MODE>;
   }
 }
 
@@ -681,10 +951,27 @@ __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_merge_kernel(
                    a.confidence, a.qcfail_out, a.uncertain);
 }
 
-// dynamic shared memory of a tile of `tile_b` barcodes
-static size_t phq_pamld_smem(int maxw, int tile_b) {
+// dynamic shared memory of a tile of `tile_b` barcode rows of `row_bytes`
+static size_t phq_pamld_smem(int row_bytes, int tile_b) {
   return 256 * sizeof(float) + (size_t)((tile_b + 3) & ~3) * sizeof(float) +
-         (size_t)tile_b * maxw + (size_t)tile_b;
+         (size_t)tile_b * row_bytes + (size_t)tile_b;
+}
+
+// the most dynamic shared memory a block may take on the H100 (by opt-in)
+#define PHQ_PAMLD_SMEM_MAX (227 * 1024)
+
+// bytes of a barcode row in the tile, and barcodes a whole tile holds, of
+// the instance at observation width W
+template <int MAXW>
+static int phq_pamld_tile_row(int W) {
+  return MAXW != PHQ_PAMLD_LOOPED ? MAXW : phq_pamld_row_bytes(W);
+}
+
+template <int MAXW>
+static int phq_pamld_tile_b(int W) {
+  if (MAXW != PHQ_PAMLD_LOOPED) return PhqPamldShape<MAXW>::tile_b;
+  const int tile_b = PHQ_PAMLD_TILE_BYTES / phq_pamld_tile_row<MAXW>(W);
+  return tile_b > 0 ? tile_b : 1;
 }
 
 template <int MAXW, int MODE>
@@ -695,13 +982,20 @@ static int phq_pamld_launch(const PhqPamldParams& p, const PhqPamldArgs& a, int 
   // slice of it, is loaded once
   const int units = (p.B + cut - 1) / cut;
   const long long widest = (long long)((units + slices - 1) / slices) * cut;
-  int tile_b = Shape::tile_b;
+  int tile_b = phq_pamld_tile_b<MAXW>(p.W);
   if (widest < tile_b) tile_b = widest > 0 ? (int)widest : 1;
-  const size_t smem = phq_pamld_smem(MAXW, tile_b);
+  const size_t smem = phq_pamld_smem(phq_pamld_tile_row<MAXW>(p.W), tile_b);
   // one name for the instance: a template argument list's comma would
   // split the launch macro's arguments
-  void (*kernel)(PhqPamldParams, PhqPamldArgs, int, int, int) = phq_pamld_kernel<MAXW, MODE>;
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const PhqPamldKernel kernel = phq_pamld_kernel_of<MAXW, MODE>();
+  if (MAXW == PHQ_PAMLD_LOOPED && a.state == nullptr) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    // only the looped instance's tile of one row past ~47,000 positions
+    if (MAXW != PHQ_PAMLD_LOOPED || smem > PHQ_PAMLD_SMEM_MAX) return (int)cudaErrorInvalidValue;
+    const cudaError_t status =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (status != cudaSuccess) return (int)status;
+  }
   const int per_block = PHQ_PAMLD_THREADS * Shape::reads;
   const dim3 grid((p.n + per_block - 1) / per_block, slices);
   PHQ_LAUNCH(kernel, grid, PHQ_PAMLD_THREADS, smem, stream)(p, a, tile_b, cut, shift_rows);
@@ -719,18 +1013,38 @@ static int phq_pamld_dispatch(const PhqPamldParams& p, const PhqPamldArgs& a, in
   if (p.W <= 16) return phq_pamld_launch<16, MODE>(p, a, slices, cut, shift_rows, s);
   if (p.W <= 32) return phq_pamld_launch<32, MODE>(p, a, slices, cut, shift_rows, s);
   if (p.W <= 64) return phq_pamld_launch<64, MODE>(p, a, slices, cut, shift_rows, s);
-  return (int)cudaErrorInvalidValue;
+  if (p.W <= 128) return phq_pamld_launch<128, MODE>(p, a, slices, cut, shift_rows, s);
+  return phq_pamld_launch<PHQ_PAMLD_LOOPED, MODE>(p, a, slices, cut, shift_rows, s);
 }
 
-// K1, and K7 over one slice: ints and floats as phq_pamld_params reads them
+// The looped instance's read state of a batch (W > 128), written once
+// before its launches (PhqReadLooped): `state` holds (2 * ceil(W/4) + 2) * n
+// 32-bit words.
+PHQ_EXPORT int phq_pamld_state(const int* ints, const float* floats, const void* obs_code,
+                               const void* obs_qual, void* state, void* stream) {
+  const PhqPamldParams p = phq_pamld_params(ints, floats);
+  if (p.n <= 0) return (int)cudaGetLastError();
+  if (p.W <= 128) return (int)cudaErrorInvalidValue;
+  PhqPamldArgs a = {};
+  a.obs_code = (const uint8_t*)obs_code;
+  a.obs_qual = (const uint8_t*)obs_qual;
+  const int blocks = (p.n + PHQ_PAMLD_THREADS - 1) / PHQ_PAMLD_THREADS;
+  PHQ_LAUNCH(phq_pamld_state_kernel, blocks, PHQ_PAMLD_THREADS, 0, (cudaStream_t)stream)(
+      p, a.obs_code, a.obs_qual, phq_words(p, a) ? 1 : 0, (uint32_t*)state);
+  return (int)cudaGetLastError();
+}
+
+// K1, and K7 over one slice: ints and floats as phq_pamld_params reads them;
+// `state` the looped instance's (phq_pamld_state), else null
 PHQ_EXPORT int phq_pamld(
     const int* ints, const float* floats, const void* obs_code,
     const void* obs_qual, const void* qcfail_in, const void* short_flags,
-    const void* panel, const void* conc, const void* tpq_consts, void* decoded,
+    const void* panel, const void* conc, const void* tpq_consts, const void* state, void* decoded,
     void* argmax, void* distance, void* branch, void* confidence,
     void* qcfail_out, void* uncertain, void* stream) {
   const PhqPamldParams p = phq_pamld_params(ints, floats);
   PhqPamldArgs a = {};
+  a.state = (const uint32_t*)state;
   a.obs_code = (const uint8_t*)obs_code;
   a.obs_qual = (const uint8_t*)obs_qual;
   a.qcfail_in = (const uint8_t*)qcfail_in;
@@ -752,14 +1066,15 @@ PHQ_EXPORT int phq_pamld(
 // (PHQ_MODE_SLICE_POSTERIOR: reads `shift_rows` rows of `shift`, writes
 // `slices` blocks of `partials`) over the columns of `panel` and `conc`:
 // ints[1] is their count, `base` the global index of the first (K8's shard),
-// the slices cut at multiples of `cut` barcodes.
+// the slices cut at multiples of `cut` barcodes; `state` as phq_pamld's.
 PHQ_EXPORT int phq_pamld_slices(
     const int* ints, const float* floats, int mode, int base, int slices, int cut, int shift_rows,
     const void* obs_code, const void* obs_qual, const void* panel,
-    const void* conc, const void* tpq_consts, void* shift, void* partials,
+    const void* conc, const void* tpq_consts, const void* state, void* shift, void* partials,
     void* stream) {
   const PhqPamldParams p = phq_pamld_params(ints, floats);
   PhqPamldArgs a = {};
+  a.state = (const uint32_t*)state;
   a.obs_code = (const uint8_t*)obs_code;
   a.obs_qual = (const uint8_t*)obs_qual;
   a.panel = (const uint8_t*)panel;
@@ -811,17 +1126,21 @@ PHQ_EXPORT int phq_pamld_merge(
   return (int)cudaGetLastError();
 }
 
-// registers, local (spill) bytes and resident blocks per SM of one instance
+// registers, local (spill) bytes and resident blocks per SM of one
+// instance at observation width W
 template <int MAXW, int MODE>
-static int phq_pamld_instance(int* out) {
-  void (*kernel)(PhqPamldParams, PhqPamldArgs, int, int, int) = phq_pamld_kernel<MAXW, MODE>;
+static int phq_pamld_instance(int W, int* out) {
+  const PhqPamldKernel kernel = phq_pamld_kernel_of<MAXW, MODE>();
   cudaFuncAttributes attributes;
   cudaError_t status = cudaFuncGetAttributes(&attributes, kernel);
   if (status != cudaSuccess) return (int)status;
+  const size_t smem = phq_pamld_smem(phq_pamld_tile_row<MAXW>(W), phq_pamld_tile_b<MAXW>(W));
+  if (smem > 48 * 1024) {
+    status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (status != cudaSuccess) return (int)status;
+  }
   int blocks = 0;
-  status = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kernel, PHQ_PAMLD_THREADS,
-      phq_pamld_smem(MAXW, PhqPamldShape<MAXW>::tile_b));
+  status = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, PHQ_PAMLD_THREADS, smem);
   if (status != cudaSuccess) return (int)status;
   out[0] = blocks;
   out[1] = attributes.numRegs;
@@ -830,37 +1149,39 @@ static int phq_pamld_instance(int* out) {
 }
 
 template <int MAXW>
-static int phq_pamld_info_for(int* out) {
+static int phq_pamld_info_for(int W, int* out) {
   int device = 0;
   cudaError_t status = cudaGetDevice(&device);
   if (status == cudaSuccess) {
     status = cudaDeviceGetAttribute(&out[3], cudaDevAttrMultiProcessorCount, device);
   }
   if (status != cudaSuccess) return (int)status;
-  out[0] = PhqPamldShape<MAXW>::tile_b;
+  out[0] = phq_pamld_tile_b<MAXW>(W);
   out[1] = PHQ_PAMLD_THREADS;
   out[2] = PHQ_PAMLD_THREADS * PhqPamldShape<MAXW>::reads;
   out[4] = MAXW;
   out[14] = PHQ_PAMLD_UNROLL;
   out[15] = PHQ_PAMLD_SLICE_UNIT;
-  int rc = phq_pamld_instance<MAXW, PHQ_MODE_CLASSIFY>(out + 5);
-  if (rc == 0) rc = phq_pamld_instance<MAXW, PHQ_MODE_SLICE_MIN>(out + 8);
-  if (rc == 0) rc = phq_pamld_instance<MAXW, PHQ_MODE_SLICE_POSTERIOR>(out + 11);
+  int rc = phq_pamld_instance<MAXW, PHQ_MODE_CLASSIFY>(W, out + 5);
+  if (rc == 0) rc = phq_pamld_instance<MAXW, PHQ_MODE_SLICE_MIN>(W, out + 8);
+  if (rc == 0) rc = phq_pamld_instance<MAXW, PHQ_MODE_SLICE_POSTERIOR>(W, out + 11);
   return rc;
 }
 
 // What the slice plan needs to know of the tile loop at observation width
 // W, in `out` (16 ints): barcodes a tile holds, threads and reads a block,
-// the card's SM count, the instance's MAXW, then for the classify, stage A
-// and stage B instances each (resident blocks per SM, registers, local
-// bytes a thread), the barcodes a step of the barcode loop takes, and the
-// least barcodes of a slice cut below a tile.
+// the card's SM count, the instance's MAXW (0: the looped instance, W >
+// 128), then for the classify, stage A and stage B instances each
+// (resident blocks per SM, registers, local bytes a thread), the barcodes
+// a step of the barcode loop takes, and the least barcodes of a slice cut
+// below a tile.
 PHQ_EXPORT int phq_pamld_info(int W, void* out) {
   int* o = (int*)out;
-  if (W <= 16) return phq_pamld_info_for<16>(o);
-  if (W <= 32) return phq_pamld_info_for<32>(o);
-  if (W <= 64) return phq_pamld_info_for<64>(o);
-  return (int)cudaErrorInvalidValue;
+  if (W <= 16) return phq_pamld_info_for<16>(W, o);
+  if (W <= 32) return phq_pamld_info_for<32>(W, o);
+  if (W <= 64) return phq_pamld_info_for<64>(W, o);
+  if (W <= 128) return phq_pamld_info_for<128>(W, o);
+  return phq_pamld_info_for<PHQ_PAMLD_LOOPED>(W, o);
 }
 
 // K1's read features, written out: F (N, 5W) f32 with, per position, the

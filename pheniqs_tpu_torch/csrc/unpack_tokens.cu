@@ -31,25 +31,28 @@
 // with negative starts and reverse complement). Where a layout's rows are
 // too wide to stage at R = 32, the plan reads the wire, or writes codes and
 // qualities, in place in device memory instead; lengths and flags are
-// always staged.
+// always staged. A program that does not fit beside the staged rows (past
+// ~50,000 ints at the flagship's rows) is read from device memory through
+// the read-only path: every thread walks the same program, so its loads
+// are broadcasts that stay in L1.
 #include "common.cuh"
 
 #define PHQ_UNPACK_HEADER 24
-#define PHQ_UNPACK_MAX_SPEC 2048
 #define PHQ_UNPACK_MAX_READS 128
 #define PHQ_SEG_INTS 5
 #define PHQ_PLAN_INTS 9
 #define PHQ_ENTRY_INTS 3
 
 // The block plan (kernels/unpack.py:BlockPlan.ints, in this order): reads
-// a block, whether the wire and the codes and qualities are staged, the
-// pitch of a staged token row (bytes) and length row (ints), the byte
-// offset of each staging area in dynamic shared memory, and its size.
+// a block, whether the wire, the codes and qualities and the program are
+// staged, the pitch of a staged token row (bytes) and length row (ints),
+// the byte offset of each staging area in dynamic shared memory, and its
+// size.
 struct PhqUnpackPlan {
-  int reads, stage_wire, stage_tokens, token_pitch, length_pitch;
+  int reads, stage_wire, stage_tokens, stage_program, token_pitch, length_pitch;
   int wire_at, codes_at, quals_at, lengths_at, short_at, flags_at, shared_bytes;
 };
-#define PHQ_UNPACK_PLAN_INTS 12
+#define PHQ_UNPACK_PLAN_INTS 13
 
 // (code, quality) of wire position `pos` of one segment.
 __device__ __forceinline__ void phq_decode_base(
@@ -177,10 +180,13 @@ __global__ void __launch_bounds__(PHQ_UNPACK_MAX_READS) phq_unpack_kernel(
     uint8_t* __restrict__ short_flags, uint8_t* __restrict__ qcfail,
     uint8_t* __restrict__ pad, uint8_t* __restrict__ forced) {
   PHQ_DYNAMIC_SMEM(smem);
-  int* s_spec = (int*)smem;
+  // the program in shared memory, or read in place (read-only loads)
+  const int* s_spec = plan.stage_program ? (const int*)smem : spec;
   __shared__ int s_ccb[16];
   __shared__ int s_qcb[16];
-  for (int t = threadIdx.x; t < spec_len; t += blockDim.x) s_spec[t] = spec[t];
+  if (plan.stage_program) {
+    for (int t = threadIdx.x; t < spec_len; t += blockDim.x) ((int*)smem)[t] = spec[t];
+  }
   if (threadIdx.x < 16) {
     // codebooks hold 16 entries, 4 on the 2-bit wire; ccb exists on j4
     // only; the 6-bit and raw layouts carry none
@@ -309,7 +315,6 @@ PHQ_EXPORT int phq_unpack_tokens(
     const void* blob, int n, int row_bytes, const void* spec, int spec_len,
     const void* ccb, const void* qcb, const int* plan_ints, void* codes, void* quals,
     void* lens, void* short_flags, void* qcfail, void* pad, void* forced, void* stream) {
-  if (spec_len > PHQ_UNPACK_MAX_SPEC) return (int)cudaErrorInvalidValue;
   PhqUnpackPlan plan;
   int* fields = (int*)&plan;
   for (int k = 0; k < PHQ_UNPACK_PLAN_INTS; ++k) fields[k] = plan_ints[k];

@@ -7,12 +7,15 @@ over a 384-barcode 16 nt panel and a naive molecular (UMI) extractor, on
 4-segment reads (150 + 8 + 8 + 26 nt). ``tests/test_torch_instrument.py``
 holds both functions identical to the originals for the same seed.
 
-Two variants run the port's other decoders on the same reads:
-``mdd_flagship_ontology`` demultiplexes samples by minimum distance (MDD,
-the bcl2fastq-style decoder Illumina index sets are designed for), and
-``whitelist_flagship_ontology`` replaces the cellular panel with a
-737,280-barcode 16 nt whitelist, the size of 10x Genomics' 3' v2
-whitelist (``737K-august-2016.txt``).
+Three variants run the port's other decoders and kernel instances on the
+same reads: ``mdd_flagship_ontology`` demultiplexes samples by minimum
+distance (MDD, the bcl2fastq-style decoder Illumina index sets are
+designed for), ``whitelist_flagship_ontology`` replaces the cellular panel
+with a 737,280-barcode 16 nt whitelist, the size of 10x Genomics' 3' v2
+whitelist (``737K-august-2016.txt``), and ``wide_flagship_ontology``
+widens the cellular barcode past the 64 positions the PAMLD kernels once
+held in registers (synthetic: no published single-cell design reads a
+barcode that long).
 """
 
 from __future__ import annotations
@@ -187,6 +190,27 @@ def whitelist_flagship_ontology(
     return ontology
 
 
+def wide_flagship_ontology(
+    cellular_barcodes: int = 384,
+    width: int = 96,
+    seed: int = 20260816,
+) -> dict:
+    """The flagship with a `width`-nt cellular barcode: segment 3 becomes
+    `width` + 10 nt (the barcode, then the 10 nt UMI), the cellular decoder
+    a PAMLD panel of `cellular_barcodes` random `width`-mers drawn from
+    `seed` (noise and random barcode probability the flagship's), token
+    "3::`width`", the UMI "3:`width`:`width + 10`". The sample decoder is the
+    flagship's PAMLD 96 dual-index 8+8 nt. ``synthetic_batch`` draws
+    segment 3 from the cellular panel's width."""
+    ontology = flagship_ontology(96, 1, seed)
+    cellular = ontology["cellular"][0]
+    words = _unique_words(np.random.default_rng(seed + 3), cellular_barcodes, width)
+    cellular["codec"] = _codec(words, [width], cellular["noise"])
+    cellular["transform"] = {"token": [f"3::{width}"]}
+    ontology["molecular"][0]["transform"] = {"token": [f"3:{width}:{width + 10}"]}
+    return ontology
+
+
 def panel_codes(ontology: dict) -> tuple[np.ndarray, np.ndarray]:
     """(sample, cellular) (B, W) uint8 panel codes of an ontology, as
     ``synthetic_batch`` draws from them."""
@@ -205,19 +229,23 @@ def synthetic_batch(
     n: int,
     seed: int = 7,
     error_rate: float = 0.02,
-    segment_widths: tuple[int, ...] = SEGMENT_WIDTHS,
+    segment_widths: tuple[int, ...] | None = None,
     quality_binning: str | None = "rta3",
     panels: tuple[np.ndarray, np.ndarray] | None = None,
 ) -> dict:
     """Simulate a NumPy read batch drawn from the ontology's panels
     (RTA3-binned qualities by default; ``quality_binning=None`` keeps a
     rich Sanger-scale alphabet). ``panels`` is ``panel_codes(ontology)``,
-    computed once by a caller that draws many batches. Returns
+    computed once by a caller that draws many batches. The segment widths
+    are the flagship's, segment 3 the cellular panel's width + 10 (26 on
+    the flagship), unless ``segment_widths`` gives them. Returns
     ``{"segments": [(code, quality, length), ...], "qcfail": (n,) bool}``
     with int32 arrays."""
     rng = np.random.default_rng(seed)
     segments = []
     sample_codes, cell_codes = panels if panels is not None else panel_codes(ontology)
+    if segment_widths is None:
+        segment_widths = SEGMENT_WIDTHS[:3] + (cell_codes.shape[1] + 10,)
     draw_sample = sample_codes[rng.integers(sample_codes.shape[0], size=n)]
     draw_cell = cell_codes[rng.integers(cell_codes.shape[0], size=n)]
 

@@ -37,20 +37,20 @@ NVCC_FLAGS = ARCH_FLAGS + (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_U = ctypes.c_uint
 
 #: argtypes of every exported entry (csrc/*.cu); each returns cudaError_t
 SIGNATURES = {
     "phq_unpack_tokens": (_P, _I, _I, _P, _I) + (_P,) * 11,
-    "phq_pamld": (_P, _P) + (_P,) * 15,
-    "phq_pamld_slices": (_P, _P, _I, _I, _I, _I, _I) + (_P,) * 8,
+    "phq_pamld": (_P, _P) + (_P,) * 16,
+    "phq_pamld_slices": (_P, _P, _I, _I, _I, _I, _I) + (_P,) * 9,
+    "phq_pamld_state": (_P,) * 6,
     "phq_pamld_merge": (_P, _P, _I, _I, _I) + (_P,) * 16,
     "phq_pamld_info": (_I, _P),
-    "phq_mdd": (_P,) * 13,
+    "phq_mdd": (_P,) * 14,
     "phq_tpq_eval": (_P, _I, _P, _P, _P),
     "phq_features": (_P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P),
-    "phq_counters": (_I,) * 5 + (_P,) * 10 + (_U, _P, _P),
-    "phq_pack": (_I, _I, _U, _U, _I, _I, _I, _U, _I, _I) + (_P,) * 7,
+    "phq_counters": (_I,) * 5 + (_P,) * 13,
+    "phq_pack": (_I, _I, _P) + (_I,) * 7 + (_P,) * 7,
 }
 
 _LIBRARY = None

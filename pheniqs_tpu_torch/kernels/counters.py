@@ -26,11 +26,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..device.wire import counter_names
-from ..errors import ConfigurationError
-from . import MAX_DECODERS, Decisions, uncertain_mask
+from . import Decisions, mask_words, uncertain_mask
 from .pamld import BRANCH_LOW_CONFIDENCE, BRANCH_NOISE, BRANCH_PASS
 
 #: launches of the CUDA kernel in this process (one per batch, or per row
@@ -176,6 +176,17 @@ def _device_table(table: DecoderTable, device) -> torch.Tensor:
     return _TABLES[key]
 
 
+def _device_mask(mask: int, decoders: int, device):
+    """The uncertain mask's words (kernels.mask_words) on `device`, made
+    once; None for an empty mask (no decoder's uncertain row counts)."""
+    if not mask:
+        return None
+    key = ("uncertain", mask, decoders, str(device))
+    if key not in _TABLES:
+        _TABLES[key] = torch.from_numpy(mask_words(mask, decoders).view(np.int32)).to(device)
+    return _TABLES[key]
+
+
 def counters(instrument, decisions: Decisions, pad, forced, want_uncertain: bool):
     """K4: the flat (L,) counter vector of this batch (f32; float64 when
     the batch takes more than one row slice)."""
@@ -183,9 +194,6 @@ def counters(instrument, decisions: Decisions, pad, forced, want_uncertain: bool
         return counters_plain(instrument, decisions, pad, forced, want_uncertain)
     if pad.device.type != "cuda":
         raise ValueError(f"counters: unsupported device {pad.device}")
-    d = decisions.decoded.shape[0]
-    if d > MAX_DECODERS:
-        raise ConfigurationError(f"counters: {d} decoders exceed the kernel's {MAX_DECODERS}")
     rows = [getattr(decisions, f) for f in ("decoded", "argmax", "distance", "branch", "confidence", "qcfail", "uncertain")]
     if not all(t.is_contiguous() and t.device == pad.device for t in rows + [pad, forced]):
         raise ValueError("counters: the decision rows, pad and forced must be contiguous and on one device")
@@ -203,12 +211,13 @@ def _launch(instrument, decisions: Decisions, pad, forced, want_uncertain: bool)
         return torch.zeros(0, dtype=torch.float32, device=pad.device)
     # the fixed-point sums, then the counters (integers, made f32 in place)
     scratch = torch.empty(table.wide + (table.total + 1) // 2, dtype=torch.int64, device=pad.device)
+    mask = _device_mask(uncertain_mask(instrument, want_uncertain), d, pad.device)
     status = library().phq_counters(
         n, d, table.total, table.wide, table.shared_bytes, _device_table(table, pad.device).data_ptr(),
         decisions.decoded.data_ptr(), decisions.argmax.data_ptr(), decisions.distance.data_ptr(),
         decisions.branch.data_ptr(), decisions.confidence.data_ptr(), decisions.qcfail.data_ptr(),
         pad.data_ptr(), forced.data_ptr() if want_uncertain else None, decisions.uncertain.data_ptr(),
-        uncertain_mask(instrument, want_uncertain), scratch.data_ptr(),
+        None if mask is None else mask.data_ptr(), scratch.data_ptr(),
         torch.cuda.current_stream(pad.device).cuda_stream,
     )
     check(status, "counters")

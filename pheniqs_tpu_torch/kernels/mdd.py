@@ -12,7 +12,10 @@ with the f64 oracle (``pheniqs_tpu.decode.oracle.mdd_classify``).
 The kernel resolves exact matches by a lookup in the decoder's key table
 (``key_table``, built once at set-up) and scans the panel, a warp at a
 time, only for the other reads; ``mdd_classify_two_phase`` is that
-algorithm in torch, for the tests.
+algorithm in torch, for the tests. It takes any number of segments (its
+segment table, ``segment_table``, is a device array made once per decoder)
+and any width: up to 128 positions an instance keeps a read in registers,
+past it the looped instance stages it in shared memory.
 """
 
 from __future__ import annotations
@@ -20,20 +23,58 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..errors import ConfigurationError
-
 #: launches of the CUDA kernel in this process
 launches = 0
-
-#: the kernel's limits (csrc/mdd.cu)
-MAX_SEGMENTS = 8
-MAX_WIDTH = 64
 
 
 def key_words(w: int) -> int:
     """The 32-bit words the kernel packs a W-position observation into
-    (NW: its instances take 4, 8 or 16)."""
-    return 4 if w <= 16 else 8 if w <= 32 else 16
+    (NW: its register instances take 4, 8, 16 or 32; past 128 positions
+    the looped instance takes whole 16-position runs)."""
+    for nw in (4, 8, 16, 32):
+        if w <= 4 * nw:
+            return nw
+    return 4 * -(-w // 16)
+
+
+def mask_words(w: int) -> int:
+    """The 64-bit words of a segment's position mask in the segment table
+    (csrc/mdd.cu phq_mdd_mask_words): one up to 64 positions, two up to
+    128, none for the looped instance (it counts on each segment's range)."""
+    nw = key_words(w)
+    return 1 if nw <= 16 else 2 if nw == 32 else 0
+
+
+def segment_table(widths, tolerance) -> np.ndarray:
+    """K6's segment table of a decoder's observation segments `widths`
+    (side by side) and their distance `tolerance`: per segment one row of
+    int32 (start, width, tolerance, 0) followed by its position mask as
+    mask_words little-endian 64-bit words."""
+    w = sum(widths)
+    mw = mask_words(w)
+    rows = np.zeros((len(widths), 4 + 2 * mw), dtype=np.int32)
+    start = 0
+    for s, (width, tol) in enumerate(zip(widths, tolerance)):
+        rows[s, :3] = start, width, tol
+        bits = ((1 << width) - 1) << start
+        for m in range(mw):
+            rows[s, 4 + 2 * m : 6 + 2 * m] = np.array([(bits >> (64 * m)) & (2**64 - 1)], dtype=np.uint64).view(
+                np.int32)
+        start += width
+    return rows.reshape(-1)
+
+
+_SEGMENT_TABLES: dict = {}
+
+
+def _device_segments(dec, device) -> torch.Tensor:
+    """The decoder's segment table on `device`, made once."""
+    widths = tuple(dec.segment_widths)
+    tolerance = tuple(dec.distance_tolerance or (0,) * len(widths))
+    key = (widths, tolerance, str(device))
+    if key not in _SEGMENT_TABLES:
+        _SEGMENT_TABLES[key] = torch.from_numpy(segment_table(widths, tolerance)).to(device)
+    return _SEGMENT_TABLES[key]
 
 
 def pack_words(codes, nw: int):
@@ -234,13 +275,8 @@ def mdd_classify_plain(dec, obs_code, obs_qual, lengths, qcfail_in) -> dict:
 
 def _ints(dec, n: int, ld_obs: int, ld_len: int) -> np.ndarray:
     widths = list(dec.segment_widths)
-    tolerance = dec.distance_tolerance or tuple(0 for _ in widths)
-    starts = np.concatenate([[0], np.cumsum(widths)[:-1]]).astype(int)
-    ints = [n, dec.barcode_count, sum(widths), len(widths), ld_obs, ld_len,
-            dec.quality_masking_threshold, key_words(sum(widths))]
-    for start, width, tol in zip(starts, widths, tolerance):
-        ints += [int(start), width, tol]
-    return np.array(ints, dtype=np.int32)
+    return np.array([n, dec.barcode_count, sum(widths), len(widths), ld_obs, ld_len,
+                     dec.quality_masking_threshold, key_words(sum(widths))], dtype=np.int32)
 
 
 def mdd_classify(dec, obs_code, obs_qual, lengths, qcfail_in, *, out=None) -> dict:
@@ -263,11 +299,8 @@ def mdd_classify(dec, obs_code, obs_qual, lengths, qcfail_in, *, out=None) -> di
 
     n, w = obs_code.shape
     segments = len(dec.segment_widths)
-    if segments > MAX_SEGMENTS or w > MAX_WIDTH or w != sum(dec.segment_widths):
-        raise ConfigurationError(
-            f"MDD observation of {segments} segments, {w} positions: the kernel "
-            f"takes up to {MAX_SEGMENTS} segments and {MAX_WIDTH} positions"
-        )
+    if w != sum(dec.segment_widths):
+        raise ValueError(f"mdd_classify: an observation of {w} positions for segments of {dec.segment_widths}")
     for name, t in (("obs_code", obs_code), ("obs_qual", obs_qual)):
         if t.dtype != torch.uint8 or t.stride(1) != 1 or t.stride(0) != obs_code.stride(0):
             raise ValueError(f"mdd_classify: {name} must be uint8 rows of unit column stride")
@@ -293,7 +326,7 @@ def _launch(lib, dec, obs_code, obs_qual, lengths, qcfail_in, out, stream):
     status = lib.phq_mdd(
         ints.ctypes.data, obs_code.data_ptr(), obs_qual.data_ptr(),
         lengths.data_ptr(), qcfail_in.data_ptr(), dec.key_table.data_ptr(),
-        out["decoded"].data_ptr(), out["argmax"].data_ptr(),
+        _device_segments(dec, obs_code.device).data_ptr(), out["decoded"].data_ptr(), out["argmax"].data_ptr(),
         out["distance"].data_ptr(), out["branch"].data_ptr(),
         out["confidence"].data_ptr(), out["qcfail"].data_ptr(), stream,
     )

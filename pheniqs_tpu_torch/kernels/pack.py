@@ -15,11 +15,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..device.wire import d2h_layout
-from ..errors import ConfigurationError
-from . import MAX_DECODERS, Decisions, uncertain_mask
+from . import Decisions, mask_words, uncertain_mask
 from .counters import uncertain_any
 
 #: launches of the CUDA kernel in this process
@@ -31,47 +31,72 @@ MAX_BLOCK_READS = 256
 #: the shared bytes a block stages its rows in: the static limit, so no
 #: launch needs the opt-in attribute
 SHARED_BYTES = 48 * 1024
+#: the fewest reads a block stages: past SHARED_BYTES / 32 bytes a row
+#: (some 250 decoders) the rows are assembled in place
+MIN_STAGED_READS = 32
 
 
 @dataclass(frozen=True)
 class PackPlan:
     """What K5 takes for one instrument and hybrid flag: the d2h layout
     (device.wire.d2h_layout), the bit masks of the decoders with a decoded
-    index, a confidence and an uncertain row that counts, and ``reads`` a
-    block."""
+    index, a confidence and an uncertain row that counts, ``reads`` a
+    block, and whether the block stages its rows in shared memory
+    (``staged``) or assembles them in place."""
 
     layout: dict
     decoded_mask: int
     confidence_mask: int
     uncertain_mask: int
     reads: int
+    staged: bool = True
+    decoders: int = 0
 
     @property
     def shared_bytes(self) -> int:
-        return (self.reads * self.layout["total"] + 15) // 16 * 16
+        return (self.reads * self.layout["total"] + 15) // 16 * 16 if self.staged else 0
+
+    def masks(self) -> np.ndarray:
+        """The three masks as the kernel takes them: decoded, confidence,
+        uncertain, each kernels.mask_words of the decoder count, one uint32
+        array."""
+        d = self.decoders
+        return np.concatenate([mask_words(m, d) for m in (self.decoded_mask, self.confidence_mask,
+                                                           self.uncertain_mask)])
 
 
 def pack_plan(instrument, want_uncertain: bool) -> PackPlan:
     """K5's plan for `instrument`, made once and cached on it: the most
     reads a block, up to MAX_BLOCK_READS in whole warps, whose rows fit
-    SHARED_BYTES. Raises ConfigurationError past MAX_DECODERS decoders."""
+    SHARED_BYTES; where not even MIN_STAGED_READS rows fit, MAX_BLOCK_READS
+    rows assembled in place."""
     plans = instrument.pack_plans
     if want_uncertain not in plans:
-        d = len(instrument.decoders)
-        if d > MAX_DECODERS:
-            raise ConfigurationError(f"pack_outputs: {d} decoders exceed the kernel's {MAX_DECODERS}")
         layout = d2h_layout(instrument, want_uncertain)
         reads = min(MAX_BLOCK_READS, SHARED_BYTES // layout["total"] // 32 * 32)
-        # MAX_DECODERS caps a row at 261 bytes: 160 reads
-        assert reads >= 32, layout["total"]
+        staged = reads >= MIN_STAGED_READS
         plans[want_uncertain] = PackPlan(
             layout=layout,
             decoded_mask=sum(1 << k for k in layout["decoded_positions"]),
             confidence_mask=sum(1 << k for k in layout["confidence_positions"]),
             uncertain_mask=uncertain_mask(instrument, want_uncertain),
-            reads=reads,
+            reads=reads if staged else MAX_BLOCK_READS,
+            staged=staged,
+            decoders=len(instrument.decoders),
         )
     return plans[want_uncertain]
+
+
+_MASKS: dict = {}
+
+
+def _device_masks(plan: PackPlan, device) -> torch.Tensor:
+    """The plan's masks (PackPlan.masks) on `device`, made once."""
+    masks = plan.masks()
+    key = (masks.tobytes(), str(device))
+    if key not in _MASKS:
+        _MASKS[key] = torch.from_numpy(masks.view(np.int32)).to(device)
+    return _MASKS[key]
 
 
 def pack_outputs_plain(instrument, decisions: Decisions, forced, want_uncertain: bool):
@@ -104,8 +129,7 @@ def pack_outputs_plain(instrument, decisions: Decisions, forced, want_uncertain:
 
 
 def _check(instrument, decisions: Decisions, forced, want_uncertain: bool, out, device):
-    """Raise what the kernel does not take: more than MAX_DECODERS
-    decoders (ConfigurationError, from pack_plan); rows of another shape or
+    """Raise what the kernel does not take (ValueError): rows of another shape or
     dtype than (decoders, N) int32 decoded, f32 confidence and bool qcfail
     and uncertain, a forced row (when it counts) other than (N,) bool, an
     output other than (N * total,) uint8, any of them not contiguous or
@@ -137,10 +161,11 @@ def _launch(lib, instrument, decisions: Decisions, forced, want_uncertain, out, 
     plan = pack_plan(instrument, want_uncertain)
     layout = plan.layout
     d, n = decisions.decoded.shape
+    masks = _device_masks(plan, decisions.decoded.device)
     status = lib.phq_pack(
-        n, d, plan.decoded_mask, plan.confidence_mask,
+        n, d, masks.data_ptr(), masks.numel() // 3,
         layout["index_size"], layout["qcfail_bytes"], int(want_uncertain),
-        plan.uncertain_mask, layout["total"], plan.reads,
+        layout["total"], plan.reads, int(plan.staged),
         decisions.decoded.data_ptr(), decisions.confidence.data_ptr(),
         decisions.qcfail.data_ptr(), decisions.uncertain.data_ptr(),
         forced.data_ptr() if want_uncertain else None, out.data_ptr(), stream,

@@ -10,7 +10,9 @@ distance to the decoded barcode, branch, confidence, chained qcfail and
 (hybrid) the uncertain mask of the derived f32 bound. On a CUDA tensor it
 launches the kernel: one launch over a panel of one slice, else stage A
 (each slice's row minimum), stage B (each slice's partials) and the merge
-(stage C), with S slices from ``slice_plan``. On a CPU tensor it runs the
+(stage C), with S slices from ``slice_plan``; an observation of any width
+runs (instances of MAXW 16, 32, 64 and 128 keep a read in registers, a
+wider one runs the looped instance, ``instance_width``). On a CPU tensor it runs the
 plain version below, the torch port of
 ``pheniqs_tpu.device.classify.pamld_classify_device``: the monolithic
 posterior for B <= 1024, ``_posterior_chunked`` above it, and the
@@ -34,7 +36,6 @@ from ..device.instrument import (
     UNIFORM_BASE_QUALITY,
     analytic_tpq,
 )
-from ..errors import ConfigurationError
 
 #: launches of K1 in this process on panels of at most LARGE_PANEL_B
 #: barcodes: one over a panel of one slice, else stages A, B and C
@@ -59,7 +60,10 @@ F64_UNDERFLOW_SIGMA = 3233.0
 HYBRID_SAFETY = 4.0
 U32 = float(2.0**-24)
 TERM_BOUND = 13.74
-MAX_KERNEL_W = 64
+#: the widest observation of the tile loop's register instances (MAXW 16,
+#: 32, 64 and 128); wider ones run the looped instance (MAXW 0), whose read
+#: state a launch of its own writes to device memory first
+LOOPED_PAST = 128
 #: barcodes per chunk of the online posterior (classify.py:_posterior_chunked)
 POSTERIOR_CHUNK = 1024
 
@@ -406,15 +410,25 @@ def slice_plan(n: int, barcodes: int, tile: int, reads_per_block: int, slots: in
 _TILE_LOOPS: dict = {}
 
 
+def instance_width(w: int) -> int:
+    """The MAXW of the tile loop's instance for observation width `w`: 16,
+    32, 64 or 128, or 0 for the looped instance past LOOPED_PAST."""
+    for maxw in (16, 32, 64, LOOPED_PAST):
+        if w <= maxw:
+            return maxw
+    return 0
+
+
 def tile_loop(w: int, device) -> TileLoop:
     """The tile loop's facts at observation width `w` on CUDA `device`
-    (asked once per instance and card)."""
+    (asked once per instance and card; the looped instance's tile depends
+    on the row's 16-byte vectors too)."""
     from .build import check, library
 
     device = torch.device(device)
     index = torch.cuda.current_device() if device.index is None else device.index
-    maxw = 16 if w <= 16 else 32 if w <= 32 else 64
-    key = (maxw, index)
+    maxw = instance_width(w)
+    key = (maxw, -(-w // 16) if maxw == 0 else 0, index)
     if key not in _TILE_LOOPS:
         out = np.zeros(16, dtype=np.int32)
         with torch.cuda.device(index):
@@ -748,6 +762,18 @@ class _TileLoopLaunch:
             dec, w, eps, want_uncertain, obs_code.stride(0), short.stride(0) if short is not None else 0, n,
         )
         self.stream = torch.cuda.current_stream(obs_code.device).cuda_stream
+        #: the looped instance's read state (W > LOOPED_PAST), written by
+        #: one launch here: strict code words, quality words, C, qpos*U
+        self.state, self.state_ptr, self.state_launches = None, None, 0
+        if w > LOOPED_PAST and n > 0:
+            from .build import check
+
+            words = -(-w // 4)
+            self.state = torch.empty((2 * words + 2) * n, dtype=torch.int32, device=obs_code.device)
+            self.state_ptr, self.state_launches = self.state.data_ptr(), 1
+            check(self.lib.phq_pamld_state(
+                self.ints.ctypes.data, self.floats.ctypes.data, *self.obs, self.state_ptr, self.stream,
+            ), "pamld_state")
 
     def classify(self, codes_u8, concentration, out):
         """The tile loop over a panel of one slice: both passes, one launch."""
@@ -755,7 +781,7 @@ class _TileLoopLaunch:
 
         check(self.lib.phq_pamld(
             self.ints.ctypes.data, self.floats.ctypes.data, *self.obs, self.qcfail, self.short,
-            codes_u8.data_ptr(), concentration.data_ptr(), self.tpq, *_outputs(out), self.stream,
+            codes_u8.data_ptr(), concentration.data_ptr(), self.tpq, self.state_ptr, *_outputs(out), self.stream,
         ), "pamld_classify")
 
     def stage(self, mode, columns, codes_u8, concentration, plan, shift, partials=None, base=0):
@@ -771,7 +797,7 @@ class _TileLoopLaunch:
         check(self.lib.phq_pamld_slices(
             ints.ctypes.data, self.floats.ctypes.data, mode, base, plan.slices, plan.cut,
             shift.shape[0] if shift.dim() == 2 else 1, *self.obs, codes_u8.data_ptr(),
-            concentration.data_ptr(), self.tpq, shift.data_ptr(),
+            concentration.data_ptr(), self.tpq, self.state_ptr, shift.data_ptr(),
             partials.data_ptr() if partials is not None else None, self.stream,
         ), "pamld_slices")
 
@@ -825,7 +851,8 @@ def pamld_classify(
 def _classify_launches(dec, obs_code, obs_qual, qcfail_in, short, tpq_constants, want_uncertain, eps, out,
                        plan=None):
     """The tile loop's launches of one pamld_classify call, counted: one
-    launch over a panel of one slice, else stages A, B and C. `plan`, in
+    launch over a panel of one slice, else stages A, B and C (the looped
+    instance's read state one more, before them). `plan`, in
     place of the card's (plan_for), lets chip_smoke hold the sliced launches
     to the one-launch instance on the same batch and time other cuts."""
     global launches, chunked_launches
@@ -846,6 +873,7 @@ def _classify_launches(dec, obs_code, obs_qual, qcfail_in, short, tpq_constants,
                   plan, shift, partials)
         run.merge(partials, shift, dec.panel_codes_u8, out)
         count = 3
+    count += run.state_launches
     if dec.barcode_count > LARGE_PANEL_B:
         chunked_launches += count
     else:
@@ -859,11 +887,7 @@ MODE_SLICE_POSTERIOR = 2
 
 
 def _check_observation(name, obs_code, obs_qual, qcfail_in, short):
-    n, w = obs_code.shape
-    if w > MAX_KERNEL_W:
-        raise ConfigurationError(
-            f"{name}: PAMLD observation width {w} exceeds the kernels' {MAX_KERNEL_W} positions"
-        )
+    n = obs_code.shape[0]
     for label, t in (("obs_code", obs_code), ("obs_qual", obs_qual)):
         if t.dtype != torch.uint8 or t.stride(1) != 1 or t.stride(0) != obs_code.stride(0):
             raise ValueError(f"{name}: {label} must be uint8 rows of unit column stride")
@@ -933,6 +957,7 @@ def _sharded_launches(dec, shards, obs_code, obs_qual, qcfail_in, short, tpq_con
     n, w = obs_code.shape
     device = obs_code.device
     run = _TileLoopLaunch(dec, obs_code, obs_qual, qcfail_in, short, tpq_constants, want_uncertain, eps)
+    panel_sharded_launches += run.state_launches
     plans = [plan_for(n, shard.count, w, device) for shard in shards]
     minima = []
     for shard, plan in zip(shards, plans):

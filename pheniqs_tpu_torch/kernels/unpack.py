@@ -33,8 +33,6 @@ launches = 0
 RAW = "raw"
 _WIRE_MODE = {6: 6, 2: 2, 4: 4, RAW: 8, JOINT4: 16}
 _HEADER = 24
-#: the most ints of a token program the kernel holds in shared memory
-MAX_PROGRAM = 2048
 #: the reads a block owns (one thread each), most and fewest; a multiple
 #: of 16 keeps every block's output spans 16-byte aligned
 MAX_BLOCK_READS = 128
@@ -106,7 +104,8 @@ class BlockPlan:
     """How K3 stages a block's rows in shared memory for one program and
     wire row size (``block_plan``): ``reads`` rows a block; the wire rows
     (``stage_wire``) and the codes and qualities (``stage_tokens``) staged
-    or read and written in place; a staged token row ``token_pitch`` bytes
+    or read and written in place; the program (``stage_program``) in shared
+    memory or read in place; a staged token row ``token_pitch`` bytes
     and a length row ``length_pitch`` ints (odd word counts: a warp's 32
     stores to one column fall in 32 banks); each area's byte offset; and
     the dynamic shared bytes in all."""
@@ -114,6 +113,7 @@ class BlockPlan:
     reads: int
     stage_wire: bool
     stage_tokens: bool
+    stage_program: bool
     token_pitch: int
     length_pitch: int
     wire_at: int
@@ -128,7 +128,8 @@ class BlockPlan:
         """The plan as the kernel's entry takes it (csrc/unpack_tokens.cu
         PhqUnpackPlan)."""
         return np.array([
-            self.reads, int(self.stage_wire), int(self.stage_tokens), self.token_pitch, self.length_pitch,
+            self.reads, int(self.stage_wire), int(self.stage_tokens), int(self.stage_program), self.token_pitch,
+            self.length_pitch,
             self.wire_at, self.codes_at, self.quals_at, self.lengths_at, self.short_at, self.flags_at,
             self.shared_bytes,
         ], dtype=np.int32)
@@ -145,10 +146,10 @@ def _round16(size: int) -> int:
 
 
 def _areas(layout: TokenLayout, program_ints: int, row_bytes: int, reads: int, stage_wire: bool,
-           stage_tokens: bool) -> BlockPlan:
+           stage_tokens: bool, stage_program: bool = True) -> BlockPlan:
     token_pitch = _odd_words(layout.token_cols)
     length_pitch = layout.length_cols | 1 if layout.length_cols else 0
-    at = _round16(4 * program_ints)
+    at = _round16(4 * program_ints) if stage_program else 0
     offsets = {}
     sizes = (
         # the wire span may start anywhere in its first 16 bytes
@@ -162,23 +163,30 @@ def _areas(layout: TokenLayout, program_ints: int, row_bytes: int, reads: int, s
     for name, size in sizes:
         offsets[name] = at
         at += _round16(size)
-    return BlockPlan(reads, stage_wire, stage_tokens, token_pitch, length_pitch, shared_bytes=at, **offsets)
+    return BlockPlan(reads, stage_wire, stage_tokens, stage_program, token_pitch, length_pitch, shared_bytes=at,
+                     **offsets)
 
 
-def block_plan(layout: TokenLayout, row_bytes: int, program_ints: int | None = None) -> BlockPlan:
+def block_plan(layout: TokenLayout, row_bytes: int, program_ints: int | None = None,
+               stage_program: bool | None = None) -> BlockPlan:
     """The most reads a block (MAX_BLOCK_READS down to MIN_BLOCK_READS, in
     steps of 16) whose staging fits SHARED_BYTES: the program, and for
     each read its wire row, codes and qualities, lengths, short flags and
     three flags. Rows too wide to stage at MIN_BLOCK_READS are read (the
-    wire), then written (codes and qualities), in place instead, so every
-    layout runs."""
+    wire), then written (codes and qualities), in place instead. The
+    program is staged where it fits beside the rows, else read in place
+    (past ~50,000 ints beside the flagship's rows), so it never costs the
+    rows their staging; `stage_program` True or False asks for one of the
+    two (chip_smoke.py holds both). Every program runs."""
     if program_ints is None:
         program_ints = layout.program.size
+    programs = (True, False) if stage_program is None else (stage_program,)
     for stage_wire, stage_tokens in ((True, True), (False, True), (False, False)):
         for reads in range(MAX_BLOCK_READS, MIN_BLOCK_READS - 1, -16):
-            plan = _areas(layout, program_ints, row_bytes, reads, stage_wire, stage_tokens)
-            if plan.shared_bytes <= SHARED_BYTES:
-                return plan
+            for staged in programs:
+                plan = _areas(layout, program_ints, row_bytes, reads, stage_wire, stage_tokens, staged)
+                if plan.shared_bytes <= SHARED_BYTES:
+                    return plan
     raise ConfigurationError(
         f"unpack_tokens: {len(layout.slots)} decoder slots and {layout.length_cols} length columns"
         f" take more than {SHARED_BYTES} bytes of shared memory at {MIN_BLOCK_READS} reads a block"
@@ -431,10 +439,6 @@ def _launch(lib, layout: TokenLayout, program: torch.Tensor, blob, ccb, qcb, str
     """Run the kernel on `blob` (no device checks, no count)."""
     from .build import check
 
-    if program.numel() > MAX_PROGRAM:
-        raise ConfigurationError(
-            f"unpack_tokens: a token program of {program.numel()} ints exceeds the kernel's {MAX_PROGRAM}"
-        )
     n = blob.shape[0]
     tokens = _empty_tokens(layout, n, blob.device)
     key = (blob.shape[1], program.numel())

@@ -1,19 +1,31 @@
-"""The limits of the port's CUDA kernels, refused as a ConfigurationError
-when an engine is built for a card, before its first batch, with a
-message that names the limit and the decoder (kernels.kernel_limits); the
-wrappers refuse the same configurations with the same type. The plain
-versions, which the CPU runs, have none of these limits. One case per
-limit, on stand-in instruments of DeviceDecoders."""
+"""The inputs the port's CUDA kernels once refused (a PAMLD observation
+past 64 positions, MDD past 8 segments or 64 positions, a token program
+past 2048 ints, more than 32 decoders): each now has a kernel path. One
+case per former limit, on stand-in instruments of DeviceDecoders: the
+kernel's plan for it builds on the CPU (the tile loop's instance and slice
+plan, the MDD key words and segment table, K3's block plan, K4's decoder
+table and K5's masks), and its plain path runs and equals the JAX
+package's. The flagships keep the plans they had. What a kernel still
+refuses, a K3 block whose lengths and flags alone pass the shared memory
+of a block, it refuses with the typed error. The kernels themselves run
+on the card (tests/test_torch_kernels.py -m cuda, chip_smoke.py)."""
 
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from chip_smoke import k4_case, k4_tensors
+from pheniqs_tpu.device import classify as jax_classify
+from pheniqs_tpu.device.step import _counters, _unpack_h2d_blob
+from pheniqs_tpu_torch.device import wire
 from pheniqs_tpu_torch.device.flagship import flagship_ontology, mdd_flagship_ontology
 from pheniqs_tpu_torch.device.instrument import DeviceDecoder, TokenPlan, compile_instrument
 from pheniqs_tpu_torch.errors import ConfigurationError
-from pheniqs_tpu_torch.kernels import MAX_DECODERS, check_kernel_limits, kernel_limits, pamld
+from pheniqs_tpu_torch.kernels import counters, mdd, pack, pamld, unpack
 
 
 def _decoder(algorithm, widths, plans_per_segment=1, classifier="sample"):
@@ -23,7 +35,7 @@ def _decoder(algorithm, widths, plans_per_segment=1, classifier="sample"):
     plans = []
     for s, width in enumerate(widths):
         if plans_per_segment == 1:
-            plans.append(TokenPlan(0, 0, width, True, False, s, width))
+            plans.append(TokenPlan(0, sum(widths[:s]), sum(widths[: s + 1]), True, False, s, width))
         else:
             plans += [TokenPlan(0, k, k + 1, True, False, s, 1) for k in range(plans_per_segment)]
     if plans_per_segment != 1:
@@ -32,38 +44,174 @@ def _decoder(algorithm, widths, plans_per_segment=1, classifier="sample"):
 
 
 def _instrument(decoders):
-    return SimpleNamespace(decoders=decoders, used_segments=(0,))
+    return SimpleNamespace(decoders=decoders, used_segments=(0,), pack_plans={})
 
 
 CASES = {
-    "pamld width": ([_decoder("pamld", [65])], "observation width 65 exceeds the PAMLD kernels' 64"),
-    "mdd segments": ([_decoder("mdd", [4] * 9)], "9 segments exceed the MDD kernel's 8"),
-    "mdd width": ([_decoder("mdd", [40, 25])], "observation width 65 exceeds the MDD kernel's 64"),
-    "decoders": ([_decoder("naive", [])] * (MAX_DECODERS + 1), "33 decoders exceed the counter and pack kernels' 32"),
-    "program": ([_decoder("pamld", [30], plans_per_segment=30)] * 8, "beyond the unpack kernel's 2048"),
+    "pamld width": [_decoder("pamld", [65])],
+    "mdd segments": [_decoder("mdd", [4] * 9)],
+    "mdd width": [_decoder("mdd", [40, 25])],
+    "decoders": [_decoder("pamld", [8])] * 33,
+    "program": [_decoder("pamld", [30], plans_per_segment=30)] * 8,
 }
 
 
 @pytest.mark.parametrize("name", list(CASES))
-def test_instrument_check_refuses_each_limit(name):
-    decoders, message = CASES[name]
+def test_former_limit_has_a_kernel_plan(name):
+    decoders = CASES[name]
     instrument = _instrument(decoders)
-    problems = kernel_limits(instrument)
-    assert len(problems) == 1 and message in problems[0]
-    if name not in ("decoders", "program"):
-        assert problems[0].startswith(f"decoder 0 (sample {decoders[0].algorithm})")
-    with pytest.raises(ConfigurationError, match=message):
-        check_kernel_limits(instrument)
+    dec = decoders[0]
+    w = sum(dec.segment_widths)
+    if name == "pamld width":
+        assert pamld.instance_width(w) == 128 and pamld.instance_width(129) == 0
+        plan = pamld.slice_plan(131072, 384, 256, 128, 132 * 4, 48, 132 * 4)
+        assert plan.slices >= 1 and plan.columns()[-1][1] == 384
+    elif name.startswith("mdd"):
+        table = mdd.segment_table(dec.segment_widths, [1] * len(dec.segment_widths)).reshape(len(dec.segment_widths), -1)
+        words = mdd.mask_words(w)
+        assert table.shape[1] == 4 + 2 * words and list(table[:, 1]) == list(dec.segment_widths)
+        masks = table[:, 4:].copy().view(np.uint64)
+        bits = [sum(int(x) << (64 * m) for m, x in enumerate(row)) for row in masks]
+        assert sum(bin(b).count("1") for b in bits) == w and not any(a & b for a, b in zip(bits, bits[1:]))
+        assert mdd.key_words(w) == (16 if w <= 64 else 32)
+    elif name == "decoders":
+        layout = wire.d2h_layout(instrument, True)
+        plan = pack.pack_plan(instrument, True)
+        assert plan.staged and plan.masks().shape == (6,) and layout["qcfail_bytes"] == 5
+        assert len(counters.decoder_table(instrument).rows) == 33
+    else:
+        layout = unpack.token_layout(instrument, [32], wire.JOINT4)
+        assert layout.program.size > 2048
+        plan = unpack.block_plan(layout, unpack._segment_table([32], wire.JOINT4)[1] + 1)
+        assert plan.stage_program and plan.reads == unpack.MAX_BLOCK_READS
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_former_limit_plain_matches_jax(name):
+    """The case's plain path on the CPU against the JAX package on the
+    same inputs: decisions exact where neither flags a read (PAMLD;
+    confidences rtol 1e-5 there), MDD decisions, K4's integer counters
+    and K3's tokens exact."""
+    rng = np.random.default_rng(len(name))
+    decoders = CASES[name]
+    dec = decoders[0]
+    w = sum(dec.segment_widths)
+    n = 256
+    if name == "pamld width" or name.startswith("mdd"):
+        panel = rng.choice(np.array([1, 2, 4, 8], np.uint8), size=(24, w))
+        code = panel[rng.integers(24, size=n)]
+        errors = rng.random(code.shape) < 1.0 / w
+        code[errors] = rng.choice(np.array([1, 2, 4, 8, 15], np.uint8), size=int(errors.sum()))
+        qual = rng.choice(np.array([2, 12, 23, 37], np.uint8), size=code.shape)
+        qcfail = rng.random(n) < 0.05
+    if name == "pamld width":
+        ontology = {"input segment cardinality": 1, "sample": {
+            "algorithm": "pamld", "index": 1, "noise": 0.05, "confidence threshold": 0.0,
+            "random barcode probability": 4.0**-16, "high quality threshold": 30,
+            "high quality distance threshold": 0, "transform": {"token": [f"0::{w}"]},
+            "codec": {str(i + 1): {"barcode": ["".join("ACGT"[[1, 2, 4, 8].index(c)] for c in row)],
+                                   "concentration": 0.95 / 24, "index": i + 1} for i, row in enumerate(panel)},
+        }}
+        from pheniqs_tpu.device import compile_instrument as jax_compile
+
+        ours = compile_instrument(ontology, "cpu")
+        theirs = jax_classify.pamld_classify_device(
+            jax_compile(ontology), jax_compile(ontology).decoders[0], jnp.asarray(code.astype(np.int32)),
+            jnp.asarray(qual.astype(np.int32)), jnp.asarray(qcfail), want_uncertain=True)
+        mine = pamld.pamld_classify(ours.decoders[0], torch.from_numpy(code), torch.from_numpy(qual),
+                                    torch.from_numpy(qcfail), tpq_constants=None, want_uncertain=True,
+                                    eps=ours.tpq_analytic_eps)
+        settled = ~(mine["uncertain"].numpy() | np.asarray(theirs["uncertain"]))
+        assert settled.mean() > 0.5
+        for key in ("decoded", "argmax", "distance", "branch", "qcfail"):
+            np.testing.assert_array_equal(mine[key].numpy()[settled], np.asarray(theirs[key])[settled], err_msg=key)
+        np.testing.assert_allclose(mine["confidence"].numpy()[settled], np.asarray(theirs["confidence"])[settled],
+                                   rtol=1e-5, atol=0)
+    elif name.startswith("mdd"):
+        dec = DeviceDecoder("mdd", "sample", 0, True, dec.plans, list(dec.segment_widths), barcode_count=24, width=w,
+                            panel_codes=torch.from_numpy(panel.astype(np.int32)),
+                            panel_codes_u8=torch.from_numpy(panel), distance_tolerance=(1,) * len(dec.segment_widths))
+        dec.key_table = mdd.key_table_tensor(dec.panel_codes_u8)
+        widths = dec.segment_widths
+        lengths = np.tile(np.array(widths, np.int32), (n, 1))
+        starts = np.concatenate([[0], np.cumsum(widths)[:-1]])
+        obs = [(code[:, s : s + ws].astype(np.int32), qual[:, s : s + ws].astype(np.int32), lengths[:, k])
+               for k, (s, ws) in enumerate(zip(starts, widths))]
+        theirs = jax_classify.mdd_classify_device(dec, [tuple(jnp.asarray(x) for x in o) for o in obs],
+                                                  jnp.asarray(qcfail))
+        args = (dec, torch.from_numpy(code), torch.from_numpy(qual), torch.from_numpy(lengths), torch.from_numpy(qcfail))
+        for mine in (mdd.mdd_classify(*args), mdd.mdd_classify_two_phase(*args)):
+            for key in ("decoded", "argmax", "distance", "branch", "qcfail"):
+                np.testing.assert_array_equal(mine[key].numpy(), np.asarray(theirs[key]), err_msg=key)
+        assert (mine["decoded"] > 0).float().mean() > 0.5
+    elif name == "decoders":
+        instrument, arrays = k4_case("forced", 2048, seed=33, decoders=(("pamld", 96, 16), ("mdd", 40, 8)) * 16
+                                     + (("naive", 0, 0),))
+        mine = counters.counters(instrument, *k4_tensors(arrays, "cpu"), True).numpy()
+        unsure = arrays["forced"].copy()
+        for k, d in enumerate(instrument.decoders):
+            if d.algorithm == "pamld":
+                unsure |= arrays["uncertain"][k]
+        valid = jnp.asarray((~arrays["pad"] & ~unsure).astype(np.float32))
+        parts = []
+        for k, d in enumerate(instrument.decoders):
+            result = {key: jnp.asarray(arrays[key][k]) for key in (
+                "decoded", "argmax", "distance", "branch", "confidence", "qcfail")}
+            sums = _counters(d, result, valid)
+            parts += [np.asarray(sums[column]) for column in wire.counter_names(d)]
+        theirs = np.concatenate(parts)
+        offset = 0
+        for _, column, size in wire.counter_layout(instrument):
+            a, b = mine[offset : offset + size], theirs[offset : offset + size]
+            if column in ("accumulated_confidence", "accumulated_pf_confidence"):
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=2048 * 2.0**-41, err_msg=column)
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=column)
+            offset += size
+    else:
+        instrument = _instrument(decoders)
+        layout = unpack.token_layout(instrument, [32], 6)
+        segments = [(rng.choice([1, 2, 4, 8, 15], size=(n, 32)).astype(np.int32),
+                     rng.integers(0, 42, size=(n, 32)).astype(np.int32),
+                     rng.integers(0, 33, size=n).astype(np.int32))]
+        blob = wire.pack_h2d_blob([32], segments, rng.random(n) < 0.1, qual_bits=6)
+        mine = unpack.unpack_tokens(instrument, layout, torch.from_numpy(layout.program), torch.from_numpy(blob))
+        theirs = _unpack_h2d_blob([32], jnp.asarray(blob), 6)[0]
+        for slot, d in enumerate(decoders):
+            codes, quals, lengths, _ = mine.observation(layout, slot)
+            observation = jax_classify.apply_plans(d, theirs)
+            np.testing.assert_array_equal(codes.numpy(), np.concatenate([np.asarray(c) for c, _, _ in observation], 1))
+            np.testing.assert_array_equal(quals.numpy(), np.concatenate([np.asarray(q) for _, q, _ in observation], 1))
+            np.testing.assert_array_equal(lengths.numpy(), np.stack([np.asarray(x) for _, _, x in observation], 1))
 
 
 @pytest.mark.parametrize("ontology", [flagship_ontology, mdd_flagship_ontology])
-def test_instrument_check_passes_the_flagships(ontology):
-    assert kernel_limits(compile_instrument(ontology(), "cpu")) == []
+def test_flagship_plans_unchanged(ontology):
+    """The flagships run the instances and plans they ran before the wider
+    paths: K1 MAXW 16, K6's 4-word instance with one mask word, K3 staging
+    the wire, tokens and program at 128 reads a block, K5 staging 256."""
+    instrument = compile_instrument(ontology(), "cpu")
+    for dec in instrument.decoders:
+        if dec.algorithm == "pamld":
+            assert pamld.instance_width(sum(dec.segment_widths)) == 16
+        if dec.algorithm == "mdd":
+            assert mdd.key_words(sum(dec.segment_widths)) == 4 and mdd.mask_words(sum(dec.segment_widths)) == 1
+    layout = unpack.token_layout(instrument, [8, 8, 28], wire.JOINT4)
+    plan = unpack.block_plan(layout, unpack._segment_table([8, 8, 28], wire.JOINT4)[1] + 1)
+    assert plan.stage_wire and plan.stage_tokens and plan.stage_program and plan.reads == 128
+    packed = pack.pack_plan(instrument, True)
+    assert packed.staged and packed.reads == 256 and packed.masks().shape == (3,)
 
 
 def test_wrapper_refuses_with_the_same_type():
-    """The wrapper's own check (run on CUDA tensors before a launch) raises
-    the typed error, not NotImplementedError."""
-    code = torch.zeros((4, 65), dtype=torch.uint8)
-    with pytest.raises(ConfigurationError, match="exceeds the kernels' 64"):
-        pamld._check_observation("pamld_classify", code, code, None, None)
+    """What a kernel still refuses is a ConfigurationError: K3's block
+    plan where a block's lengths and flags alone, at 32 reads, pass the
+    shared memory of a block (past some 1,800 length columns: 1,024
+    decoders of one segment, or seven of 256 segments, fit)."""
+    wide = _instrument([_decoder("mdd", [1] * 256)] * 8)
+    layout = unpack.token_layout(wide, [256], wire.JOINT4)
+    with pytest.raises(ConfigurationError, match="take more than"):
+        unpack.block_plan(layout, unpack._segment_table([256], wire.JOINT4)[1] + 1)
+    fits = _instrument([_decoder("mdd", [1] * 256)] * 7)
+    layout = unpack.token_layout(fits, [256], wire.JOINT4)
+    assert unpack.block_plan(layout, unpack._segment_table([256], wire.JOINT4)[1] + 1).reads >= 32

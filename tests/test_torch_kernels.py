@@ -162,10 +162,11 @@ def test_mdd_kernel_matches_plain(cuda, tolerance, qmt, short):
 def test_unpack_kernel_edge_cases(cuda):
     """K3 byte-exact and identical across two launches at N = 0, 1, R - 1,
     R + 1 and 16384 + 7 reads on the 6-bit and j4 wires with the general
-    gather, on aligned blobs and on views 3 bytes off alignment."""
+    gather, on aligned blobs and on views 3 bytes off alignment; and
+    programs of ~3,000 and ~10,000 ints, staged and read in place."""
     from chip_smoke import unpack_edge_checks
 
-    assert unpack_edge_checks() == 17
+    assert unpack_edge_checks() == 25
 
 
 @pytest.mark.cuda
@@ -174,10 +175,10 @@ def test_pack_kernel_edge_cases(cuda):
     launches and writing nothing past its span, at N = 0, 1, 15, 17, 255,
     257 and 131071 reads on rows of 10 to 261 bytes: int16 and int32
     indices, with and without the uncertain byte, a naive decoder between
-    two PAMLD ones, 9 and 32 decoders."""
+    two PAMLD ones, 9, 32, 33 and 64 decoders."""
     from chip_smoke import PACK_LAYOUTS, PACK_READS, pack_edge_checks
 
-    assert pack_edge_checks() == len(PACK_LAYOUTS) * len(PACK_READS) == 56
+    assert pack_edge_checks() == len(PACK_LAYOUTS) * len(PACK_READS) == 70
 
 
 @pytest.mark.cuda
@@ -185,11 +186,12 @@ def test_mdd_kernel_edge_cases(cuda):
     """K6 byte-exact and identical across two launches on a panel with a
     duplicated barcode (the lowest index wins), on 5-, 24- and 64-position
     observations (its three instances), on a 2000-barcode panel (the key
-    table in L2) and on unaligned rows, at tolerance 1 and at tolerance 2
-    with quality masking and short reads."""
+    table in L2), on 9 and 12 segments of 80 and 130 positions (the 32-word
+    and looped instances) and on unaligned rows, at tolerance 1 and at
+    tolerance 2 with quality masking and short reads."""
     from chip_smoke import mdd_edge_checks
 
-    assert mdd_edge_checks(16384) == 9
+    assert mdd_edge_checks(16384) == 17
 
 
 def _pamld_case(rng, barcodes: int, width: int, n: int):
@@ -377,3 +379,34 @@ def test_sharded_step_two_slices_on_one_card(cuda):
     for ontology in (flagship_ontology(), mdd_flagship_ontology()):
         report = sharded_vs_one_card("two slices", ontology, 16384, ["cuda:0", "cuda:0"], seed=5)
         assert report["slice_reads"] == 8192 and len(report["slice_kernel_launches"]) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [65, 128, 160, 300])
+def test_pamld_wide_instances_match_plain(cuda, width):
+    """K1's MAXW 128 instance (65, 128 positions) and its looped one (160,
+    300) on 16384 reads of the wide flagship's 96-barcode cellular panel:
+    two launches identical, decisions bit-equal to the tile-order twin, the
+    plain version's apart only on near ties in f64
+    (chip_smoke.wide_pamld_entry)."""
+    from chip_smoke import pamld_observations, wide_pamld_entry
+    from pheniqs_tpu_torch.device.flagship import wide_flagship_ontology
+
+    instrument, observations = pamld_observations(wide_flagship_ontology(96, width), 16384, seed=width)
+    dec, codes, quals, qcfail, short = observations[1]
+    entry = wide_pamld_entry(dec, instrument, codes, quals, qcfail, short)
+    assert entry["instance"] == (128 if width <= 128 else 0)
+
+
+@pytest.mark.cuda
+def test_wide_kernels_match_plain(cuda):
+    """Every extended kernel as chip_smoke's wide phase holds it, at 16384
+    reads: K1 at 65-300 positions, K7 and K8 at 96, K6 past 8 segments and
+    64 positions, K3's programs past 2048 ints staged and in place, K4 and
+    K5 at 33 and 64 decoders and K5's rows in place."""
+    from chip_smoke import WIDE_DECODERS, WIDE_MDD, wide_checks
+
+    entries = wide_checks(16384)
+    assert len(entries["pamld_chunked"]) == len(entries["pamld_panel_sharded"]) == 1
+    assert len(entries["mdd_classify"]) == 2 and len(entries["counters"]) == len(WIDE_DECODERS)
+    assert len(WIDE_MDD) == 4 and len(entries["unpack_tokens"]) == 4

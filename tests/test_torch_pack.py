@@ -12,8 +12,7 @@ import torch
 from pheniqs_tpu_torch.device.flagship import flagship_ontology, mdd_flagship_ontology
 from pheniqs_tpu_torch.device.instrument import compile_instrument
 from pheniqs_tpu_torch.device.wire import d2h_layout
-from pheniqs_tpu_torch.errors import ConfigurationError
-from pheniqs_tpu_torch.kernels import MAX_DECODERS, Decisions, pack
+from pheniqs_tpu_torch.kernels import Decisions, pack
 
 FIELDS = {
     "decoded": torch.int32,
@@ -71,11 +70,22 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(name):
         pack._check(instrument, decisions, forced, True, out, torch.device("cpu"))
 
 
-def test_wrapper_refuses_too_many_decoders():
-    instrument = _stand_in([("naive", 0)] * (MAX_DECODERS + 1))
-    decisions = Decisions.zeros(MAX_DECODERS + 1, 4, "cpu")
-    with pytest.raises(ConfigurationError, match="33 decoders exceed the kernel's 32"):
-        pack._check(instrument, decisions, None, False, torch.empty(0, dtype=torch.uint8), torch.device("cpu"))
+@pytest.mark.parametrize("d", [33, 64, 300])
+def test_wrapper_takes_any_number_of_decoders(d):
+    """More than 32 decoders: the masks are ceil(D / 32) words each, and
+    the plan stages its rows while 32 of them fit the shared bytes, else
+    assembles them in place."""
+    instrument = _stand_in([("pamld", 40_000)] * d)
+    decisions = Decisions.zeros(d, 4, "cpu")
+    plan = pack.pack_plan(instrument, True)
+    out = torch.empty(4 * plan.layout["total"], dtype=torch.uint8)
+    pack._check(instrument, decisions, torch.zeros(4, dtype=torch.bool), True, out, torch.device("cpu"))
+    masks = plan.masks()
+    words = -(-d // 32)
+    assert masks.shape == (3 * words,)
+    assert [int(x) for x in masks[:words]] == [0xFFFFFFFF] * (d // 32) + ([(1 << (d % 32)) - 1] if d % 32 else [])
+    assert plan.staged == (plan.layout["total"] * 32 <= pack.SHARED_BYTES)
+    assert plan.staged or (plan.reads == pack.MAX_BLOCK_READS and plan.shared_bytes == 0)
 
 
 def test_wrapper_refuses_a_device_without_a_kernel():
@@ -96,7 +106,7 @@ def test_fast_mode_ignores_the_forced_row():
     ((("mdd", 96), ("naive", 0), ("pamld", 384)), True, 10, 256),
     ((("pamld", 96), ("naive", 0), ("pamld", 737_280)), False, 17, 256),
     ((("pamld", 1000), ("mdd", 40)) * 4 + (("naive", 0),), True, 35, 256),
-    ((("pamld", 40_000),) * MAX_DECODERS, True, 261, 160),
+    ((("pamld", 40_000),) * 32, True, 261, 160),
 ])
 def test_plan_fits_the_shared_budget(decoders, hybrid, total, reads):
     """R the most whole warps, up to 256, whose rows fit 48 KB; every

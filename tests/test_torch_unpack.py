@@ -1,7 +1,7 @@
 """K3's block plan (kernels/unpack.py:block_plan) on the CPU: how many
 reads a block owns and how its rows are staged in shared memory, for every
-wire mode, the raw rows of apply_plans, a program at the kernel's 2048-int
-limit and rows too wide to stage. The kernel itself runs only on the card
+wire mode, the raw rows of apply_plans, programs of 2029 and ~3000 ints
+(staged) and ~60,000 (read in place) and rows too wide to stage. The kernel itself runs only on the card
 (tests/test_torch_kernels.py, chip_smoke.py)."""
 
 import re
@@ -51,13 +51,16 @@ def _layouts():
     # rows too wide to stage at 32 reads a block: raw segments of 3000 positions
     wide = unpack._layout([(0, _gather_instrument().decoders[0])], [3000, 3000], unpack.RAW)
     cases.append(("raw 2 x 3000", wide, _row_bytes([3000, 3000], unpack.RAW)))
-    # a program at the kernel's limit: 8 observation segments, 219 plans
-    plans = [TokenPlan(p % 2, p % 20, p % 20 + 1 + p % 3, True, bool(p % 5 == 0), p % 8, 1 + p % 3)
-             for p in range(219)]
-    widths = [sum(plan.width for plan in plans if plan.output_segment_index == s) for s in range(8)]
-    big = unpack.token_layout(SimpleNamespace(decoders=[DeviceDecoder("mdd", "sample", 1, True, plans, widths)]),
-                              [24, 24], wire.JOINT4)
-    cases.append(("program 2048", big, _row_bytes([24, 24], wire.JOINT4)))
+    # programs at the kernel's former 2048-int limit and past it: 8
+    # observation segments, 219, 330 and 6600 plans (the last too large to
+    # stage beside the rows)
+    for label, count in (("program 2048", 219), ("program 3000", 330), ("program 60000", 6600)):
+        plans = [TokenPlan(p % 2, p % 20, p % 20 + 1 + p % 3, True, bool(p % 5 == 0), p % 8, 1 + p % 3)
+                 for p in range(count)]
+        widths = [sum(plan.width for plan in plans if plan.output_segment_index == s) for s in range(8)]
+        big = unpack.token_layout(
+            SimpleNamespace(decoders=[DeviceDecoder("mdd", "sample", 1, True, plans, widths)]), [24, 24], wire.JOINT4)
+        cases.append((label, big, _row_bytes([24, 24], wire.JOINT4)))
     return cases
 
 
@@ -78,7 +81,7 @@ def test_block_plan_fits_and_aligns(label, layout, row_bytes):
     assert plan.shared_bytes <= unpack.SHARED_BYTES
     slots = len(layout.slots)
     areas = [
-        ("program", 0, 4 * layout.program.size),
+        ("program", 0, 4 * layout.program.size if plan.stage_program else 0),
         ("wire", plan.wire_at, reads * row_bytes + 16 if plan.stage_wire else 0),
         ("codes", plan.codes_at, reads * plan.token_pitch if plan.stage_tokens else 0),
         ("quals", plan.quals_at, reads * plan.token_pitch if plan.stage_tokens else 0),
@@ -102,7 +105,13 @@ def test_block_plan_fits_and_aligns(label, layout, row_bytes):
     ints = plan.ints()
     assert ints.dtype == np.int32 and ints[0] == reads and ints[-1] == plan.shared_bytes
     if label == "program 2048":
-        assert layout.program.size > 2000 and layout.program.size <= unpack.MAX_PROGRAM
+        assert layout.program.size > 2000 and plan.stage_program
+    if label == "program 3000":
+        assert layout.program.size > 2048 and plan.stage_program and plan.reads == unpack.MAX_BLOCK_READS
+    if label == "program 60000":
+        # its 13,000 token columns are too wide to stage too
+        assert 4 * layout.program.size > unpack.SHARED_BYTES and not plan.stage_program
+        assert not plan.stage_tokens and reads == unpack.MAX_BLOCK_READS
     if label == "raw 2 x 3000":
         assert not plan.stage_wire and plan.stage_tokens
     if label.startswith(("flagship", "mdd", "gather", "raw")) and "3000" not in label:
@@ -117,7 +126,7 @@ def test_block_plan_matches_the_kernel():
     fields = re.findall(r"\w+(?=[,;])", struct)
     plan = unpack.block_plan(CASES[0][1], CASES[0][2])
     assert len(fields) == plan.ints().size == int(re.search(r"#define PHQ_UNPACK_PLAN_INTS (\d+)", source).group(1))
-    names = ["reads", "stage_wire", "stage_tokens", "token_pitch", "length_pitch", "wire_at", "codes_at",
+    names = ["reads", "stage_wire", "stage_tokens", "stage_program", "token_pitch", "length_pitch", "wire_at", "codes_at",
              "quals_at", "lengths_at", "short_at", "flags_at", "shared_bytes"]
     assert fields == names
     assert [getattr(plan, name) for name in names] == [int(x) for x in plan.ints()]
@@ -126,8 +135,8 @@ def test_block_plan_matches_the_kernel():
 
 def test_block_plan_steps_down():
     """Where R = 128 does not fit, the plan takes the most reads that do
-    (in steps of 16), then reads the wire in place, then writes codes and
-    qualities in place."""
+    (in steps of 16), then reads the wire in place, then the program, then
+    writes codes and qualities in place."""
     label, layout, row_bytes = CASES[0]
     full = unpack.block_plan(layout, row_bytes)
     program = layout.program.size
@@ -141,6 +150,10 @@ def test_block_plan_steps_down():
         tokens_only = unpack.block_plan(layout, row_bytes)
         assert not tokens_only.stage_wire and tokens_only.stage_tokens and tokens_only.reads == 32
         unpack.SHARED_BYTES = tokens_at_32 - 1
+        no_program = unpack.block_plan(layout, row_bytes)
+        assert not no_program.stage_wire and no_program.stage_tokens and not no_program.stage_program
+        assert no_program.reads >= 32
+        unpack.SHARED_BYTES = unpack._areas(layout, program, row_bytes, 32, False, True, False).shared_bytes - 1
         neither = unpack.block_plan(layout, row_bytes)
         assert not neither.stage_wire and not neither.stage_tokens and neither.reads >= 32
     finally:
@@ -160,7 +173,8 @@ def test_launch_passes_the_cached_plan():
     class Library:
         @staticmethod
         def phq_unpack_tokens(*args):
-            seen.append(list((ctypes.c_int32 * 12).from_address(args[7])))
+            seen.append(list((ctypes.c_int32 * unpack.BlockPlan.__dataclass_fields__.__len__())
+                             .from_address(args[7])))
             return 0
 
     blob = torch.zeros((300, _row_bytes([8, 8, 28], wire.JOINT4)), dtype=torch.uint8)
