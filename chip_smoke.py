@@ -414,6 +414,38 @@ def once_ms(fn):
     return result, start.elapsed_time(end)
 
 
+def counted_once_ms(counter: str, fn):
+    """(result, CUDA-event milliseconds, launches) of one call of `fn`: the
+    launches are the change of kernel `counter`'s count
+    (kernels.launch_counts) read just before the call and just after."""
+    from pheniqs_tpu_torch.kernels import launch_counts
+
+    before = launch_counts()[counter]
+    result, ms = once_ms(fn)
+    return result, ms, launch_counts()[counter] - before
+
+
+def counted_event_ms(counter: str, fn, reps: int = 10) -> tuple[float, int]:
+    """(event_ms of `fn`, launches of kernel `counter` a call): its count
+    read just before the timed calls and just after, over event_ms's reps
+    and its one warm-up call."""
+    from pheniqs_tpu_torch.kernels import launch_counts
+
+    before = launch_counts()[counter]
+    ms = event_ms(fn, reps)
+    total = launch_counts()[counter] - before
+    if total % (reps + 1):
+        raise AssertionError(f"{counter}: {total} launches over {reps + 1} calls")
+    return ms, total // (reps + 1)
+
+
+def held_launches(label: str, launches: int, expected: int) -> int:
+    """`launches`, counted in a run, when the plan's `expected`; else raises."""
+    if launches != expected:
+        raise AssertionError(f"{label}: {launches} kernel launches a call, the plan's {expected}")
+    return launches
+
+
 def check_flags(what: str, mine, plain, forced, extra_limit: float = FLAG_EXTRA_LIMIT) -> tuple[int, int]:
     """Hold the uncertain flags of a kernel (`mine`) and its plain version
     (`plain`), both (N,) bool, to each other: both must flag every row of
@@ -548,26 +580,47 @@ def program_blob(n: int, count: int, seed: int = 11):
     decoders of `count` token plans in all over two j4 wire segments (24 +
     32; negative starts, reverse complement, several plans into one
     observation segment): (instrument, layout, program, blob, ccb, qcb)."""
-    from types import SimpleNamespace
-
-    import numpy as np
-    import torch
-
-    from pheniqs_tpu_torch.device import wire
     from pheniqs_tpu_torch.device.instrument import DeviceDecoder, TokenPlan
-    from pheniqs_tpu_torch.kernels import unpack
 
-    rng = np.random.default_rng(seed)
-    widths = [24, 32]
-    segments = [(rng.choice(np.array([1, 2, 4, 8, 15], np.uint8), size=(n, w)),
-                 rng.choice(np.array([2, 23, 37], np.uint8), size=(n, w)),
-                 rng.integers(0, w + 1, size=n).astype(np.int32)) for w in widths]
     decoders = []
     for d in range(3):
         plans = [TokenPlan(p % 2, (p % 20) - (6 if p % 7 == 0 else 0), p % 20 + 1 + p % 3, bool(p % 4),
                            p % 5 == 0, p % 6, 1 + p % 3) for p in range(d, count, 3)]
         out = [sum(plan.width for plan in plans if plan.output_segment_index == k) for k in range(6)]
         decoders.append(DeviceDecoder("mdd" if d == 1 else "pamld", "cellular", d, True, plans, out))
+    return token_case(decoders, [24, 32], n, seed)
+
+
+def lengths_blob(n: int, seed: int = 12):
+    """A layout whose lengths and short flags K3 writes in place: eight MDD
+    decoders of 256 one-position segments (2048 length columns, past what
+    32 reads a block stage) over one j4 wire segment of 256 positions, a
+    fifth of the tokens reverse complemented: (instrument, layout,
+    program, blob, ccb, qcb)."""
+    from pheniqs_tpu_torch.device.instrument import DeviceDecoder, TokenPlan
+
+    decoders = []
+    for d in range(8):
+        plans = [TokenPlan(0, (k + d) % 256, (k + d) % 256 + 1, True, k % 5 == 0, k, 1) for k in range(256)]
+        decoders.append(DeviceDecoder("mdd", "cellular", d, True, plans, [1] * 256))
+    return token_case(decoders, [256], n, seed)
+
+
+def token_case(decoders, widths, n: int, seed: int):
+    """(instrument, layout, program, blob, ccb, qcb) of `decoders` on `n`
+    random reads of j4 wire segments `widths`, each of a random length."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from pheniqs_tpu_torch.device import wire
+    from pheniqs_tpu_torch.kernels import unpack
+
+    rng = np.random.default_rng(seed)
+    segments = [(rng.choice(np.array([1, 2, 4, 8, 15], np.uint8), size=(n, w)),
+                 rng.choice(np.array([2, 23, 37], np.uint8), size=(n, w)),
+                 rng.integers(0, w + 1, size=n).astype(np.int32)) for w in widths]
     instrument = SimpleNamespace(decoders=decoders)
     # 15 (code, quality) pairs: the j4 codebook holds them all
     pairs = np.unique(np.concatenate([(c.astype(np.int64) << 8 | q).ravel() for c, q, _ in segments]))
@@ -582,12 +635,17 @@ def program_blob(n: int, count: int, seed: int = 11):
 
 def forced_program(layout, row_bytes: int, staged: bool):
     """K3's plan for `layout` with its program staged or read in place as
-    asked (block_plan's stage_program), put in the layout's cache so the
-    wrapper launches it. Returns the plan."""
+    asked, the rows staged as block_plan stages them (the first staging and
+    the most reads whose areas, unpack._areas, fit), put in the layout's
+    cache so the wrapper launches it. Returns the plan."""
     from pheniqs_tpu_torch.kernels import unpack
 
-    plan = unpack.block_plan(layout, row_bytes, stage_program=staged)
-    layout.block_plans[(row_bytes, layout.program.size)] = plan.ints()
+    program = layout.program.size
+    plans = (unpack._areas(layout, program, row_bytes, reads, wire, tokens, staged, lengths)
+             for wire, tokens, lengths in unpack._STAGINGS
+             for reads in range(unpack.MAX_BLOCK_READS, unpack.MIN_BLOCK_READS - 1, -16))
+    plan = next(plan for plan in plans if plan.shared_bytes <= unpack.SHARED_BYTES)
+    layout.block_plans[(row_bytes, program)] = plan.ints()
     return plan
 
 
@@ -673,9 +731,16 @@ def unpack_edge_checks() -> int:
                             instrument, layout, program, rows, ccb, qcb)
                 held += 1
         programs.append(f"{program.numel()} ints (R = {forced.reads})")
+    instrument, layout, program, blob, ccb, qcb = lengths_blob(16384 + 7)
+    if unpack.block_plan(layout, blob.shape[1]).stage_lengths:
+        raise AssertionError(f"K3: {layout.length_cols} length columns staged")
+    for rows in (blob, unaligned(blob, 3)):
+        hold_unpack(f"{layout.length_cols} length columns in place", instrument, layout, program, rows, ccb, qcb)
+        held += 1
     say(f"[kernels] K3 byte-exact and two launches identical on {held} edge cases: N = 0, 1, {plan.reads - 1},"
         f" {plan.reads + 1}, 16391 on the 6-bit and j4 wires, aligned and 3 bytes off; programs of"
-        f" {', '.join(programs)} in shared memory and read in place, 16391 reads aligned and 3 bytes off")
+        f" {', '.join(programs)} in shared memory and read in place, and {layout.length_cols} length columns"
+        " written in place, 16391 reads aligned and 3 bytes off")
     return held
 
 
@@ -973,7 +1038,8 @@ def classify_pair(dec, instrument, codes, quals, lengths, qcfail, short, out, bo
 
     n = codes.shape[0]
     if dec.algorithm == "mdd":
-        mine, ms = once_ms(lambda: mdd.mdd_classify(dec, codes, quals, lengths, qcfail, out=out))
+        mine, ms, launches = counted_once_ms("mdd_classify",
+                                             lambda: mdd.mdd_classify(dec, codes, quals, lengths, qcfail, out=out))
         again = mdd.mdd_classify(dec, codes, quals, lengths, qcfail)
         plain, plain_ms = once_ms(lambda: mdd.mdd_classify_plain(dec, codes, quals, lengths, qcfail))
         for key in ("decoded", "argmax", "distance", "branch", "confidence", "qcfail"):
@@ -983,7 +1049,7 @@ def classify_pair(dec, instrument, codes, quals, lengths, qcfail, short, out, bo
                 raise AssertionError(f"K6 {key} differs on {int((mine[key] != plain[key]).sum())} rows")
         plain["exact"] = mdd_exact_rows(dec, lengths, plain)
         split = mdd_split(plain["exact"])
-        return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "plain": plain,
+        return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "plain": plain, "launches": launches,
                 "differs_plain": torch.zeros(n, dtype=torch.bool, device=codes.device), "line": (
             f"two launches byte-identical, byte-identical to plain; decoded"
             f" {float((plain['decoded'] > 0).float().mean()):.4%}, within tolerance"
@@ -1936,8 +2002,9 @@ def wide_pamld_entry(dec, instrument, codes, quals, qcfail, short) -> dict:
     b = dec.barcode_count
     name = f"K{7 if b > pamld.LARGE_PANEL_B else 1} W={w} B={b} N={n}"
     kwargs = dict(want_uncertain=True, eps=instrument.tpq_analytic_eps, short=short)
-    mine, ms = once_ms(lambda: pamld.pamld_classify(dec, codes, quals, qcfail, tpq_constants=instrument.tpq_constants,
-                                                    **kwargs))
+    counter = "pamld_chunked" if b > pamld.LARGE_PANEL_B else "pamld_classify"
+    mine, ms, launches = counted_once_ms(counter, lambda: pamld.pamld_classify(
+        dec, codes, quals, qcfail, tpq_constants=instrument.tpq_constants, **kwargs))
     again = pamld.pamld_classify(dec, codes, quals, qcfail, tpq_constants=instrument.tpq_constants, **kwargs)
     for key in mine:
         if not torch.equal(mine[key], again[key]):
@@ -1979,8 +2046,11 @@ def wide_pamld_entry(dec, instrument, codes, quals, qcfail, short) -> dict:
     loop = pamld.tile_loop(w, codes.device)
     blocks, registers, local = loop.instances["classify" if plan.slices == 1 else "stage B"]
     moved, ops = classify_work(dec, n, w, plain)
+    # one launch over one slice, else stages A, B and C; the looped
+    # instance's read state one more
+    expected = (1 if plan.slices == 1 else 3) + (1 if w > pamld.LOOPED_PAST else 0)
     entry = {"W": w, "B": b, "N": n, "instance": loop.maxw, "slices": plan.slices,
-             "launches": (1 if plan.slices == 1 else 3) + (1 if w > pamld.LOOPED_PAST else 0),
+             "launches": held_launches(name, launches, expected),
              "ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bytes": moved, "ops": ops,
              "registers": registers, "local_bytes": local, "blocks_per_sm": blocks,
              "flagged": float(mine["uncertain"].float().mean()), "twin_confidence_rel": twin_rel}
@@ -2051,10 +2121,12 @@ def wide_checks(n: int = N_KERNEL) -> dict:
     its own line: K1 at WIDE_WIDTHS x WIDE_PANELS, K7 at 96 x WIDE_K7_PANEL
     and K8 over two shards of it (wide_pamld_entry, wide_k8_entry); K6's
     WIDE_MDD cases timed (byte-exact: classify_pair); K3's programs past
-    2048 ints staged and in place (byte-exact: hold_unpack); K4 and K5 at
+    2048 ints staged and in place, and 2048 length columns written in
+    place (lengths_blob; byte-exact: hold_unpack); K4 and K5 at
     WIDE_DECODERS (byte-exact: k4_hold, hold_pack) and K5's rows in place.
-    The edge cases of each are held in the kernels phase. Returns {kernel:
-    [extra.wide entries]}."""
+    The edge cases of each are held in the kernels phase. Each entry's
+    launches are counted over its timed call and held to its plan's.
+    Returns {kernel: [extra.wide entries]}."""
     import torch
 
     from pheniqs_tpu_torch.kernels import pack, pamld, unpack
@@ -2074,29 +2146,35 @@ def wide_checks(n: int = N_KERNEL) -> dict:
         pair = classify_pair(dec, None, codes, quals, lengths, qcfail, short, pamld.empty_result(n, cuda))
         moved, ops = classify_work(dec, n, sum(widths), pair["plain"])
         entry = {"S": len(widths), "W": sum(widths), "B": barcodes, "N": n, "ms": pair["ms"],
-                 "plain_ms": pair["plain_ms"], "bytes": moved, "ops": ops, "launches": 1}
+                 "plain_ms": pair["plain_ms"], "bytes": moved, "ops": ops,
+                 "launches": held_launches(f"K6 S={len(widths)}", pair["launches"], 1)}
         entry["bound_ms"], entry["bound_by"] = bound(entry)
         entries["mdd_classify"].append(entry)
         say(f"[wide] K6 S={len(widths)} W={sum(widths)} B={barcodes} tolerance 2 qmt 5 short 20% N={n}: {pair['line']};"
             f" kernel {pair['ms']:.4f} ms, plain {pair['plain_ms']:.4f} ms (one call), bound {entry['bound_ms']:.4f} ms"
             f" ({entry['bound_by']})")
-    for count in WIDE_PROGRAM_PLANS:
-        instrument, layout, program, blob, ccb, qcb = program_blob(n, count)
-        for staged in (True, False):
+    k3_cases = [(program_blob(n, count), staged) for count in WIDE_PROGRAM_PLANS for staged in (True, False)]
+    for (instrument, layout, program, blob, ccb, qcb), staged in k3_cases + [(lengths_blob(n), None)]:
+        if staged is None:
+            plan = unpack.block_plan(layout, blob.shape[1])
+            where = f"with its {layout.length_cols} length columns written in place"
+        else:
             plan = forced_program(layout, blob.shape[1], staged)
             where = "in shared memory" if staged else "read in place"
-            tokens = hold_unpack(f"program of {program.numel()} ints {where} N={n}", instrument, layout, program, blob,
-                                 ccb, qcb)
-            ms = event_ms(lambda: unpack.unpack_tokens(instrument, layout, program, blob, ccb, qcb))
-            _, plain_ms = once_ms(lambda: unpack.unpack_tokens_plain(instrument, layout, blob, ccb=ccb, qcb=qcb))
-            moved = nbytes(blob, program, *(getattr(tokens, field) for field in TOKEN_FIELDS))
-            entry = {"program_ints": program.numel(), "staged": staged, "N": n, "reads_per_block": plan.reads,
-                     "ms": ms, "plain_ms": plain_ms, "bytes": moved, "launches": 1}
-            entry["bound_ms"], entry["bound_by"] = bound(entry)
-            entries["unpack_tokens"].append(entry)
-            say(f"[wide] K3 program of {program.numel()} ints {where} (R = {plan.reads}, {plan.shared_bytes} shared"
-                f" bytes), N={n}: byte-exact, two launches identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-                f" bound {entry['bound_ms']:.4f} ms (bytes)")
+        label = f"K3 program of {program.numel()} ints {where}"
+        tokens = hold_unpack(f"{label} N={n}", instrument, layout, program, blob, ccb, qcb)
+        ms, launches = counted_event_ms("unpack_tokens",
+                                        lambda: unpack.unpack_tokens(instrument, layout, program, blob, ccb, qcb))
+        _, plain_ms = once_ms(lambda: unpack.unpack_tokens_plain(instrument, layout, blob, ccb=ccb, qcb=qcb))
+        moved = nbytes(blob, program, *(getattr(tokens, field) for field in TOKEN_FIELDS))
+        entry = {"program_ints": program.numel(), "staged": plan.stage_program, "lengths_staged": plan.stage_lengths,
+                 "N": n, "reads_per_block": plan.reads, "ms": ms, "plain_ms": plain_ms, "bytes": moved,
+                 "launches": held_launches(label, launches, 1)}
+        entry["bound_ms"], entry["bound_by"] = bound(entry)
+        entries["unpack_tokens"].append(entry)
+        say(f"[wide] {label} (R = {plan.reads}, {plan.shared_bytes} shared bytes), N={n}: byte-exact, two launches"
+            f" identical, {launches} launch a call; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound"
+            f" {entry['bound_ms']:.4f} ms (bytes)")
     for d in WIDE_DECODERS:
         decoders = ((("pamld", 96, 16), ("mdd", 40, 8), ("naive", 0, 0)) * 22)[:d]
         instrument, arrays = k4_case(f"{d} decoders", n, decoders=decoders)
@@ -2104,17 +2182,19 @@ def wide_checks(n: int = N_KERNEL) -> dict:
         k4_hold(f"K4 {d} decoders N={n}", instrument, rows, pad, forced)
         from pheniqs_tpu_torch.kernels import counters
 
-        entry = {"decoders": d, "N": n, "launches": 1, "bytes": k4_bytes(instrument, n),
-                 "ms": event_ms(lambda: counters.counters(instrument, rows, pad, forced, True)),
+        ms, launches = counted_event_ms("counters", lambda: counters.counters(instrument, rows, pad, forced, True))
+        entry = {"decoders": d, "N": n, "bytes": k4_bytes(instrument, n), "ms": ms,
+                 "launches": held_launches(f"K4 {d} decoders", launches, len(counters.row_slices(instrument, n))),
                  "plain_ms": once_ms(lambda: counters.counters_plain(instrument, rows, pad, forced, True))[1]}
         entry["bound_ms"], entry["bound_by"] = bound(entry)
         entries["counters"].append(entry)
         instrument, decisions, forced = pack_case([(a, b) for a, b, _ in decoders], n, d, cuda)
         hold_pack(f"{d} decoders N={n}", instrument, decisions, forced, True)
         plan = pack.pack_plan(instrument, True)
-        pentry = {"decoders": d, "N": n, "launches": 1, "row_bytes": plan.layout["total"], "reads_per_block": plan.reads,
-                  "bytes": pack_bytes(plan, d, n, True),
-                  "ms": event_ms(lambda: pack.pack_outputs(instrument, decisions, forced, True)),
+        ms, launches = counted_event_ms("pack_outputs", lambda: pack.pack_outputs(instrument, decisions, forced, True))
+        pentry = {"decoders": d, "N": n, "row_bytes": plan.layout["total"], "reads_per_block": plan.reads,
+                  "bytes": pack_bytes(plan, d, n, True), "ms": ms,
+                  "launches": held_launches(f"K5 {d} decoders", launches, 1),
                   "plain_ms": once_ms(lambda: pack.pack_outputs_plain(instrument, decisions, forced, True))[1]}
         pentry["bound_ms"], pentry["bound_by"] = bound(pentry)
         entries["pack_outputs"].append(pentry)
@@ -3164,40 +3244,6 @@ def variant_library(source: str, define: str):
     return lib
 
 
-def wide_variant_times() -> dict:
-    """--times: K1's MAXW 128 instance at its register cap of 4 blocks/SM
-    (the build's) against a copy built with PHQ_PAMLD_BLOCKS_128=2 (no cap
-    below 255 registers), one pamld_classify call each (CUDA events, after
-    a warm-up), in turns (build, copy, copy, build), at W = 96 on the wide
-    flagship's 96- and 384-barcode panels; {} where the tree has no such
-    macro."""
-    from pheniqs_tpu_torch.device.flagship import wide_flagship_ontology
-    from pheniqs_tpu_torch.kernels import build, pamld
-
-    variant = variant_library("pamld.cu", "PHQ_PAMLD_BLOCKS_128=2")
-    if variant is None:
-        return {}
-    own = build.library()
-    times = {}
-    for b in (96, 384):
-        instrument, observations = pamld_observations(wide_flagship_ontology(b, 96), N_KERNEL, seed=b)
-        dec, codes, quals, qcfail, short = observations[1]
-        kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True, eps=instrument.tpq_analytic_eps,
-                      short=short)
-        for label, lib in (("4 blocks/SM", own), ("2 blocks/SM", variant), ("2 blocks/SM", variant),
-                           ("4 blocks/SM", own)):
-            build._LIBRARY = lib
-            pamld._TILE_LOOPS.clear()
-            pamld.pamld_classify(dec, codes, quals, qcfail, **kwargs)
-            loop = pamld.tile_loop(96, codes.device)
-            key = f"K1 W=96 B={b} {label}"
-            times.setdefault(key, {"registers": loop.instances["classify"][1], "ms": []})
-            times[key]["ms"].append(once_ms(lambda: pamld.pamld_classify(dec, codes, quals, qcfail, **kwargs))[1])
-    build._LIBRARY = own
-    pamld._TILE_LOOPS.clear()
-    return times
-
-
 def unpack_mdd_times() -> dict:
     """--times' K3, K6, K4 and K5 readings, device time of one call: K3 on
     the flagship's and the MDD flagship's j4 blobs and K6 on the MDD
@@ -3296,7 +3342,6 @@ def kernel_times(card: str, tree: str):
     one call each with CUDA events,
     K7 and K8 at P = 2 and 4 on a synthetic panel of the whitelist's size
     (random codes from a seed); K3, K6, K4 and K5 (unpack_mdd_times); the
-    MAXW 128 instance at 4 and 2 blocks/SM (wide_variant_times); the
     plan's choice on panels of one tile (slice_rule_times); and, where the
     tree takes a plan, K1's slice unit (slice_cut_sweep). The steps are also timed with CUDA events over 10
     and, three times, over 200 back-to-back calls: their launches, not the
@@ -3355,7 +3400,6 @@ def kernel_times(card: str, tree: str):
         times[f"K8 P={panels} shard"] = once_ms(lambda: pamld.pamld_classify_sharded(
             wide, shards[:1], codes, quals, None, finish=False, **kwargs))[1]
     times.update(unpack_mdd_times())
-    times.update(wide_variant_times())
     takes_plan = "plan" in inspect.signature(pamld._classify_launches).parameters
     times.update(slice_rule_times(takes_plan))
     if takes_plan:

@@ -114,15 +114,13 @@
 #define PHQ_PAMLD_SLICE_UNIT 48
 
 // The MAXW 128 instance's resident blocks asked of the compiler, its
-// register cap: at 4 blocks/SM, 128 registers with some spills, against
-// 2 blocks/SM at ~234 (chip_smoke.py --times' wide_variant_times holds
-// the two). It is a kernel of its own (phq_pamld_kernel_128), so the
-// other instances keep their one-argument bound: a second argument, even
-// 1, moves their register allocation (125 -> 136 at MAXW 16), and a bound
-// of 4 x 128 threads in its place gives 64 registers and 744 B of spills.
-#ifndef PHQ_PAMLD_BLOCKS_128
+// register cap: at 4 blocks/SM, 128 registers with some spills, ran faster
+// on an H100 than 2 blocks/SM at ~234 (PERF.md). It is a kernel of its own
+// (phq_pamld_kernel_128), so the other instances keep their one-argument
+// bound: a second argument, even 1, moves their register allocation
+// (125 -> 136 at MAXW 16), and a bound of 4 x 128 threads in its place
+// gives 64 registers and 744 B of spills.
 #define PHQ_PAMLD_BLOCKS_128 4
-#endif
 
 // The looped instance (MAXW 0, observations wider than 128 positions):
 // its read state lives in device memory (phq_pamld_state_kernel), its

@@ -30,8 +30,8 @@
 // apply_plans (the static forward window and the general clipped gather
 // with negative starts and reverse complement). Where a layout's rows are
 // too wide to stage at R = 32, the plan reads the wire, or writes codes and
-// qualities, in place in device memory instead; lengths and flags are
-// always staged. A program that does not fit beside the staged rows (past
+// qualities, then lengths and short flags, in place in device memory
+// instead; the three flags are always staged. A program that does not fit beside the staged rows (past
 // ~50,000 ints at the flagship's rows) is read from device memory through
 // the read-only path: every thread walks the same program, so its loads
 // are broadcasts that stay in L1.
@@ -44,15 +44,15 @@
 #define PHQ_ENTRY_INTS 3
 
 // The block plan (kernels/unpack.py:BlockPlan.ints, in this order): reads
-// a block, whether the wire, the codes and qualities and the program are
-// staged, the pitch of a staged token row (bytes) and length row (ints),
+// a block, whether the wire, the codes and qualities, the program and the
+// lengths and short flags are staged, the pitch of a staged token row (bytes) and length row (ints),
 // the byte offset of each staging area in dynamic shared memory, and its
 // size.
 struct PhqUnpackPlan {
-  int reads, stage_wire, stage_tokens, stage_program, token_pitch, length_pitch;
+  int reads, stage_wire, stage_tokens, stage_program, stage_lengths, token_pitch, length_pitch;
   int wire_at, codes_at, quals_at, lengths_at, short_at, flags_at, shared_bytes;
 };
-#define PHQ_UNPACK_PLAN_INTS 13
+#define PHQ_UNPACK_PLAN_INTS 14
 
 // (code, quality) of wire position `pos` of one segment.
 __device__ __forceinline__ void phq_decode_base(
@@ -225,8 +225,9 @@ __global__ void __launch_bounds__(PHQ_UNPACK_MAX_READS) phq_unpack_kernel(
                                           : codes + i * token_cols;
     uint8_t* my_quals = plan.stage_tokens ? smem + plan.quals_at + t * plan.token_pitch
                                           : quals + i * token_cols;
-    int* my_lens = (int*)(smem + plan.lengths_at) + t * plan.length_pitch;
-    uint8_t* my_short = smem + plan.short_at + t * n_slots;
+    int* my_lens = plan.stage_lengths ? (int*)(smem + plan.lengths_at) + t * plan.length_pitch
+                                      : lens + i * length_cols;
+    uint8_t* my_short = plan.stage_lengths ? smem + plan.short_at + t * n_slots : short_flags + i * n_slots;
     for (int s = 0; s < length_cols; ++s) my_lens[s] = 0;
 
     for (int p = 0; p < n_plans; ++p) {
@@ -301,9 +302,11 @@ __global__ void __launch_bounds__(PHQ_UNPACK_MAX_READS) phq_unpack_kernel(
     phq_store_rows(quals + (size_t)r0 * token_cols, smem + plan.quals_at, rows, token_cols, plan.token_pitch);
   }
 #endif
-  phq_store_rows((uint8_t*)(lens + (size_t)r0 * length_cols), smem + plan.lengths_at, rows, 4 * length_cols,
-                 4 * plan.length_pitch);
-  phq_store_rows(short_flags + (size_t)r0 * n_slots, smem + plan.short_at, rows, n_slots, n_slots);
+  if (plan.stage_lengths) {
+    phq_store_rows((uint8_t*)(lens + (size_t)r0 * length_cols), smem + plan.lengths_at, rows, 4 * length_cols,
+                   4 * plan.length_pitch);
+    phq_store_rows(short_flags + (size_t)r0 * n_slots, smem + plan.short_at, rows, n_slots, n_slots);
+  }
   phq_store_rows(qcfail + r0, s_flags, rows, 1, 1);
   phq_store_rows(pad + r0, s_flags + plan.reads, rows, 1, 1);
   phq_store_rows(forced + r0, s_flags + 2 * plan.reads, rows, 1, 1);

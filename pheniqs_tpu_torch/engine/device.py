@@ -53,6 +53,7 @@ from ..device import wire
 from ..device.distributed import panel_group, reads_devices, tp_shape
 from ..device.instrument import compile_instrument, instruments_on, resolve_device
 from ..device.step import DecodeStep, ShardedDecodeStep, slice_sum
+from ..kernels import check_kernel_limits
 from ..model.batch import ReadBatch
 from ..transform import SegmentBatch
 from .strict import ClassifierRuntime, StrictEngine
@@ -107,6 +108,10 @@ class TorchDeviceEngine(StrictEngine):
             self._slices = len(self.devices)
         #: the instrument on each device of the reads axis
         self._instruments = instruments_on(self.instrument, self.devices)
+        if self.device.type == "cuda":
+            # refuse what no block of a kernel holds before the first batch
+            for instrument in self._instruments:
+                check_kernel_limits(instrument)
         # classify order must match device.instrument.compile_instrument:
         # sample, molecular*, cellular* (reference transcode.h:51-65)
         self._runtimes: list[ClassifierRuntime] = []

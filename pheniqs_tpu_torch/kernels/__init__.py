@@ -12,9 +12,10 @@ raises. Each kernel's launches are counted in an integer of its module
 chunked posterior, in ``pamld.chunked_launches``; K8's stages in
 ``pamld.panel_sharded_launches``). The kernels take what the plain
 versions take: any observation width and segment count, any token
-program, any number of decoders, up to a block's shared memory (K3's
-staged lengths past ~1,800 columns; a barcode row of a looped K1 or K6
-past ~230,000 or ~180,000 positions).
+program, any number of decoders. Two ceilings of a block's shared memory
+remain, far past any instrument in use: a looped K1/K7/K8 barcode row
+past 231,392 positions and a looped K6 read past some 19,000;
+``check_kernel_limits`` refuses them when an engine is built for a card.
 """
 
 from __future__ import annotations
@@ -23,6 +24,41 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..errors import ConfigurationError
+
+
+def kernel_limits(instrument) -> list[str]:
+    """One line for each decoder of `instrument` that no block of its
+    kernel can hold in the shared memory an H100 block may take: a PAMLD
+    barcode row of the looped K1/K7/K8 (pamld.looped_shared_bytes) or a
+    looped K6 read with its tables (mdd.shared_bytes). The plain versions
+    have no such ceiling."""
+    from . import mdd, pamld
+
+    problems = []
+    for position, dec in enumerate(instrument.decoders):
+        width = sum(dec.segment_widths)
+        if not dec.plans:
+            continue
+        if dec.algorithm == "pamld" and width > pamld.LOOPED_PAST:
+            need, limit = pamld.looped_shared_bytes(width), pamld.SHARED_LIMIT
+        elif dec.algorithm == "mdd":
+            need, limit = mdd.shared_bytes(dec.barcode_count, dec.segment_widths), mdd.SHARED_LIMIT
+        else:
+            continue
+        if need > limit:
+            problems.append(f"decoder {position} ({dec.classifier_type} {dec.algorithm}): an observation of {width}"
+                            f" positions takes {need} bytes of shared memory a block, past the {limit} of an H100 block")
+    return problems
+
+
+def check_kernel_limits(instrument):
+    """Raise ConfigurationError, naming each decoder, when a kernel has no
+    block for `instrument` (kernel_limits)."""
+    problems = kernel_limits(instrument)
+    if problems:
+        raise ConfigurationError("the CUDA kernels cannot run this configuration: " + "; ".join(problems))
 
 
 def _launch_counters() -> dict:

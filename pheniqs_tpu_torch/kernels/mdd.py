@@ -25,6 +25,14 @@ import torch
 
 #: launches of the CUDA kernel in this process
 launches = 0
+#: the dynamic shared memory a block may take on the H100, by opt-in, and
+#: the shares of it the key table and the segment table may take
+#: (csrc/mdd.cu PHQ_MDD_SMEM_MAX, PHQ_MDD_SHARED_TABLE,
+#: PHQ_MDD_SHARED_SEGMENTS); the warps of a block (PHQ_MDD_WARPS)
+SHARED_LIMIT = 227 * 1024
+SHARED_TABLE = 40 * 1024
+SHARED_SEGMENTS = 8 * 1024
+WARPS = 8
 
 
 def key_words(w: int) -> int:
@@ -43,6 +51,23 @@ def mask_words(w: int) -> int:
     128, none for the looped instance (it counts on each segment's range)."""
     nw = key_words(w)
     return 1 if nw <= 16 else 2 if nw == 32 else 0
+
+
+def shared_bytes(barcodes: int, widths) -> int:
+    """The dynamic shared bytes of K6's block for a decoder of `barcodes`
+    barcodes and observation segments `widths` (csrc/mdd.cu phq_mdd): the
+    key table and the segment table where each fits its share, and past
+    128 positions each warp's staged read (10 bytes a position). Past
+    SHARED_LIMIT, from 19,361 positions (one barcode) or 23,233, no block
+    holds it."""
+    w = sum(widths)
+    nw = key_words(w)
+    table = 4 * (2 * barcodes * nw + 4 * -(-barcodes // 4))
+    segments = 4 * len(widths) * (4 + 2 * mask_words(w))
+    total = (table if table <= SHARED_TABLE else 0) + (16 * -(-segments // 16) if segments <= SHARED_SEGMENTS else 0)
+    if w > 128:
+        total += WARPS * 4 * (nw + 4 * ((4 * nw + 63) // 64))
+    return total
 
 
 def segment_table(widths, tolerance) -> np.ndarray:

@@ -64,6 +64,9 @@ TERM_BOUND = 13.74
 #: 32, 64 and 128); wider ones run the looped instance (MAXW 0), whose read
 #: state a launch of its own writes to device memory first
 LOOPED_PAST = 128
+#: the dynamic shared memory a block may take on the H100, by opt-in
+#: (csrc/pamld.cu PHQ_PAMLD_SMEM_MAX)
+SHARED_LIMIT = 227 * 1024
 #: barcodes per chunk of the online posterior (classify.py:_posterior_chunked)
 POSTERIOR_CHUNK = 1024
 
@@ -408,6 +411,13 @@ def slice_plan(n: int, barcodes: int, tile: int, reads_per_block: int, slots: in
 
 
 _TILE_LOOPS: dict = {}
+
+
+def looped_shared_bytes(w: int) -> int:
+    """The dynamic shared bytes of the looped instance's least tile, one
+    barcode row of `w` positions (csrc/pamld.cu phq_pamld_smem at one
+    row): past SHARED_LIMIT, from 231,393 positions, no block holds it."""
+    return 256 * 4 + 4 * 4 + 16 * -(-w // 16) + 1
 
 
 def instance_width(w: int) -> int:

@@ -20,7 +20,6 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..errors import ConfigurationError
 from ..iupac import BAM_REVERSE_COMPLEMENT
 
 from ..device.wire import JOINT4, _lane_bytes, _length_bytes, segment_offsets
@@ -103,9 +102,10 @@ def token_layout(instrument, widths: list[int], qual_bits) -> TokenLayout:
 class BlockPlan:
     """How K3 stages a block's rows in shared memory for one program and
     wire row size (``block_plan``): ``reads`` rows a block; the wire rows
-    (``stage_wire``) and the codes and qualities (``stage_tokens``) staged
-    or read and written in place; the program (``stage_program``) in shared
-    memory or read in place; a staged token row ``token_pitch`` bytes
+    (``stage_wire``), the codes and qualities (``stage_tokens``) and the
+    lengths and short flags (``stage_lengths``) staged or read and written
+    in place; the program (``stage_program``) in shared memory or read in
+    place; a staged token row ``token_pitch`` bytes
     and a length row ``length_pitch`` ints (odd word counts: a warp's 32
     stores to one column fall in 32 banks); each area's byte offset; and
     the dynamic shared bytes in all."""
@@ -114,6 +114,7 @@ class BlockPlan:
     stage_wire: bool
     stage_tokens: bool
     stage_program: bool
+    stage_lengths: bool
     token_pitch: int
     length_pitch: int
     wire_at: int
@@ -128,8 +129,8 @@ class BlockPlan:
         """The plan as the kernel's entry takes it (csrc/unpack_tokens.cu
         PhqUnpackPlan)."""
         return np.array([
-            self.reads, int(self.stage_wire), int(self.stage_tokens), int(self.stage_program), self.token_pitch,
-            self.length_pitch,
+            self.reads, int(self.stage_wire), int(self.stage_tokens), int(self.stage_program),
+            int(self.stage_lengths), self.token_pitch, self.length_pitch,
             self.wire_at, self.codes_at, self.quals_at, self.lengths_at, self.short_at, self.flags_at,
             self.shared_bytes,
         ], dtype=np.int32)
@@ -146,7 +147,7 @@ def _round16(size: int) -> int:
 
 
 def _areas(layout: TokenLayout, program_ints: int, row_bytes: int, reads: int, stage_wire: bool,
-           stage_tokens: bool, stage_program: bool = True) -> BlockPlan:
+           stage_tokens: bool, stage_program: bool = True, stage_lengths: bool = True) -> BlockPlan:
     token_pitch = _odd_words(layout.token_cols)
     length_pitch = layout.length_cols | 1 if layout.length_cols else 0
     at = _round16(4 * program_ints) if stage_program else 0
@@ -156,41 +157,42 @@ def _areas(layout: TokenLayout, program_ints: int, row_bytes: int, reads: int, s
         ("wire_at", reads * row_bytes + 16 if stage_wire else 0),
         ("codes_at", reads * token_pitch if stage_tokens else 0),
         ("quals_at", reads * token_pitch if stage_tokens else 0),
-        ("lengths_at", 4 * reads * length_pitch),
-        ("short_at", reads * len(layout.slots)),
+        ("lengths_at", 4 * reads * length_pitch if stage_lengths else 0),
+        ("short_at", reads * len(layout.slots) if stage_lengths else 0),
         ("flags_at", 3 * reads),
     )
     for name, size in sizes:
         offsets[name] = at
         at += _round16(size)
-    return BlockPlan(reads, stage_wire, stage_tokens, stage_program, token_pitch, length_pitch, shared_bytes=at,
-                     **offsets)
+    return BlockPlan(reads, stage_wire, stage_tokens, stage_program, stage_lengths, token_pitch, length_pitch,
+                     shared_bytes=at, **offsets)
 
 
-def block_plan(layout: TokenLayout, row_bytes: int, program_ints: int | None = None,
-               stage_program: bool | None = None) -> BlockPlan:
+#: what block_plan stages, in the order it gives it up: (wire rows, codes
+#: and qualities, lengths and short flags); the last keeps only each
+#: read's three flag bytes, which always fit
+_STAGINGS = ((True, True, True), (False, True, True), (False, False, True), (False, False, False))
+
+
+def block_plan(layout: TokenLayout, row_bytes: int, program_ints: int | None = None) -> BlockPlan:
     """The most reads a block (MAX_BLOCK_READS down to MIN_BLOCK_READS, in
     steps of 16) whose staging fits SHARED_BYTES: the program, and for
     each read its wire row, codes and qualities, lengths, short flags and
     three flags. Rows too wide to stage at MIN_BLOCK_READS are read (the
-    wire), then written (codes and qualities), in place instead. The
-    program is staged where it fits beside the rows, else read in place
-    (past ~50,000 ints beside the flagship's rows), so it never costs the
-    rows their staging; `stage_program` True or False asks for one of the
-    two (chip_smoke.py holds both). Every program runs."""
+    wire), then written (codes and qualities, then lengths and short
+    flags), in place instead. The program is staged where it fits beside
+    the rows, else read in place (past ~50,000 ints beside the flagship's
+    rows), so it never costs the rows their staging. Every layout and
+    program has a plan."""
     if program_ints is None:
         program_ints = layout.program.size
-    programs = (True, False) if stage_program is None else (stage_program,)
-    for stage_wire, stage_tokens in ((True, True), (False, True), (False, False)):
-        for reads in range(MAX_BLOCK_READS, MIN_BLOCK_READS - 1, -16):
-            for staged in programs:
-                plan = _areas(layout, program_ints, row_bytes, reads, stage_wire, stage_tokens, staged)
-                if plan.shared_bytes <= SHARED_BYTES:
-                    return plan
-    raise ConfigurationError(
-        f"unpack_tokens: {len(layout.slots)} decoder slots and {layout.length_cols} length columns"
-        f" take more than {SHARED_BYTES} bytes of shared memory at {MIN_BLOCK_READS} reads a block"
+    plans = (
+        _areas(layout, program_ints, row_bytes, reads, stage_wire, stage_tokens, stage_program, stage_lengths)
+        for stage_wire, stage_tokens, stage_lengths in _STAGINGS
+        for reads in range(MAX_BLOCK_READS, MIN_BLOCK_READS - 1, -16)
+        for stage_program in (True, False)
     )
+    return next(plan for plan in plans if plan.shared_bytes <= SHARED_BYTES)
 
 
 def _segment_table(widths: list[int], qual_bits):

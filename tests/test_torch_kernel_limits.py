@@ -6,10 +6,14 @@ kernel's plan for it builds on the CPU (the tile loop's instance and slice
 plan, the MDD key words and segment table, K3's block plan, K4's decoder
 table and K5's masks), and its plain path runs and equals the JAX
 package's. The flagships keep the plans they had. What a kernel still
-refuses, a K3 block whose lengths and flags alone pass the shared memory
-of a block, it refuses with the typed error. The kernels themselves run
-on the card (tests/test_torch_kernels.py -m cuda, chip_smoke.py)."""
+refuses, a decoder that no block of its kernel holds in shared memory
+(past 231,392 positions for K1/K7/K8, some 19,000 for K6), is refused
+with the typed error, and nothing inside the reference's domain is. The
+kernels themselves run on the card (tests/test_torch_kernels.py -m cuda,
+chip_smoke.py)."""
 
+import re
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -25,7 +29,7 @@ from pheniqs_tpu_torch.device import wire
 from pheniqs_tpu_torch.device.flagship import flagship_ontology, mdd_flagship_ontology
 from pheniqs_tpu_torch.device.instrument import DeviceDecoder, TokenPlan, compile_instrument
 from pheniqs_tpu_torch.errors import ConfigurationError
-from pheniqs_tpu_torch.kernels import counters, mdd, pack, pamld, unpack
+from pheniqs_tpu_torch.kernels import check_kernel_limits, counters, kernel_limits, mdd, pack, pamld, unpack
 
 
 def _decoder(algorithm, widths, plans_per_segment=1, classifier="sample"):
@@ -204,14 +208,48 @@ def test_flagship_plans_unchanged(ontology):
 
 
 def test_wrapper_refuses_with_the_same_type():
-    """What a kernel still refuses is a ConfigurationError: K3's block
-    plan where a block's lengths and flags alone, at 32 reads, pass the
-    shared memory of a block (past some 1,800 length columns: 1,024
-    decoders of one segment, or seven of 256 segments, fit)."""
+    """What a kernel still refuses is a ConfigurationError, raised when an
+    engine is built for a card (check_kernel_limits): a decoder that no
+    block of its kernel holds. K3, which refused a block whose lengths and
+    short flags alone passed a block's shared memory, now writes them in
+    place: eight MDD decoders of 256 segments (2048 length columns) get a
+    plan."""
     wide = _instrument([_decoder("mdd", [1] * 256)] * 8)
     layout = unpack.token_layout(wide, [256], wire.JOINT4)
-    with pytest.raises(ConfigurationError, match="take more than"):
-        unpack.block_plan(layout, unpack._segment_table([256], wire.JOINT4)[1] + 1)
-    fits = _instrument([_decoder("mdd", [1] * 256)] * 7)
-    layout = unpack.token_layout(fits, [256], wire.JOINT4)
-    assert unpack.block_plan(layout, unpack._segment_table([256], wire.JOINT4)[1] + 1).reads >= 32
+    plan = unpack.block_plan(layout, unpack._segment_table([256], wire.JOINT4)[1] + 1)
+    assert not plan.stage_lengths and plan.reads >= 32 and plan.shared_bytes <= unpack.SHARED_BYTES
+    with pytest.raises(ConfigurationError, match="shared memory a block"):
+        check_kernel_limits(_instrument([_decoder("pamld", [231_393])]))
+
+
+def test_no_limit_within_the_reference_domain():
+    """No line for PAMLD observations of 65-1024 positions, MDD of 256
+    segments or 1024 positions, 1026 decoders, or their token program of
+    some 400,000 ints: every kernel has a block, and K3 a plan, for them."""
+    decoders = [_decoder("pamld", [w]) for w in (65, 128, 129, 1024)]
+    decoders += [_decoder("mdd", [4] * 256), _decoder("mdd", [1024])]
+    instrument = _instrument(decoders * 171)
+    assert kernel_limits(instrument) == []
+    layout = unpack.token_layout(instrument, [32], wire.JOINT4)
+    assert layout.program.size > 65_536 and layout.length_cols > 2048
+    plan = unpack.block_plan(layout, unpack._segment_table([32], wire.JOINT4)[1] + 1)
+    assert plan.reads >= unpack.MIN_BLOCK_READS and plan.shared_bytes <= unpack.SHARED_BYTES
+
+
+@pytest.mark.parametrize("algorithm,barcodes,ceiling", [("pamld", 8, 231_392), ("mdd", 1, 19_360), ("mdd", 8, 23_232)])
+def test_kernel_limits_at_the_shared_memory_ceiling(algorithm, barcodes, ceiling):
+    """kernel_limits names a decoder one position past the widest its
+    kernel's block holds (a looped K1 barcode row; a looped K6 read with
+    its key table, in shared memory for one barcode) and not one at it;
+    the byte counts use the CUDA sources' constants."""
+    csrc = Path(pamld.__file__).parent.parent / "csrc"
+    source = (csrc / "pamld.cu").read_text() + (csrc / "mdd.cu").read_text()
+    for name, value in (("PHQ_PAMLD_SMEM_MAX", pamld.SHARED_LIMIT), ("PHQ_MDD_SMEM_MAX", mdd.SHARED_LIMIT),
+                        ("PHQ_MDD_SHARED_TABLE", mdd.SHARED_TABLE), ("PHQ_MDD_SHARED_SEGMENTS", mdd.SHARED_SEGMENTS)):
+        assert int(re.search(rf"#define {name} \((\d+) \* 1024\)", source).group(1)) * 1024 == value
+    assert int(re.search(r"#define PHQ_MDD_THREADS (\d+)", source).group(1)) == 32 * mdd.WARPS
+    for width, refused in ((ceiling, False), (ceiling + 1, True)):
+        dec = _decoder(algorithm, [width])
+        dec.barcode_count = barcodes
+        lines = kernel_limits(_instrument([dec]))
+        assert bool(lines) == refused, (width, lines)

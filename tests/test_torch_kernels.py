@@ -162,11 +162,12 @@ def test_mdd_kernel_matches_plain(cuda, tolerance, qmt, short):
 def test_unpack_kernel_edge_cases(cuda):
     """K3 byte-exact and identical across two launches at N = 0, 1, R - 1,
     R + 1 and 16384 + 7 reads on the 6-bit and j4 wires with the general
-    gather, on aligned blobs and on views 3 bytes off alignment; and
-    programs of ~3,000 and ~10,000 ints, staged and read in place."""
+    gather, on aligned blobs and on views 3 bytes off alignment;
+    programs of ~3,000 and ~10,000 ints, staged and read in place; and
+    2048 length columns, written in place."""
     from chip_smoke import unpack_edge_checks
 
-    assert unpack_edge_checks() == 25
+    assert unpack_edge_checks() == 27
 
 
 @pytest.mark.cuda
@@ -402,11 +403,12 @@ def test_pamld_wide_instances_match_plain(cuda, width):
 def test_wide_kernels_match_plain(cuda):
     """Every extended kernel as chip_smoke's wide phase holds it, at 16384
     reads: K1 at 65-300 positions, K7 and K8 at 96, K6 past 8 segments and
-    64 positions, K3's programs past 2048 ints staged and in place, K4 and
+    64 positions, K3's programs past 2048 ints staged and in place and its
+    lengths written in place, K4 and
     K5 at 33 and 64 decoders and K5's rows in place."""
     from chip_smoke import WIDE_DECODERS, WIDE_MDD, wide_checks
 
     entries = wide_checks(16384)
     assert len(entries["pamld_chunked"]) == len(entries["pamld_panel_sharded"]) == 1
     assert len(entries["mdd_classify"]) == 2 and len(entries["counters"]) == len(WIDE_DECODERS)
-    assert len(WIDE_MDD) == 4 and len(entries["unpack_tokens"]) == 4
+    assert len(WIDE_MDD) == 4 and len(entries["unpack_tokens"]) == 5

@@ -1,7 +1,8 @@
 """K3's block plan (kernels/unpack.py:block_plan) on the CPU: how many
 reads a block owns and how its rows are staged in shared memory, for every
 wire mode, the raw rows of apply_plans, programs of 2029 and ~3000 ints
-(staged) and ~60,000 (read in place) and rows too wide to stage. The kernel itself runs only on the card
+(staged) and ~60,000 (read in place), rows too wide to stage and 2048
+length columns (written in place). The kernel itself runs only on the card
 (tests/test_torch_kernels.py, chip_smoke.py)."""
 
 import re
@@ -61,6 +62,11 @@ def _layouts():
         big = unpack.token_layout(
             SimpleNamespace(decoders=[DeviceDecoder("mdd", "sample", 1, True, plans, widths)]), [24, 24], wire.JOINT4)
         cases.append((label, big, _row_bytes([24, 24], wire.JOINT4)))
+    # 1024 MDD decoders of two segments: 2048 length columns, whose rows
+    # at 32 reads pass a block's shared memory
+    plans = [TokenPlan(0, 0, 4, True, False, 0, 4), TokenPlan(0, 4, 8, True, False, 1, 4)]
+    many = SimpleNamespace(decoders=[DeviceDecoder("mdd", "sample", 1, True, plans, [4, 4])] * 1024)
+    cases.append(("lengths 2048", unpack.token_layout(many, [8], wire.JOINT4), _row_bytes([8], wire.JOINT4)))
     return cases
 
 
@@ -85,8 +91,8 @@ def test_block_plan_fits_and_aligns(label, layout, row_bytes):
         ("wire", plan.wire_at, reads * row_bytes + 16 if plan.stage_wire else 0),
         ("codes", plan.codes_at, reads * plan.token_pitch if plan.stage_tokens else 0),
         ("quals", plan.quals_at, reads * plan.token_pitch if plan.stage_tokens else 0),
-        ("lengths", plan.lengths_at, 4 * reads * plan.length_pitch),
-        ("short", plan.short_at, reads * slots),
+        ("lengths", plan.lengths_at, 4 * reads * plan.length_pitch if plan.stage_lengths else 0),
+        ("short", plan.short_at, reads * slots if plan.stage_lengths else 0),
         ("flags", plan.flags_at, 3 * reads),
     ]
     end = 0
@@ -114,6 +120,11 @@ def test_block_plan_fits_and_aligns(label, layout, row_bytes):
         assert not plan.stage_tokens and reads == unpack.MAX_BLOCK_READS
     if label == "raw 2 x 3000":
         assert not plan.stage_wire and plan.stage_tokens
+    if label == "lengths 2048":
+        assert layout.length_cols == 2048 and not plan.stage_tokens and not plan.stage_lengths
+        assert plan.stage_program and reads == unpack.MAX_BLOCK_READS
+    else:
+        assert plan.stage_lengths
     if label.startswith(("flagship", "mdd", "gather", "raw")) and "3000" not in label:
         assert plan.stage_wire and plan.stage_tokens and reads == unpack.MAX_BLOCK_READS
 
@@ -126,8 +137,8 @@ def test_block_plan_matches_the_kernel():
     fields = re.findall(r"\w+(?=[,;])", struct)
     plan = unpack.block_plan(CASES[0][1], CASES[0][2])
     assert len(fields) == plan.ints().size == int(re.search(r"#define PHQ_UNPACK_PLAN_INTS (\d+)", source).group(1))
-    names = ["reads", "stage_wire", "stage_tokens", "stage_program", "token_pitch", "length_pitch", "wire_at", "codes_at",
-             "quals_at", "lengths_at", "short_at", "flags_at", "shared_bytes"]
+    names = ["reads", "stage_wire", "stage_tokens", "stage_program", "stage_lengths", "token_pitch", "length_pitch",
+             "wire_at", "codes_at", "quals_at", "lengths_at", "short_at", "flags_at", "shared_bytes"]
     assert fields == names
     assert [getattr(plan, name) for name in names] == [int(x) for x in plan.ints()]
     assert int(re.search(r"#define PHQ_UNPACK_MAX_READS (\d+)", source).group(1)) == unpack.MAX_BLOCK_READS
@@ -136,7 +147,7 @@ def test_block_plan_matches_the_kernel():
 def test_block_plan_steps_down():
     """Where R = 128 does not fit, the plan takes the most reads that do
     (in steps of 16), then reads the wire in place, then the program, then
-    writes codes and qualities in place."""
+    writes codes and qualities in place, then lengths and short flags."""
     label, layout, row_bytes = CASES[0]
     full = unpack.block_plan(layout, row_bytes)
     program = layout.program.size
@@ -156,6 +167,11 @@ def test_block_plan_steps_down():
         unpack.SHARED_BYTES = unpack._areas(layout, program, row_bytes, 32, False, True, False).shared_bytes - 1
         neither = unpack.block_plan(layout, row_bytes)
         assert not neither.stage_wire and not neither.stage_tokens and neither.reads >= 32
+        assert neither.stage_lengths
+        unpack.SHARED_BYTES = unpack._areas(layout, 0, row_bytes, 32, False, False, False).shared_bytes - 1
+        flags_only = unpack.block_plan(layout, row_bytes)
+        assert not (flags_only.stage_tokens or flags_only.stage_lengths or flags_only.stage_program)
+        assert flags_only.shared_bytes <= unpack.SHARED_BYTES and flags_only.reads >= 32
     finally:
         unpack.SHARED_BYTES = old
 
