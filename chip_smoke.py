@@ -1295,12 +1295,12 @@ def segment_sums_ms(instrument, rows) -> float:
     count; the distances for PAMLD and MDD; the confidences for PAMLD),
     stacked (N, k), into (B + 1, k) f32 bins keyed by the decoded index,
     and for a PAMLD decoder a second of its (low confidence, noise) pair
-    keyed by the argmax (device time, summed over the calls)."""
+    keyed by the argmax (device time of all the calls, one trace)."""
     import torch
 
     from pheniqs_tpu_torch.device.wire import counter_names
 
-    total = 0.0
+    calls = []
     for k, dec in enumerate(instrument.decoders):
         pf = (~rows.qcfail[k]).to(torch.float32)
         distance = rows.distance[k].to(torch.float32)
@@ -1309,13 +1309,17 @@ def segment_sums_ms(instrument, rows) -> float:
         stacked = torch.stack(columns[: min(6, len(counter_names(dec)))], dim=1)
         index = rows.decoded[k].to(torch.int64)
         bins = torch.zeros((dec.barcode_count + 1, stacked.shape[1]), device=stacked.device)
-        total += device_ms(lambda: bins.index_add_(0, index, stacked))
+        calls.append((bins, index, stacked))
         if dec.algorithm == "pamld":
             filters = torch.stack([(rows.branch[k] == 1), (rows.branch[k] == 2)], dim=1).to(torch.float32)
-            by_argmax = rows.argmax[k].to(torch.int64)
             pair = torch.zeros((dec.barcode_count + 1, 2), device=stacked.device)
-            total += device_ms(lambda: pair.index_add_(0, by_argmax, filters))
-    return total
+            calls.append((pair, rows.argmax[k].to(torch.int64), filters))
+
+    def run():
+        for bins, index, columns in calls:
+            bins.index_add_(0, index, columns)
+
+    return device_ms(run)
 
 
 def k4_bytes(instrument, n: int, want_uncertain: bool = True) -> int:
@@ -1593,10 +1597,11 @@ def tile_loop_report(n: int, panels) -> dict:
     return plans
 
 
-def pamld_observations(ontology, n: int, seed: int):
+def pamld_observations(ontology, n: int, seed: int, panels=None):
     """(instrument, [(dec, codes, quals, qcfail, short)] for each PAMLD
-    decoder) of a j4 batch of `n` reads of `ontology` on the card, unpacked
-    by K3's plain version."""
+    decoder) of a j4 batch of `n` reads of `ontology` on the card (drawn
+    from `panels` where given, flagship_blob), unpacked by K3's plain
+    version."""
     import torch
 
     from pheniqs_tpu_torch.device import wire
@@ -1606,7 +1611,7 @@ def pamld_observations(ontology, n: int, seed: int):
 
     cuda = torch.device("cuda")
     instrument = compile_instrument(ontology, cuda)
-    widths, *arrays = flagship_blob(ontology, instrument, n, seed=seed)
+    widths, *arrays = flagship_blob(ontology, instrument, n, seed=seed, panels=panels)
     blob, ccb, qcb = (torch.from_numpy(x).to(cuda) for x in arrays)
     layout = DecodeStep(instrument, widths, wire.JOINT4, want_uncertain=True).layout
     tokens = unpack.unpack_tokens_plain(instrument, layout, blob, ccb=ccb, qcb=qcb)
@@ -1930,6 +1935,16 @@ WIDE_WIDTHS = (65, 96, 128, 160, 300)
 WIDE_PANELS = (96, 384)
 #: K7 (and K8 over two shards) at 96 positions
 WIDE_K7_PANEL = 4096
+#: (B, W) of the wide case at the loop's tails: W not a multiple of 4 or 16
+#: (the last block of positions cut to one word), B not a multiple of the
+#: barcode loop's group or of the slice unit 48
+WIDE_ODD = (101, 97)
+#: barcodes holding an N in the mixed wide case (B = 384, W = 96): barcodes
+#: with other codes than A, C, G and T inside groups of strict ones
+WIDE_MIXED = 5
+#: --times' wide rows (W, B): K1 at each, K7 and K8 over two shards at 96 x
+#: WIDE_K7_PANEL (wide_times)
+WIDE_TIMED = ((96, 384), (300, 384))
 #: K6 past 8 segments or 64 positions: (segment widths, barcodes) of 9 and
 #: 12 segments of 80 and 130 positions (the 32-word and looped instances)
 WIDE_MDD = (([9] * 8 + [8], 80), ([7] * 8 + [6] * 4, 60), ([15] * 4 + [14] * 5, 50), ([11] * 10 + [10, 10], 40))
@@ -1948,18 +1963,36 @@ N_WIDE_K7_HYBRID = 4_000
 N_WIDE_K7_FAST = 20_000
 
 
-def wide_decoders(n: int):
-    """(name, B, W, dec, instrument, codes, quals, qcfail, short) of each
-    wide K1/K7 case: the wide flagship's cellular decoder at each of
-    WIDE_WIDTHS x WIDE_PANELS and at WIDE_K7_PANEL x 96, on `n` of its reads
-    (j4 wire, K3's plain version)."""
+def wide_ontology(b: int, w: int, mixed: int = 0) -> dict:
+    """wide_flagship_ontology(b, w) with an N at position 7k mod w of
+    barcode 9k + 1 for k < `mixed`."""
     from pheniqs_tpu_torch.device.flagship import wide_flagship_ontology
 
-    cases = [(b, w) for w in WIDE_WIDTHS for b in WIDE_PANELS] + [(WIDE_K7_PANEL, 96)]
-    for b, w in cases:
-        instrument, observations = pamld_observations(wide_flagship_ontology(b, w), n, seed=w + b)
+    ontology = wide_flagship_ontology(b, w)
+    codec = ontology["cellular"][0]["codec"]
+    for k, key in enumerate(list(codec)[1 : 1 + 9 * mixed : 9]):
+        word, at = codec[key]["barcode"][0], 7 * k % w
+        codec[key]["barcode"] = [word[:at] + "N" + word[at + 1 :]]
+    return ontology
+
+
+def wide_decoders(n: int):
+    """(name, B, W, mixed, dec, instrument, codes, quals, qcfail, short) of
+    each wide K1/K7 case: the wide flagship's cellular decoder at each of
+    WIDE_WIDTHS x WIDE_PANELS, at WIDE_ODD, with WIDE_MIXED barcodes holding
+    an N at 384 x 96 (its reads drawn from the barcodes without the N, as
+    a sequencer's N is a base of its own quality), and at WIDE_K7_PANEL x
+    96, on `n` of its reads (j4 wire, K3's plain version)."""
+    from pheniqs_tpu_torch.device.flagship import panel_codes
+
+    cases = [(b, w, 0) for w in WIDE_WIDTHS for b in WIDE_PANELS]
+    cases += [(*WIDE_ODD, 0), (384, 96, WIDE_MIXED), (WIDE_K7_PANEL, 96, 0)]
+    for b, w, mixed in cases:
+        instrument, observations = pamld_observations(wide_ontology(b, w, mixed), n, seed=w + b + mixed,
+                                                      panels=panel_codes(wide_ontology(b, w)))
         dec, codes, quals, qcfail, short = observations[1]
-        yield ("pamld_chunked" if b > 1024 else "pamld_classify"), b, w, dec, instrument, codes, quals, qcfail, short
+        name = "pamld_chunked" if b > 1024 else "pamld_classify"
+        yield name, b, w, mixed, dec, instrument, codes, quals, qcfail, short
 
 
 def apart_rows(what: str, dec, codes, quals, mine: dict, other: dict, differs) -> str:
@@ -1979,7 +2012,7 @@ def apart_rows(what: str, dec, codes, quals, mine: dict, other: dict, differs) -
     return f"{ties}; {int(edge.sum())} more at a threshold's edge, flagged by both"
 
 
-def wide_pamld_entry(dec, instrument, codes, quals, qcfail, short) -> dict:
+def wide_pamld_entry(dec, instrument, codes, quals, qcfail, short, mixed: int = 0) -> dict:
     """One wide K1/K7 case on the card: launched twice, byte-identical; the
     sliced launches held to the one-launch instance (sliced_vs_one_launch,
     where the panel is one tile); decisions bit-equal on every row to its
@@ -1992,15 +2025,18 @@ def wide_pamld_entry(dec, instrument, codes, quals, qcfail, short) -> dict:
     confidences where the
     decisions agree within the bound's own margin rel_eps(read) of each
     other (at these widths sigma is ~10^3, whose f32 rounding in two orders
-    moves an ambiguous read's confidence by ~1e-4 of itself). Returns its
-    extra.wide entry."""
+    moves an ambiguous read's confidence by ~1e-4 of itself). `mixed`: the
+    panel's barcodes holding an N. Returns its extra.wide entry."""
     import torch
 
     from pheniqs_tpu_torch.kernels import pamld
 
     n, w = codes.shape
     b = dec.barcode_count
-    name = f"K{7 if b > pamld.LARGE_PANEL_B else 1} W={w} B={b} N={n}"
+    name = f"K{7 if b > pamld.LARGE_PANEL_B else 1} W={w} B={b} N={n}" + (f" ({mixed} barcodes with an N)" if mixed else "")
+    holding = int((dec.panel_codes_u8 == 15).any(dim=1).sum())
+    if holding != mixed:
+        raise AssertionError(f"{name}: {holding} barcodes of the panel hold an N")
     kwargs = dict(want_uncertain=True, eps=instrument.tpq_analytic_eps, short=short)
     counter = "pamld_chunked" if b > pamld.LARGE_PANEL_B else "pamld_classify"
     mine, ms, launches = counted_once_ms(counter, lambda: pamld.pamld_classify(
@@ -2049,7 +2085,7 @@ def wide_pamld_entry(dec, instrument, codes, quals, qcfail, short) -> dict:
     # one launch over one slice, else stages A, B and C; the looped
     # instance's read state one more
     expected = (1 if plan.slices == 1 else 3) + (1 if w > pamld.LOOPED_PAST else 0)
-    entry = {"W": w, "B": b, "N": n, "instance": loop.maxw, "slices": plan.slices,
+    entry = {"W": w, "B": b, "N": n, "mixed": mixed, "instance": loop.maxw, "slices": plan.slices,
              "launches": held_launches(name, launches, expected),
              "ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bytes": moved, "ops": ops,
              "registers": registers, "local_bytes": local, "blocks_per_sm": blocks,
@@ -2118,7 +2154,8 @@ def wide_k8_entry(dec, instrument, codes, quals, qcfail, short, panels: int = 2)
 
 def wide_checks(n: int = N_KERNEL) -> dict:
     """The wide phase's kernel checks and times at `n` reads, each row on
-    its own line: K1 at WIDE_WIDTHS x WIDE_PANELS, K7 at 96 x WIDE_K7_PANEL
+    its own line: K1 at WIDE_WIDTHS x WIDE_PANELS, at WIDE_ODD and with
+    WIDE_MIXED barcodes holding an N, K7 at 96 x WIDE_K7_PANEL
     and K8 over two shards of it (wide_pamld_entry, wide_k8_entry); K6's
     WIDE_MDD cases timed (byte-exact: classify_pair); K3's programs past
     2048 ints staged and in place, and 2048 length columns written in
@@ -2134,8 +2171,8 @@ def wide_checks(n: int = N_KERNEL) -> dict:
     cuda = torch.device("cuda")
     entries = {name: [] for name in KERNELS}
     k7_case = None
-    for name, b, w, dec, instrument, codes, quals, qcfail, short in wide_decoders(n):
-        entries[name].append(wide_pamld_entry(dec, instrument, codes, quals, qcfail, short))
+    for name, b, w, mixed, dec, instrument, codes, quals, qcfail, short in wide_decoders(n):
+        entries[name].append(wide_pamld_entry(dec, instrument, codes, quals, qcfail, short, mixed))
         if b > pamld.LARGE_PANEL_B:
             k7_case = (dec, instrument, codes, quals, qcfail, short)
     entries["pamld_panel_sharded"].append(wide_k8_entry(*k7_case))
@@ -2185,7 +2222,8 @@ def wide_checks(n: int = N_KERNEL) -> dict:
         ms, launches = counted_event_ms("counters", lambda: counters.counters(instrument, rows, pad, forced, True))
         entry = {"decoders": d, "N": n, "bytes": k4_bytes(instrument, n), "ms": ms,
                  "launches": held_launches(f"K4 {d} decoders", launches, len(counters.row_slices(instrument, n))),
-                 "plain_ms": once_ms(lambda: counters.counters_plain(instrument, rows, pad, forced, True))[1]}
+                 "plain_ms": once_ms(lambda: counters.counters_plain(instrument, rows, pad, forced, True))[1],
+                 "library_ms": segment_sums_ms(instrument, rows)}
         entry["bound_ms"], entry["bound_by"] = bound(entry)
         entries["counters"].append(entry)
         instrument, decisions, forced = pack_case([(a, b) for a, b, _ in decoders], n, d, cuda)
@@ -2199,7 +2237,8 @@ def wide_checks(n: int = N_KERNEL) -> dict:
         pentry["bound_ms"], pentry["bound_by"] = bound(pentry)
         entries["pack_outputs"].append(pentry)
         say(f"[wide] {d} decoders N={n}: K4 byte-exact, two launches identical, kernel {entry['ms']:.4f} ms, plain"
-            f" {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms; K5 ({plan.layout['total']} B a row, R ="
+            f" {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms, index_add_ yardstick"
+            f" {entry['library_ms']:.4f} ms; K5 ({plan.layout['total']} B a row, R ="
             f" {plan.reads}) byte-exact, kernel {pentry['ms']:.4f} ms, plain {pentry['plain_ms']:.4f} ms, bound"
             f" {pentry['bound_ms']:.4f} ms")
     d, m = WIDE_PACK_IN_PLACE
@@ -3244,6 +3283,99 @@ def variant_library(source: str, define: str):
     return lib
 
 
+def wide_times() -> dict:
+    """--times' wide K1/K7/K8 rows at N_KERNEL reads of the wide phase's
+    inputs (the same ontologies and seeds), CUDA events over 5 calls of
+    every launch a call makes (the looped instance's state launch too): K1
+    at each (W, B) of WIDE_TIMED, K7 at 96 x WIDE_K7_PANEL and K8 over two
+    shards of that panel in one process (its merges included)."""
+    from pheniqs_tpu_torch.device import tp
+    from pheniqs_tpu_torch.kernels import pamld
+
+    times = {}
+    for w, b in WIDE_TIMED + ((96, WIDE_K7_PANEL),):
+        instrument, observations = pamld_observations(wide_ontology(b, w), N_KERNEL, seed=w + b)
+        dec, codes, quals, qcfail, short = observations[1]
+        kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True, eps=instrument.tpq_analytic_eps,
+                      short=short)
+        label = f"K{7 if b > pamld.LARGE_PANEL_B else 1} W={w} B={b}"
+        times[label] = event_ms(lambda: pamld.pamld_classify(dec, codes, quals, qcfail, **kwargs), reps=5)
+        if b > pamld.LARGE_PANEL_B:
+            shards = [tp.shard_panel(dec, rank, 2) for rank in range(2)]
+            times[f"K8 W={w} B={b} P=2"] = event_ms(
+                lambda: pamld.pamld_classify_sharded(dec, shards, codes, quals, qcfail, **kwargs), reps=5)
+    for key, value in times.items():
+        say(f"[times] {key} N={N_KERNEL}: {value:.4f} ms")
+    return times
+
+
+#: the wide tile loop's candidates: (reads, barcodes) a thread, and whether
+#: observations of 65-128 positions keep their state in registers (the
+#: MAXW 128 instance) or run the looped one
+WIDE_VARIANTS = ((1, 16, 0), (1, 8, 0), (2, 8, 0), (2, 16, 0), (4, 4, 0), (1, 16, 1))
+#: the (W, B) rows each candidate is timed on
+WIDE_VARIANT_ROWS = ((65, 384), (96, 384), (128, 384), (160, 384), (300, 384), (96, WIDE_K7_PANEL))
+
+
+def wide_variant_times() -> dict:
+    """Each WIDE_VARIANTS candidate of the wide tile loop, csrc/pamld.cu
+    built alone with PHQ_PAMLD_WIDE_READS, _UNROLL and _REGISTERS set (all
+    builds started together): its instances' registers, spills and blocks
+    per SM (phq_pamld_info), and the device time of pamld_classify (CUDA
+    events over 5 calls, the state launch included) at WIDE_VARIANT_ROWS on
+    N_KERNEL reads of the wide phase's inputs. {} where the tree has no
+    such macros."""
+    import ctypes
+
+    from pheniqs_tpu_torch.kernels import build, pamld
+
+    path = build.CSRC / "pamld.cu"
+    if "PHQ_PAMLD_WIDE_READS" not in path.read_text():
+        return {}
+    os.makedirs(WORK, exist_ok=True)
+    targets, builds = [], []
+    for reads, unroll, registers in WIDE_VARIANTS:
+        target = os.path.join(WORK, f"pamld.{reads}x{unroll}.{registers}.so")
+        defines = [f"-DPHQ_PAMLD_WIDE_READS={reads}", f"-DPHQ_PAMLD_WIDE_UNROLL={unroll}",
+                   f"-DPHQ_PAMLD_WIDE_REGISTERS={registers}"]
+        builds.append(subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, *defines, "-shared", "-o", target,
+                                        str(path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        targets.append(target)
+    for process in builds:
+        log = process.communicate()[0]
+        if process.returncode:
+            raise RuntimeError(f"a wide variant failed to build:\n{log[-3000:]}")
+    inputs = []
+    for w, b in WIDE_VARIANT_ROWS:
+        instrument, observations = pamld_observations(wide_ontology(b, w), N_KERNEL, seed=w + b)
+        inputs.append((w, b, instrument, observations[1]))
+    kept = build._LIBRARY
+    times = {}
+    try:
+        for (reads, unroll, registers), target in zip(WIDE_VARIANTS, targets):
+            lib = ctypes.CDLL(target)
+            for name, argtypes in build.SIGNATURES.items():
+                if hasattr(lib, name):
+                    getattr(lib, name).argtypes = list(argtypes)
+                    getattr(lib, name).restype = ctypes.c_int
+            build._LIBRARY = lib
+            pamld._TILE_LOOPS.clear()
+            label = f"{reads}x{unroll}{' registers' if registers else ''}"
+            for w, b, instrument, (dec, codes, quals, qcfail, short) in inputs:
+                loop = pamld.tile_loop(w, codes.device)
+                kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True,
+                              eps=instrument.tpq_analytic_eps, short=short)
+                ms = event_ms(lambda: pamld.pamld_classify(dec, codes, quals, qcfail, **kwargs), reps=5)
+                times[f"{label} W={w} B={b}"] = {"ms": ms, "maxw": loop.maxw, "instances": loop.instances}
+                say(f"[times] wide variant {label} W={w} B={b} N={N_KERNEL}: {ms:.4f} ms (MAXW={loop.maxw};"
+                    f" blocks/SM, registers, local bytes: {loop.instances})")
+    finally:
+        build._LIBRARY = kept
+        pamld._TILE_LOOPS.clear()
+        shutil.rmtree(WORK, ignore_errors=True)
+    return times
+
+
 def unpack_mdd_times() -> dict:
     """--times' K3, K6, K4 and K5 readings, device time of one call: K3 on
     the flagship's and the MDD flagship's j4 blobs and K6 on the MDD
@@ -3341,7 +3473,9 @@ def kernel_times(card: str, tree: str):
     MDD flagship's whole decode step and its device launches a batch; and,
     one call each with CUDA events,
     K7 and K8 at P = 2 and 4 on a synthetic panel of the whitelist's size
-    (random codes from a seed); K3, K6, K4 and K5 (unpack_mdd_times); the
+    (random codes from a seed); the wide K1/K7/K8 rows (wide_times) and,
+    where the tree has them, the wide tile loop's candidates
+    (wide_variant_times); K3, K6, K4 and K5 (unpack_mdd_times); the
     plan's choice on panels of one tile (slice_rule_times); and, where the
     tree takes a plan, K1's slice unit (slice_cut_sweep). The steps are also timed with CUDA events over 10
     and, three times, over 200 back-to-back calls: their launches, not the
@@ -3399,6 +3533,8 @@ def kernel_times(card: str, tree: str):
         shards = [tp.shard_panel(wide, rank, panels) for rank in range(panels)]
         times[f"K8 P={panels} shard"] = once_ms(lambda: pamld.pamld_classify_sharded(
             wide, shards[:1], codes, quals, None, finish=False, **kwargs))[1]
+    times.update(wide_times())
+    times["wide variants"] = wide_variant_times()
     times.update(unpack_mdd_times())
     takes_plan = "plan" in inspect.signature(pamld._classify_launches).parameters
     times.update(slice_rule_times(takes_plan))

@@ -113,33 +113,45 @@
 // PERF.md)
 #define PHQ_PAMLD_SLICE_UNIT 48
 
-// The MAXW 128 instance's resident blocks asked of the compiler, its
-// register cap: at 4 blocks/SM, 128 registers with some spills, ran faster
-// on an H100 than 2 blocks/SM at ~234 (PERF.md). It is a kernel of its own
-// (phq_pamld_kernel_128), so the other instances keep their one-argument
-// bound: a second argument, even 1, moves their register allocation
-// (125 -> 136 at MAXW 16), and a bound of 4 x 128 threads in its place
-// gives 64 registers and 744 B of spills.
-#define PHQ_PAMLD_BLOCKS_128 4
+// The wide tile loop (observations past 64 positions): each thread keeps
+// PHQ_PAMLD_WIDE_READS reads x PHQ_PAMLD_WIDE_UNROLL barcodes of sigma sums
+// and walks the positions in blocks of 16 (phq_wide_block); its kernels ask
+// the compiler for PHQ_PAMLD_WIDE_BLOCKS resident blocks.
+#ifndef PHQ_PAMLD_WIDE_READS
+#define PHQ_PAMLD_WIDE_READS 1
+#endif
+#ifndef PHQ_PAMLD_WIDE_UNROLL
+#define PHQ_PAMLD_WIDE_UNROLL 16
+#endif
+#ifndef PHQ_PAMLD_WIDE_BLOCKS
+#define PHQ_PAMLD_WIDE_BLOCKS 4
+#endif
+// 1: observations of 65-128 positions keep their state in registers (the
+// MAXW 128 instance); 0: every observation past 64 runs the looped one
+#ifndef PHQ_PAMLD_WIDE_REGISTERS
+#define PHQ_PAMLD_WIDE_REGISTERS 0
+#endif
 
-// The looped instance (MAXW 0, observations wider than 128 positions):
-// its read state lives in device memory (phq_pamld_state_kernel), its
-// positions are looped, and its tile and row size are set at run time.
+// The looped instance (MAXW 0, observations wider than 64 positions): its
+// read state lives in device memory (phq_pamld_state_kernel), and its tile
+// and row size are set at run time.
 #define PHQ_PAMLD_LOOPED 0
 
-// reads a thread takes: two while the register arrays stay small
 template <int MAXW>
 struct PhqPamldShape {
-  static constexpr int reads = MAXW != PHQ_PAMLD_LOOPED && MAXW <= 16 ? 2 : 1;
+  // whether the read keeps its qualities packed beside its codes and reads
+  // its match features from the block's shared table fm[q] = tpq(q) - q,
+  // walked by the wide tile loop (past 64 positions), rather than keeping W
+  // of them in registers
+  static constexpr bool fm_table = MAXW == PHQ_PAMLD_LOOPED || MAXW > 64;
+  // reads a thread takes: two while the register arrays stay small
+  static constexpr int reads = fm_table ? PHQ_PAMLD_WIDE_READS : MAXW <= 16 ? 2 : 1;
   // 32-bit words of a read or a barcode row (the looped instance's are
   // counted at run time: phq_pamld_row_bytes)
   static constexpr int words = MAXW != PHQ_PAMLD_LOOPED ? MAXW / 4 : 4;
   static constexpr int tile_b = MAXW != PHQ_PAMLD_LOOPED ? PHQ_PAMLD_TILE_BYTES / MAXW : 0;
-  // whether the read keeps its qualities packed beside its codes and reads
-  // its match features from the block's shared table fm[q] = tpq(q) - q
-  // (MAXW 128 and the looped instance) rather than keeping W of them in
-  // registers
-  static constexpr bool fm_table = MAXW == PHQ_PAMLD_LOOPED || MAXW > 64;
+  // barcodes a step of the barcode loop takes
+  static constexpr int unroll = fm_table ? PHQ_PAMLD_WIDE_UNROLL : PHQ_PAMLD_UNROLL;
 };
 
 // bytes of a barcode row in the tile: whole 16-byte vectors
@@ -323,21 +335,13 @@ struct PhqRead {
 // value PhqRead keeps, so sigma is the same bit for bit.
 template <int MAXW>
 struct PhqReadPacked {
-  static constexpr int maxw = MAXW;
   uint32_t code[PhqPamldShape<MAXW>::words];
   uint32_t qual[PhqPamldShape<MAXW>::words];
-  const float* s_fm;
   const uint8_t* oc;  // the read's code row (the interleaved loop's)
   float c;
   float qpos_u;
 
-  __device__ __forceinline__ float fm_of(int w) const {
-    return s_fm[(qual[w >> 2] >> (8 * (w & 3))) & 0xFFu];
-  }
-
-  __device__ __forceinline__ void load(const PhqPamldParams& p, const PhqRaw<MAXW>& raw,
-                                       const float* table) {
-    s_fm = table;
+  __device__ __forceinline__ void load(const PhqPamldParams& p, const PhqRaw<MAXW>& raw) {
     int qpos = 0;
     float fs_sum = 0.0f;
 #pragma unroll
@@ -362,53 +366,58 @@ struct PhqReadPacked {
   }
 };
 
-// The looped instance's read (W > 128): the strict codes and the quality
-// bytes as words in device memory, word k of read i at [k * n + i] (a warp
-// reads one word of 32 reads in one transaction), C and qpos*U beside them,
-// all written once per batch by phq_pamld_state_kernel; positions are
-// looped, and fm comes from the block's table as in PhqReadPacked.
+// The looped instance's read: its strict codes and quality bytes in device
+// memory as 16-byte vectors of 16 positions, vector v of read i at
+// [v * n + i] (a warp reads one vector of 32 reads in one 512-byte run),
+// C and qpos*U beside them, all written once per batch by
+// phq_pamld_state_kernel.
 struct PhqReadLooped {
-  const uint32_t* code;
-  const uint32_t* qual;
-  const float* s_fm;
+  const uint4* code;  // vector v at code[v * n]
+  const uint4* qual;
   size_t n;
-  int words;
   float c;
   float qpos_u;
 };
 
 // The looped instance's state: per read, its strict codes, its quality
-// words, C and qpos*U (PhqReadLooped), computed as PhqRead::load does.
-// `state` holds 2 * words * n words, then n floats of C, then n of qpos*U.
+// bytes, C and qpos*U (PhqReadLooped), computed as PhqRead::load does.
+// `state` holds V = ceil(W/16) vectors of codes per read, then V of
+// qualities (zero past W), then n floats of C, then n of qpos*U.
 __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_state_kernel(
     PhqPamldParams p, const uint8_t* __restrict__ obs_code, const uint8_t* __restrict__ obs_qual,
-    int words_ok, uint32_t* __restrict__ state) {
+    int words_ok, uint4* __restrict__ state) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
   const size_t n = (size_t)p.n;
-  const int words = (p.W + 3) / 4;
+  const int V = phq_pamld_row_bytes(p.W) / 16;
   const uint8_t* oc = obs_code + (size_t)i * p.ld_obs;
   const uint8_t* oq = obs_qual + (size_t)i * p.ld_obs;
   int qpos = 0;
   float fs_sum = 0.0f;
-  for (int k = 0; k < words; ++k) {
-    const uint32_t cw = phq_row_word(oc, k, p.W, words_ok != 0);
-    const uint32_t qw = phq_row_word(oq, k, p.W, words_ok != 0);
-    uint32_t kept = 0u;
+  for (int v = 0; v < V; ++v) {
+    uint32_t kept[4], quals[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t code = (cw >> (8 * j)) & 0xFFu;
-      const int q = (int)((qw >> (8 * j)) & 0xFFu);
-      if (phq_strict(code) && q > 0) {
-        kept |= code << (8 * j);
-        fs_sum = fs_sum + ((float)q - p.U);
+    for (int t = 0; t < 4; ++t) {
+      const int k = 4 * v + t;
+      const uint32_t cw = 4 * k < p.W ? phq_row_word(oc, k, p.W, words_ok != 0) : 0u;
+      const uint32_t qw = 4 * k < p.W ? phq_row_word(oq, k, p.W, words_ok != 0) : 0u;
+      kept[t] = 0u;
+      quals[t] = qw;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t code = (cw >> (8 * j)) & 0xFFu;
+        const int q = (int)((qw >> (8 * j)) & 0xFFu);
+        if (phq_strict(code) && q > 0) {
+          kept[t] |= code << (8 * j);
+          fs_sum = fs_sum + ((float)q - p.U);
+        }
+        qpos += q > 0 ? 1 : 0;
       }
-      qpos += q > 0 ? 1 : 0;
     }
-    state[k * n + i] = kept;
-    state[(words + k) * n + i] = qw;
+    state[v * n + i] = make_uint4(kept[0], kept[1], kept[2], kept[3]);
+    state[(V + v) * n + i] = make_uint4(quals[0], quals[1], quals[2], quals[3]);
   }
-  float* tail = (float*)(state + 2 * words * n);
+  float* tail = (float*)(state + 2 * V * n);
   const float qpos_u = (float)qpos * p.U;
   tail[i] = fs_sum + qpos_u;
   tail[n + i] = qpos_u;
@@ -445,20 +454,116 @@ __device__ __forceinline__ float phq_match(const Read& r, const uint4* e, int W)
   return phq_match_from<Read, 0>(r, e, W, 0.0f);
 }
 
-__device__ __forceinline__ float phq_match(const PhqReadLooped& r, const uint4* e, int W) {
-  const uint32_t* row = (const uint32_t*)e;
-  float acc = 0.0f;
-  for (int k = 0; k < r.words; ++k) {
-    const uint32_t x = row[k] & r.code[k * r.n];
-    if (x) {
-      const uint32_t q = r.qual[k * r.n];
+// word j of a 16-byte vector (j a constant once the loops are unrolled)
+__device__ __forceinline__ uint32_t phq_lane(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// One block of 16 positions of the wide tile loop, NW of its four words
+// inside the observation: the R reads' kept codes `code` and quality bytes
+// `qual` of the block, whose 4*NW match features each read takes from the
+// table s_fm once, before any add; then, for each of the U barcode rows
+// (row u's vector at e[u * V]), one 16-byte broadcast load and, per read
+// and word, one AND and four predicated adds of fm in position order
+// (strict codes are one-hot: a position matches if and only if its byte of
+// the AND is not 0). Each of the R x U sums in `m` adds its terms in
+// position order, so a skipped term is the +0.0 of sigma_tile_order.
+template <int R, int U, int NW>
+__device__ __forceinline__ void phq_wide_block(const uint4 (&code)[R], const uint4 (&qual)[R], const float* s_fm,
+                                               const uint4* e, int V, float (&m)[R][U]) {
+  float fm[R][4 * NW];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (x & (0xFu << (8 * j))) acc = acc + r.s_fm[(q >> (8 * j)) & 0xFFu];
+  for (int k = 0; k < R; ++k) {
+#pragma unroll
+    for (int w = 0; w < 4 * NW; ++w) fm[k][w] = s_fm[(phq_lane(qual[k], w >> 2) >> (8 * (w & 3))) & 0xFFu];
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const uint4 row = e[u * V];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        const uint32_t x = phq_lane(row, j) & phq_lane(code[k], j);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          if (x & (0xFu << (8 * t))) m[k][u] = m[k][u] + fm[k][4 * j + t];
+        }
       }
     }
   }
-  return acc;
+}
+
+// The last block of an observation whose words are not a multiple of four
+// (W = 65, 97, 300): its `rest` words.
+template <int R, int U>
+__device__ __forceinline__ void phq_wide_rest(int rest, const uint4 (&code)[R], const uint4 (&qual)[R],
+                                              const float* s_fm, const uint4* e, int V, float (&m)[R][U]) {
+  if (rest == 1) phq_wide_block<R, U, 1>(code, qual, s_fm, e, V, m);
+  if (rest == 2) phq_wide_block<R, U, 2>(code, qual, s_fm, e, V, m);
+  if (rest == 3) phq_wide_block<R, U, 3>(code, qual, s_fm, e, V, m);
+}
+
+// M of R reads against U all-strict barcode rows (row u at e[u * V] of the
+// tile), the looped instance's: the reads' state read from device memory
+// one block of 16 positions ahead of its use, once per block for all U
+// barcodes.
+template <int R, int U>
+__device__ __forceinline__ void phq_wide_match(const PhqReadLooped (&r)[R], const float* s_fm, const uint4* e,
+                                               int V, int W, float (&m)[R][U]) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) m[k][u] = 0.0f;
+  }
+  const int words = (W + 3) / 4;
+  uint4 code[R], qual[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    code[k] = r[k].code[0];
+    qual[k] = r[k].qual[0];
+  }
+#pragma unroll 1
+  for (int v = 0; v < words / 4; ++v) {
+    uint4 c[R], q[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      c[k] = code[k];
+      q[k] = qual[k];
+      if (v + 1 < V) {
+        code[k] = r[k].code[(size_t)(v + 1) * r[k].n];
+        qual[k] = r[k].qual[(size_t)(v + 1) * r[k].n];
+      }
+    }
+    phq_wide_block<R, U, 4>(c, q, s_fm, e + v, V, m);
+  }
+  phq_wide_rest<R, U>(words & 3, code, qual, s_fm, e + words / 4, V, m);
+}
+
+// The MAXW 128 instance's: the reads' state from registers.
+template <int R, int U, int MAXW>
+__device__ __forceinline__ void phq_wide_match(const PhqReadPacked<MAXW> (&r)[R], const float* s_fm,
+                                               const uint4* e, int V, int W, float (&m)[R][U]) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) m[k][u] = 0.0f;
+  }
+  const int words = (W + 3) / 4;
+#pragma unroll
+  for (int v = 0; v < MAXW / 16; ++v) {
+    uint4 c[R], q[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      c[k] = make_uint4(r[k].code[4 * v], r[k].code[4 * v + 1], r[k].code[4 * v + 2], r[k].code[4 * v + 3]);
+      q[k] = make_uint4(r[k].qual[4 * v], r[k].qual[4 * v + 1], r[k].qual[4 * v + 2], r[k].qual[4 * v + 3]);
+    }
+    if (4 * v + 4 <= words) {
+      phq_wide_block<R, U, 4>(c, q, s_fm, e + v, V, m);
+    } else if (4 * v < words) {
+      phq_wide_rest<R, U>(words & 3, c, q, s_fm, e + v, V, m);
+    }
+  }
 }
 
 // sigma of a barcode with codes other than A, C, G and T: per position the
@@ -482,13 +587,13 @@ __device__ __forceinline__ float phq_sigma_mixed(const PhqRead<MAXW>& r, const u
   return acc + r.qpos_u;
 }
 
-// The MAXW 128 instance's: the same sum, its positions looped over the
-// read's rows (unrolled over its registers, the W code bytes of this
+// The wide instances': the same sum, its positions looped over the read's
+// rows (MAXW 128: unrolled over its registers, the W code bytes of this
 // barcode-invariant loop would be hoisted out of the barcode loop into W
-// registers); a barcode with other codes is rare.
+// registers) or its state (looped); a barcode with other codes is rare.
 template <int MAXW>
-__device__ __forceinline__ float phq_sigma_mixed(const PhqReadPacked<MAXW>& r, const uint8_t* e,
-                                                 const uint8_t* oq, const PhqPamldParams& p) {
+__device__ __forceinline__ float phq_sigma_mixed(const PhqReadPacked<MAXW>& r, const float* s_fm,
+                                                 const uint8_t* e, const uint8_t* oq, const PhqPamldParams& p) {
   float acc = 0.0f;
 #pragma unroll 1
   for (int w = 0; w < p.W; ++w) {
@@ -496,26 +601,26 @@ __device__ __forceinline__ float phq_sigma_mixed(const PhqReadPacked<MAXW>& r, c
     const uint32_t q = oq[w];
     const uint32_t code = r.oc[w];
     const uint32_t ow = phq_strict(code) && q > 0 ? code : 0u;
-    if (ew == ow && ow != 0u) acc = acc + r.s_fm[q];
+    if (ew == ow && ow != 0u) acc = acc + s_fm[q];
     if (ow != 0u && phq_strict(ew)) acc = acc + ((float)q - p.U);
   }
   return acc + r.qpos_u;
 }
 
-__device__ __forceinline__ float phq_sigma_mixed(const PhqReadLooped& r, const uint8_t* e,
+__device__ __forceinline__ float phq_sigma_mixed(const PhqReadLooped& r, const float* s_fm, const uint8_t* e,
                                                  const uint8_t* oq, const PhqPamldParams& p) {
   float acc = 0.0f;
-  for (int k = 0; k < r.words; ++k) {
-    const uint32_t code = r.code[k * r.n];
-    const uint32_t qual = r.qual[k * r.n];
+#pragma unroll 1
+  for (int k = 0; 4 * k < p.W; ++k) {
+    const uint32_t code = ((const uint32_t*)(r.code + (size_t)(k >> 2) * r.n))[k & 3];
+    const uint32_t qual = ((const uint32_t*)(r.qual + (size_t)(k >> 2) * r.n))[k & 3];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int w = 4 * k + j;
-      if (w < p.W) {
-        const uint32_t ew = e[w];
+      if (4 * k + j < p.W) {
+        const uint32_t ew = e[4 * k + j];
         const uint32_t ow = (code >> (8 * j)) & 0xFFu;
         const uint32_t q = (qual >> (8 * j)) & 0xFFu;
-        if (ew == ow && ow != 0u) acc = acc + r.s_fm[q];
+        if (ew == ow && ow != 0u) acc = acc + s_fm[q];
         if (ow != 0u && phq_strict(ew)) acc = acc + ((float)q - p.U);
       }
     }
@@ -702,11 +807,31 @@ __device__ __forceinline__ float phq_sigma(const Read& r, const uint4* s_rows, i
   return phq_sigma_mixed(r, (const uint8_t*)e, oq, p);
 }
 
-// the read a thread keeps, by instance
-template <int MAXW>
-using PhqReadOf = typename std::conditional<
-    MAXW == PHQ_PAMLD_LOOPED, PhqReadLooped,
-    typename std::conditional<PhqPamldShape<MAXW>::fm_table, PhqReadPacked<MAXW>, PhqRead<MAXW>>::type>::type;
+// What a launch of the tile loop writes for read i (nothing past the last
+// read): stage A its slice's row minimum, stage B its slice's partials, the
+// one-launch classify its decisions (phq_pamld_finish).
+template <int MODE>
+__device__ __forceinline__ void phq_pamld_store(const PhqPamldParams& p, const PhqPamldArgs& a, int i, float shift,
+                                                const PhqPosterior& post, bool words) {
+  if (i >= p.n) return;
+  const size_t n = (size_t)p.n;
+  if (MODE == PHQ_MODE_SLICE_MIN) {
+    a.shift[blockIdx.y * n + i] = fminf(shift, PHQ_BIG_SIGMA);
+  } else if (MODE == PHQ_MODE_SLICE_POSTERIOR) {
+    int* out = a.partials + blockIdx.y * 5 * n;
+    float* rows = (float*)out;
+    rows[i] = post.total;
+    rows[n + i] = post.best;
+    out[2 * n + i] = a.base + post.best0;
+    rows[3 * n + i] = post.second;
+    rows[4 * n + i] = post.sigma_best;
+  } else {
+    // K2 reads the decoded barcode's row from device memory
+    phq_pamld_finish(p, i, post, shift, a.panel + (size_t)post.best0 * p.W, a.obs_code + (size_t)i * p.ld_obs,
+                     a.obs_qual + (size_t)i * p.ld_obs, words, a.qcfail_in, a.short_flags, a.decoded, a.argmax,
+                     a.distance, a.branch, a.confidence, a.qcfail_out, a.uncertain);
+  }
+}
 
 template <int MAXW, int MODE>
 __device__ __forceinline__ void phq_pamld_body(PhqPamldParams p, PhqPamldArgs a, int tile_b, int cut,
@@ -715,9 +840,9 @@ __device__ __forceinline__ void phq_pamld_body(PhqPamldParams p, PhqPamldArgs a,
   constexpr int R = Shape::reads;
   constexpr int U = PHQ_PAMLD_UNROLL;
   // 16-byte vectors of a barcode row
-  const int V = MAXW != PHQ_PAMLD_LOOPED ? Shape::words / 4 : phq_pamld_row_bytes(p.W) / 16;
+  constexpr int V = Shape::words / 4;
   PHQ_DYNAMIC_SMEM(smem);
-  float* s_tpq = (float*)smem;                                // 256 (fm with Shape::fm_table)
+  float* s_tpq = (float*)smem;                                // 256
   float* s_conc = s_tpq + 256;                                // tile_b, rounded up to 4
   uint4* s_rows = (uint4*)(s_conc + ((tile_b + 3) & ~3));     // tile_b * V
   uint8_t* s_strict = (uint8_t*)(s_rows + (size_t)tile_b * V);  // tile_b
@@ -733,11 +858,9 @@ __device__ __forceinline__ void phq_pamld_body(PhqPamldParams p, PhqPamldArgs a,
   for (int k = 0; k < R; ++k) {
     const int i = (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x;
     row[k] = i < p.n ? i : p.n - 1;
-    if constexpr (MAXW != PHQ_PAMLD_LOOPED) {
-      raw[k].fetch(p, a.obs_code + (size_t)row[k] * p.ld_obs, a.obs_qual + (size_t)row[k] * p.ld_obs, words);
-    }
+    raw[k].fetch(p, a.obs_code + (size_t)row[k] * p.ld_obs, a.obs_qual + (size_t)row[k] * p.ld_obs, words);
   }
-  phq_tpq_table<Shape::fm_table>(s_tpq, s_consts, a.tpq_consts);
+  phq_tpq_table<false>(s_tpq, s_consts, a.tpq_consts);
   __syncthreads();
 
   // this block's slice of the columns: cuts [s*C/S, (s+1)*C/S) of the
@@ -746,25 +869,12 @@ __device__ __forceinline__ void phq_pamld_body(PhqPamldParams p, PhqPamldArgs a,
   const int col0 = (int)((long long)blockIdx.y * units / gridDim.y) * cut;
   const int col1 = min((int)((long long)(blockIdx.y + 1) * units / gridDim.y) * cut, p.B);
 
-  PhqReadOf<MAXW> r[R];
+  PhqRead<MAXW> r[R];
   float mmin[R], smin[R], shift[R];
   PhqPosterior post[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    if constexpr (MAXW == PHQ_PAMLD_LOOPED) {
-      const int state_words = (p.W + 3) / 4;
-      const float* tail = (const float*)(a.state + 2 * state_words * n);
-      r[k].code = a.state + row[k];
-      r[k].qual = a.state + state_words * n + row[k];
-      r[k].s_fm = s_tpq;
-      r[k].n = n;
-      r[k].words = state_words;
-      r[k].c = tail[row[k]];
-      r[k].qpos_u = tail[n + row[k]];
-    } else {
-      r[k].load(p, raw[k], s_tpq);
-      if constexpr (Shape::fm_table) r[k].oc = a.obs_code + (size_t)row[k] * p.ld_obs;
-    }
+    r[k].load(p, raw[k], s_tpq);
     mmin[k] = INFINITY;
     smin[k] = INFINITY;
     shift[k] = INFINITY;
@@ -857,25 +967,162 @@ __device__ __forceinline__ void phq_pamld_body(PhqPamldParams p, PhqPamldArgs a,
 
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    const int i = (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x;
-    if (i >= p.n) continue;
-    if (MODE == PHQ_MODE_SLICE_MIN) {
-      a.shift[blockIdx.y * n + i] = fminf(shift[k], PHQ_BIG_SIGMA);
-    } else if (MODE == PHQ_MODE_SLICE_POSTERIOR) {
-      int* out = a.partials + blockIdx.y * 5 * n;
-      float* rows = (float*)out;
-      rows[i] = post[k].total;
-      rows[n + i] = post[k].best;
-      out[2 * n + i] = a.base + post[k].best0;
-      rows[3 * n + i] = post[k].second;
-      rows[4 * n + i] = post[k].sigma_best;
+    phq_pamld_store<MODE>(p, a, (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x, shift[k], post[k], words);
+  }
+}
+
+// the read a thread keeps in the wide tile loop, by instance
+template <int MAXW>
+using PhqReadOf =
+    typename std::conditional<MAXW == PHQ_PAMLD_LOOPED, PhqReadLooped, PhqReadPacked<MAXW>>::type;
+
+// One group of G barcodes of the wide tile loop, tile rows [b, b + G),
+// global columns from `col`: their match terms for the R reads
+// (phq_wide_match), then barcode by barcode in column order pass A's row
+// minimum (PASS 0) or pass B's posterior (PASS 1). A barcode with codes
+// other than A, C, G and T takes the interleaved sum.
+template <int PASS, int R, int G, typename Read>
+__device__ __forceinline__ void phq_wide_group(const Read (&r)[R], const PhqPamldParams& p, const float* s_fm,
+                                               const uint4* s_rows, int V, const uint8_t* s_strict,
+                                               const float* s_conc, bool all_strict, int b, int col,
+                                               const uint8_t* const (&oq)[R], const float (&shift)[R],
+                                               float (&mmin)[R], float (&smin)[R], PhqPosterior (&post)[R]) {
+  float m[R][G];
+  phq_wide_match<R, G>(r, s_fm, s_rows + b * V, V, p.W, m);
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    const bool strict = all_strict || s_strict[b + u] != 0;
+    const uint8_t* e = (const uint8_t*)(s_rows + (b + u) * V);
+    if (PASS == 0) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        if (strict) {
+          mmin[k] = fminf(mmin[k], m[k][u]);
+        } else {
+          smin[k] = fminf(smin[k], phq_sigma_mixed(r[k], s_fm, e, oq[k], p));
+        }
+      }
     } else {
-      // K2 reads the decoded barcode's row from device memory
-      phq_pamld_finish(p, i, post[k], shift[k], a.panel + (size_t)post[k].best0 * p.W,
-                       a.obs_code + (size_t)i * p.ld_obs, a.obs_qual + (size_t)i * p.ld_obs, words,
-                       a.qcfail_in, a.short_flags, a.decoded, a.argmax, a.distance, a.branch,
-                       a.confidence, a.qcfail_out, a.uncertain);
+      const float conc = s_conc[b + u];
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const float s = strict ? m[k][u] + r[k].c : phq_sigma_mixed(r[k], s_fm, e, oq[k], p);
+        post[k].add(expf(p.lam * (s - shift[k])) * conc, s, col + u);
+      }
     }
+  }
+}
+
+// One pass over `count` barcodes of the tile: groups of U, then the rest
+// one at a time.
+template <int PASS, int R, int U, typename Read>
+__device__ __forceinline__ void phq_wide_tile(const Read (&r)[R], const PhqPamldParams& p, const float* s_fm,
+                                              const uint4* s_rows, int V, const uint8_t* s_strict,
+                                              const float* s_conc, bool all_strict, int count, int t0,
+                                              const uint8_t* const (&oq)[R], const float (&shift)[R],
+                                              float (&mmin)[R], float (&smin)[R], PhqPosterior (&post)[R]) {
+  int b = 0;
+  for (; b + U <= count; b += U) {
+    phq_wide_group<PASS, R, U>(r, p, s_fm, s_rows, V, s_strict, s_conc, all_strict, b, t0 + b, oq, shift, mmin,
+                               smin, post);
+  }
+  for (; b < count; ++b) {
+    phq_wide_group<PASS, R, 1>(r, p, s_fm, s_rows, V, s_strict, s_conc, all_strict, b, t0 + b, oq, shift, mmin,
+                               smin, post);
+  }
+}
+
+// The tile loop past 64 positions: the same slices, tiles, passes and
+// outputs as phq_pamld_body, its barcodes walked in groups of
+// Shape::unroll by the blocked loop (phq_wide_block).
+template <int MAXW, int MODE>
+__device__ __forceinline__ void phq_pamld_wide_body(PhqPamldParams p, PhqPamldArgs a, int tile_b, int cut,
+                                                    int shift_rows) {
+  using Shape = PhqPamldShape<MAXW>;
+  constexpr int R = Shape::reads;
+  constexpr int U = Shape::unroll;
+  // 16-byte vectors of a barcode row
+  const int V = MAXW != PHQ_PAMLD_LOOPED ? Shape::words / 4 : phq_pamld_row_bytes(p.W) / 16;
+  PHQ_DYNAMIC_SMEM(smem);
+  float* s_fm = (float*)smem;                                 // 256: fm[q] = tpq(q) - q
+  float* s_conc = s_fm + 256;                                 // tile_b, rounded up to 4
+  uint4* s_rows = (uint4*)(s_conc + ((tile_b + 3) & ~3));     // tile_b * V
+  uint8_t* s_strict = (uint8_t*)(s_rows + (size_t)tile_b * V);  // tile_b
+  __shared__ float s_consts[24];
+  const size_t n = (size_t)p.n;
+  const bool words = phq_words(p, a);
+  int row[R];
+  const uint8_t* oq[R];
+  PhqRaw<MAXW> raw[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int i = (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x;
+    row[k] = i < p.n ? i : p.n - 1;
+    oq[k] = a.obs_qual + (size_t)row[k] * p.ld_obs;
+    if constexpr (MAXW != PHQ_PAMLD_LOOPED) raw[k].fetch(p, a.obs_code + (size_t)row[k] * p.ld_obs, oq[k], words);
+  }
+  phq_tpq_table<true>(s_fm, s_consts, a.tpq_consts);
+  __syncthreads();
+
+  const int units = (p.B + cut - 1) / cut;
+  const int col0 = (int)((long long)blockIdx.y * units / gridDim.y) * cut;
+  const int col1 = min((int)((long long)(blockIdx.y + 1) * units / gridDim.y) * cut, p.B);
+
+  PhqReadOf<MAXW> r[R];
+  float mmin[R], smin[R], shift[R];
+  PhqPosterior post[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if constexpr (MAXW == PHQ_PAMLD_LOOPED) {
+      const uint4* state = (const uint4*)a.state;
+      const float* tail = (const float*)(state + 2 * V * n);
+      r[k].code = state + row[k];
+      r[k].qual = state + V * n + row[k];
+      r[k].n = n;
+      r[k].c = tail[row[k]];
+      r[k].qpos_u = tail[n + row[k]];
+    } else {
+      r[k].load(p, raw[k]);
+      r[k].oc = a.obs_code + (size_t)row[k] * p.ld_obs;
+    }
+    mmin[k] = INFINITY;
+    smin[k] = INFINITY;
+    shift[k] = INFINITY;
+    if (MODE == PHQ_MODE_SLICE_POSTERIOR) {
+#pragma unroll 4
+      for (int s = 0; s < shift_rows; ++s) shift[k] = fminf(shift[k], a.shift[s * n + row[k]]);
+    }
+  }
+
+  const bool resident = col1 - col0 <= tile_b;
+  const int first_pass = MODE == PHQ_MODE_SLICE_POSTERIOR ? 1 : 0;
+  const int last_pass = MODE == PHQ_MODE_SLICE_MIN ? 0 : 1;
+  bool all_strict = false;
+  for (int pass = first_pass; pass <= last_pass; ++pass) {
+    for (int t0 = col0; t0 < col1; t0 += tile_b) {
+      const int count = min(tile_b, col1 - t0);
+      if (pass == first_pass || !resident) {
+        const bool conc = pass == 1 || (resident && MODE == PHQ_MODE_CLASSIFY);
+        all_strict = phq_load_tile<MAXW>(p, a.panel + (size_t)t0 * p.W, conc ? a.conc + t0 : nullptr, count,
+                                         s_rows, s_conc, s_strict);
+      }
+      if (MODE != PHQ_MODE_SLICE_POSTERIOR && pass == 0) {
+        phq_wide_tile<0, R, U>(r, p, s_fm, s_rows, V, s_strict, s_conc, all_strict, count, t0, oq, shift, mmin,
+                               smin, post);
+      } else if (MODE != PHQ_MODE_SLICE_MIN) {
+        phq_wide_tile<1, R, U>(r, p, s_fm, s_rows, V, s_strict, s_conc, all_strict, count, t0, oq, shift, mmin,
+                               smin, post);
+      }
+    }
+    if (pass == 0) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) shift[k] = fminf(mmin[k] + r[k].c, smin[k]);
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    phq_pamld_store<MODE>(p, a, (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x, shift[k], post[k], words);
   }
 }
 
@@ -885,10 +1132,13 @@ __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
   phq_pamld_body<MAXW, MODE>(p, a, tile_b, cut, shift_rows);
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(PHQ_PAMLD_THREADS, PHQ_PAMLD_BLOCKS_128) phq_pamld_kernel_128(
+// The wide instances, with the resident blocks asked of the compiler (a
+// second bound on the narrow ones would move their register allocation:
+// 125 -> 136 at MAXW 16).
+template <int MAXW, int MODE>
+__global__ void __launch_bounds__(PHQ_PAMLD_THREADS, PHQ_PAMLD_WIDE_BLOCKS) phq_pamld_wide_kernel(
     PhqPamldParams p, PhqPamldArgs a, int tile_b, int cut, int shift_rows) {
-  phq_pamld_body<128, MODE>(p, a, tile_b, cut, shift_rows);
+  phq_pamld_wide_body<MAXW, MODE>(p, a, tile_b, cut, shift_rows);
 }
 
 // the kernel of an instance
@@ -896,8 +1146,8 @@ typedef void (*PhqPamldKernel)(PhqPamldParams, PhqPamldArgs, int, int, int);
 
 template <int MAXW, int MODE>
 static PhqPamldKernel phq_pamld_kernel_of() {
-  if constexpr (MAXW == 128) {
-    return phq_pamld_kernel_128<MODE>;
+  if constexpr (PhqPamldShape<MAXW>::fm_table) {
+    return phq_pamld_wide_kernel<MAXW, MODE>;
   } else {
     return phq_pamld_kernel<MAXW, MODE>;
   }
@@ -968,8 +1218,10 @@ static int phq_pamld_tile_row(int W) {
 template <int MAXW>
 static int phq_pamld_tile_b(int W) {
   if (MAXW != PHQ_PAMLD_LOOPED) return PhqPamldShape<MAXW>::tile_b;
+  // whole groups of the barcode loop where the tile holds one
+  constexpr int unroll = PhqPamldShape<MAXW>::unroll;
   const int tile_b = PHQ_PAMLD_TILE_BYTES / phq_pamld_tile_row<MAXW>(W);
-  return tile_b > 0 ? tile_b : 1;
+  return tile_b >= unroll ? tile_b - tile_b % unroll : tile_b > 0 ? tile_b : 1;
 }
 
 template <int MAXW, int MODE>
@@ -1011,24 +1263,26 @@ static int phq_pamld_dispatch(const PhqPamldParams& p, const PhqPamldArgs& a, in
   if (p.W <= 16) return phq_pamld_launch<16, MODE>(p, a, slices, cut, shift_rows, s);
   if (p.W <= 32) return phq_pamld_launch<32, MODE>(p, a, slices, cut, shift_rows, s);
   if (p.W <= 64) return phq_pamld_launch<64, MODE>(p, a, slices, cut, shift_rows, s);
+#if PHQ_PAMLD_WIDE_REGISTERS
   if (p.W <= 128) return phq_pamld_launch<128, MODE>(p, a, slices, cut, shift_rows, s);
+#endif
   return phq_pamld_launch<PHQ_PAMLD_LOOPED, MODE>(p, a, slices, cut, shift_rows, s);
 }
 
-// The looped instance's read state of a batch (W > 128), written once
-// before its launches (PhqReadLooped): `state` holds (2 * ceil(W/4) + 2) * n
-// 32-bit words.
+// The looped instance's read state of a batch (W > 64), written once
+// before its launches (PhqReadLooped): `state` holds (8 * ceil(W/16) + 2) * n
+// 32-bit words, 16-byte aligned.
 PHQ_EXPORT int phq_pamld_state(const int* ints, const float* floats, const void* obs_code,
                                const void* obs_qual, void* state, void* stream) {
   const PhqPamldParams p = phq_pamld_params(ints, floats);
   if (p.n <= 0) return (int)cudaGetLastError();
-  if (p.W <= 128) return (int)cudaErrorInvalidValue;
+  if (p.W <= 64 || ((uintptr_t)state & 15) != 0) return (int)cudaErrorInvalidValue;
   PhqPamldArgs a = {};
   a.obs_code = (const uint8_t*)obs_code;
   a.obs_qual = (const uint8_t*)obs_qual;
   const int blocks = (p.n + PHQ_PAMLD_THREADS - 1) / PHQ_PAMLD_THREADS;
   PHQ_LAUNCH(phq_pamld_state_kernel, blocks, PHQ_PAMLD_THREADS, 0, (cudaStream_t)stream)(
-      p, a.obs_code, a.obs_qual, phq_words(p, a) ? 1 : 0, (uint32_t*)state);
+      p, a.obs_code, a.obs_qual, phq_words(p, a) ? 1 : 0, (uint4*)state);
   return (int)cudaGetLastError();
 }
 
@@ -1158,7 +1412,7 @@ static int phq_pamld_info_for(int W, int* out) {
   out[1] = PHQ_PAMLD_THREADS;
   out[2] = PHQ_PAMLD_THREADS * PhqPamldShape<MAXW>::reads;
   out[4] = MAXW;
-  out[14] = PHQ_PAMLD_UNROLL;
+  out[14] = PhqPamldShape<MAXW>::unroll;
   out[15] = PHQ_PAMLD_SLICE_UNIT;
   int rc = phq_pamld_instance<MAXW, PHQ_MODE_CLASSIFY>(W, out + 5);
   if (rc == 0) rc = phq_pamld_instance<MAXW, PHQ_MODE_SLICE_MIN>(W, out + 8);
@@ -1178,7 +1432,9 @@ PHQ_EXPORT int phq_pamld_info(int W, void* out) {
   if (W <= 16) return phq_pamld_info_for<16>(W, o);
   if (W <= 32) return phq_pamld_info_for<32>(W, o);
   if (W <= 64) return phq_pamld_info_for<64>(W, o);
+#if PHQ_PAMLD_WIDE_REGISTERS
   if (W <= 128) return phq_pamld_info_for<128>(W, o);
+#endif
   return phq_pamld_info_for<PHQ_PAMLD_LOOPED>(W, o);
 }
 

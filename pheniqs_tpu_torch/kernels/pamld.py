@@ -61,9 +61,9 @@ HYBRID_SAFETY = 4.0
 U32 = float(2.0**-24)
 TERM_BOUND = 13.74
 #: the widest observation of the tile loop's register instances (MAXW 16,
-#: 32, 64 and 128); wider ones run the looped instance (MAXW 0), whose read
-#: state a launch of its own writes to device memory first
-LOOPED_PAST = 128
+#: 32 and 64); wider ones run the looped instance (MAXW 0), whose read state
+#: a launch of its own writes to device memory first
+LOOPED_PAST = 64
 #: the dynamic shared memory a block may take on the H100, by opt-in
 #: (csrc/pamld.cu PHQ_PAMLD_SMEM_MAX)
 SHARED_LIMIT = 227 * 1024
@@ -422,8 +422,8 @@ def looped_shared_bytes(w: int) -> int:
 
 def instance_width(w: int) -> int:
     """The MAXW of the tile loop's instance for observation width `w`: 16,
-    32, 64 or 128, or 0 for the looped instance past LOOPED_PAST."""
-    for maxw in (16, 32, 64, LOOPED_PAST):
+    32 or 64, or 0 for the looped instance past LOOPED_PAST."""
+    for maxw in (16, 32, LOOPED_PAST):
         if w <= maxw:
             return maxw
     return 0
@@ -773,13 +773,14 @@ class _TileLoopLaunch:
         )
         self.stream = torch.cuda.current_stream(obs_code.device).cuda_stream
         #: the looped instance's read state (W > LOOPED_PAST), written by
-        #: one launch here: strict code words, quality words, C, qpos*U
+        #: one launch here: ceil(W/16) 16-byte vectors of strict codes and
+        #: as many of quality bytes a read, then C and qpos*U
         self.state, self.state_ptr, self.state_launches = None, None, 0
         if w > LOOPED_PAST and n > 0:
             from .build import check
 
-            words = -(-w // 4)
-            self.state = torch.empty((2 * words + 2) * n, dtype=torch.int32, device=obs_code.device)
+            vectors = -(-w // 16)
+            self.state = torch.empty((8 * vectors + 2) * n, dtype=torch.int32, device=obs_code.device)
             self.state_ptr, self.state_launches = self.state.data_ptr(), 1
             check(self.lib.phq_pamld_state(
                 self.ints.ctypes.data, self.floats.ctypes.data, *self.obs, self.state_ptr, self.stream,
