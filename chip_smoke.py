@@ -3313,14 +3313,20 @@ def wide_times() -> dict:
 #: observations of 65-128 positions keep their state in registers (the
 #: MAXW 128 instance) or run the looped one
 WIDE_VARIANTS = ((1, 16, 0), (1, 8, 0), (2, 8, 0), (2, 16, 0), (4, 4, 0), (1, 16, 1))
+#: the second round's candidates, each (reads, barcodes, defines): the
+#: last block of positions run whole (PHQ_PAMLD_WIDE_REST_FULL), and 3
+#: resident blocks asked of the compiler (PHQ_PAMLD_WIDE_BLOCKS)
+WIDE_VARIANTS_2 = ((1, 16, ()), (1, 8, ()), (1, 16, ("PHQ_PAMLD_WIDE_REST_FULL=1",)),
+                   (1, 8, ("PHQ_PAMLD_WIDE_REST_FULL=1",)), (1, 16, ("PHQ_PAMLD_WIDE_BLOCKS=3",)))
 #: the (W, B) rows each candidate is timed on
-WIDE_VARIANT_ROWS = ((65, 384), (96, 384), (128, 384), (160, 384), (300, 384), (96, WIDE_K7_PANEL))
+WIDE_VARIANT_ROWS = ((65, 384), (96, 384), (97, 384), (128, 384), (160, 384), (300, 384), (96, WIDE_K7_PANEL))
 
 
-def wide_variant_times() -> dict:
-    """Each WIDE_VARIANTS candidate of the wide tile loop, csrc/pamld.cu
-    built alone with PHQ_PAMLD_WIDE_READS, _UNROLL and _REGISTERS set (all
-    builds started together): its instances' registers, spills and blocks
+def wide_variant_times(variants=None) -> dict:
+    """Each candidate of the wide tile loop (`variants`, (reads, barcodes,
+    defines); by default WIDE_VARIANTS), csrc/pamld.cu built alone with
+    PHQ_PAMLD_WIDE_READS, _UNROLL and the defines set (all builds started
+    together): its instances' registers, spills and blocks
     per SM (phq_pamld_info), and the device time of pamld_classify (CUDA
     events over 5 calls, the state launch included) at WIDE_VARIANT_ROWS on
     N_KERNEL reads of the wide phase's inputs. {} where the tree has no
@@ -3333,11 +3339,14 @@ def wide_variant_times() -> dict:
     if "PHQ_PAMLD_WIDE_READS" not in path.read_text():
         return {}
     os.makedirs(WORK, exist_ok=True)
+    if variants is None:
+        variants = [(reads, unroll, (f"PHQ_PAMLD_WIDE_REGISTERS={registers}",) if registers else ())
+                    for reads, unroll, registers in WIDE_VARIANTS]
     targets, builds = [], []
-    for reads, unroll, registers in WIDE_VARIANTS:
-        target = os.path.join(WORK, f"pamld.{reads}x{unroll}.{registers}.so")
-        defines = [f"-DPHQ_PAMLD_WIDE_READS={reads}", f"-DPHQ_PAMLD_WIDE_UNROLL={unroll}",
-                   f"-DPHQ_PAMLD_WIDE_REGISTERS={registers}"]
+    for k, (reads, unroll, extra) in enumerate(variants):
+        target = os.path.join(WORK, f"pamld.{k}.so")
+        defines = [f"-DPHQ_PAMLD_WIDE_READS={reads}", f"-DPHQ_PAMLD_WIDE_UNROLL={unroll}"]
+        defines += [f"-D{define}" for define in extra]
         builds.append(subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, *defines, "-shared", "-o", target,
                                         str(path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         targets.append(target)
@@ -3352,7 +3361,7 @@ def wide_variant_times() -> dict:
     kept = build._LIBRARY
     times = {}
     try:
-        for (reads, unroll, registers), target in zip(WIDE_VARIANTS, targets):
+        for (reads, unroll, extra), target in zip(variants, targets):
             lib = ctypes.CDLL(target)
             for name, argtypes in build.SIGNATURES.items():
                 if hasattr(lib, name):
@@ -3360,7 +3369,7 @@ def wide_variant_times() -> dict:
                     getattr(lib, name).restype = ctypes.c_int
             build._LIBRARY = lib
             pamld._TILE_LOOPS.clear()
-            label = f"{reads}x{unroll}{' registers' if registers else ''}"
+            label = " ".join([f"{reads}x{unroll}", *extra])
             for w, b, instrument, (dec, codes, quals, qcfail, short) in inputs:
                 loop = pamld.tile_loop(w, codes.device)
                 kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True,

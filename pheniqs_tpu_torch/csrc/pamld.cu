@@ -131,6 +131,11 @@
 #ifndef PHQ_PAMLD_WIDE_REGISTERS
 #define PHQ_PAMLD_WIDE_REGISTERS 0
 #endif
+// 1: the last block of positions runs as a whole one (its words past W are
+// 0); 0: it runs only its words
+#ifndef PHQ_PAMLD_WIDE_REST_FULL
+#define PHQ_PAMLD_WIDE_REST_FULL 0
+#endif
 
 // The looped instance (MAXW 0, observations wider than 64 positions): its
 // read state lives in device memory (phq_pamld_state_kernel), and its tile
@@ -524,7 +529,7 @@ __device__ __forceinline__ void phq_wide_match(const PhqReadLooped (&r)[R], cons
     qual[k] = r[k].qual[0];
   }
 #pragma unroll 1
-  for (int v = 0; v < words / 4; ++v) {
+  for (int v = 0; v < (PHQ_PAMLD_WIDE_REST_FULL ? V : words / 4); ++v) {
     uint4 c[R], q[R];
 #pragma unroll
     for (int k = 0; k < R; ++k) {
@@ -537,7 +542,7 @@ __device__ __forceinline__ void phq_wide_match(const PhqReadLooped (&r)[R], cons
     }
     phq_wide_block<R, U, 4>(c, q, s_fm, e + v, V, m);
   }
-  phq_wide_rest<R, U>(words & 3, code, qual, s_fm, e + words / 4, V, m);
+  if (!PHQ_PAMLD_WIDE_REST_FULL) phq_wide_rest<R, U>(words & 3, code, qual, s_fm, e + words / 4, V, m);
 }
 
 // The MAXW 128 instance's: the reads' state from registers.

@@ -12,6 +12,8 @@ with the typed error, and nothing inside the reference's domain is. The
 kernels themselves run on the card (tests/test_torch_kernels.py -m cuda,
 chip_smoke.py)."""
 
+import contextlib
+import ctypes
 import re
 from pathlib import Path
 from types import SimpleNamespace
@@ -67,8 +69,8 @@ def test_former_limit_has_a_kernel_plan(name):
     dec = decoders[0]
     w = sum(dec.segment_widths)
     if name == "pamld width":
-        assert pamld.instance_width(w) == 128 and pamld.instance_width(129) == 0
-        plan = pamld.slice_plan(131072, 384, 256, 128, 132 * 4, 48, 132 * 4)
+        assert pamld.instance_width(w) == 0 and pamld.instance_width(pamld.LOOPED_PAST) == 64
+        plan = pamld.slice_plan(131072, 384, 336, 128, 132 * 4, 48, 132 * 4)
         assert plan.slices >= 1 and plan.columns()[-1][1] == 384
     elif name.startswith("mdd"):
         table = mdd.segment_table(dec.segment_widths, [1] * len(dec.segment_widths)).reshape(len(dec.segment_widths), -1)
@@ -193,8 +195,11 @@ def test_former_limit_plain_matches_jax(name):
 def test_flagship_plans_unchanged(ontology):
     """The flagships run the instances and plans they ran before the wider
     paths: K1 MAXW 16, K6's 4-word instance with one mask word, K3 staging
-    the wire, tokens and program at 128 reads a block, K5 staging 256."""
+    the wire, tokens and program at 128 reads a block, K5 staging 256;
+    every width up to 64 keeps its register instance."""
     instrument = compile_instrument(ontology(), "cpu")
+    # the register instances keep their widths: MAXW 16, 32, 64 up to 64
+    assert [pamld.instance_width(w) for w in (1, 16, 17, 32, 33, 64, 65)] == [16, 16, 32, 32, 64, 64, 0]
     for dec in instrument.decoders:
         if dec.algorithm == "pamld":
             assert pamld.instance_width(sum(dec.segment_widths)) == 16
@@ -253,3 +258,95 @@ def test_kernel_limits_at_the_shared_memory_ceiling(algorithm, barcodes, ceiling
         dec.barcode_count = barcodes
         lines = kernel_limits(_instrument([dec]))
         assert bool(lines) == refused, (width, lines)
+
+
+class _TileLoopLibrary:
+    """The tile loop's C entries as the wrappers call them, recorded, with
+    phq_pamld_info answering as csrc/pamld.cu does on an H100 (132 SMs, 4
+    resident blocks; the looped instance's tile: 32768 bytes of rows of
+    whole 16-byte vectors, cut to whole groups of 16 barcodes)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def phq_pamld_info(self, w, out):
+        maxw = pamld.instance_width(w)
+        row = maxw if maxw else 16 * -(-w // 16)
+        tile = 32768 // row
+        if maxw == 0 and tile >= 16:
+            tile -= tile % 16
+        values = [max(tile, 1), 128, 256 if maxw == 16 else 128, 132, maxw] + [4, 120, 0] * 3
+        values += [16 if maxw == 0 else 2, 48]
+        (ctypes.c_int * 16).from_address(out)[:] = values
+        self.calls.append(("info", w))
+        return 0
+
+    def phq_pamld_state(self, ints, floats, code, qual, state, stream):
+        self.calls.append("state")
+        return 0
+
+    def phq_pamld(self, *args):
+        self.calls.append("classify")
+        return 0
+
+    def phq_pamld_slices(self, ints, floats, mode, *args):
+        self.calls.append(("stage A", "stage B")[mode - 1])
+        return 0
+
+    def phq_pamld_merge(self, *args):
+        self.calls.append("merge")
+        return 0
+
+
+@pytest.fixture
+def tile_loop_library(monkeypatch):
+    """The tile loop's wrappers on CPU tensors against _TileLoopLibrary in
+    place of the built kernels (the card's stream and device patched)."""
+    from pheniqs_tpu_torch.kernels import build
+
+    fake = _TileLoopLibrary()
+    monkeypatch.setattr(build, "library", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=None))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(pamld, "_TILE_LOOPS", {})
+    return fake
+
+
+@pytest.mark.parametrize("width,barcodes,n", [(16, 96, 131072), (64, 384, 16384), (65, 96, 131072), (97, 101, 4096),
+                                              (128, 384, 131072), (300, 384, 131072), (96, 4096, 131072)])
+def test_tile_loop_launches_follow_the_instance(tile_loop_library, width, barcodes, n):
+    """What _classify_launches runs for an observation of `width`
+    positions: past LOOPED_PAST the looped instance, whose read state (8 *
+    ceil(W/16) + 2 words a read: code and quality vectors, C, qpos*U) one
+    launch writes first, counted with the tile loop's; then one launch over
+    a panel of one slice, else stages A, B and C, by the card's plan
+    (tile_loop, asked once per instance, and for the looped one per row of
+    16-byte vectors). K1's count takes them below 1024 barcodes, K7's
+    above."""
+    rows = torch.zeros((n, width + 4), dtype=torch.uint8)
+    codes, quals = rows[:, :width], rows[:, 2 : width + 2]
+    dec = SimpleNamespace(noise=0.05, random_barcode_probability=4.0**-16, confidence_threshold=0.95,
+                          barcode_count=barcodes, high_quality_threshold=30, high_quality_distance_threshold=0,
+                          panel_codes_u8=torch.zeros((barcodes, width), dtype=torch.uint8),
+                          concentration=torch.zeros(barcodes))
+    qcfail = torch.zeros(n, dtype=torch.bool)
+    consts = torch.zeros(24)
+    run = pamld._TileLoopLaunch(dec, codes, quals, qcfail, None, consts, True, 0.0)
+    looped = width > pamld.LOOPED_PAST
+    assert run.state_launches == int(looped)
+    assert (run.state is not None) == looped
+    if looped:
+        assert run.state.numel() == (8 * -(-width // 16) + 2) * n and run.state.dtype == torch.int32
+    tile_loop_library.calls.clear()
+    counts = (pamld.launches, pamld.chunked_launches)
+    pamld._classify_launches(dec, codes, quals, qcfail, None, consts, True, 0.0, None)
+    loop = pamld.tile_loop(width, "cpu")
+    assert loop.maxw == pamld.instance_width(width) and loop.maxw in ((0,) if looped else (16, 32, 64))
+    assert (loop.maxw, -(-width // 16) if looped else 0, 0) in pamld._TILE_LOOPS
+    plan = pamld.plan_for(n, barcodes, width, "cpu")
+    launches = ["classify"] if plan.slices == 1 else ["stage A", "stage B", "merge"]
+    assert [c for c in tile_loop_library.calls if c != ("info", width)] == ["state"] * looped + launches
+    added = (pamld.launches - counts[0], pamld.chunked_launches - counts[1])
+    total = len(launches) + int(looped)
+    assert added == ((0, total) if barcodes > pamld.LARGE_PANEL_B else (total, 0))

@@ -108,6 +108,38 @@ def test_pamld_wide_matches_jax(width, confidence):
         assert settled.mean() < 0.5
 
 
+@pytest.mark.parametrize("width,barcodes,mixed", [(97, 101, 0), (96, 96, 5)])
+def test_pamld_wide_tails_match_jax(width, barcodes, mixed):
+    """The shapes at the wide tile loop's tails against JAX's
+    pamld_classify_device: W = 97 (not a multiple of 4 or 16: the last
+    block of positions is one word) with B = 101 (not a multiple of the
+    barcode loop's group or of the slice unit 48), and W = 96 with `mixed`
+    barcodes holding an N (barcodes with other codes than A, C, G and T
+    inside groups of strict ones; the reads drawn from the words without
+    the N). The tile loop's twin (pamld_classify_tile_order, the kernels'
+    sigma order) and the plain version are each held on settled rows."""
+    rng = np.random.default_rng(width + barcodes + mixed)
+    panel = random_panel(rng, barcodes, width)
+    code, qual, _ = simulate_reads(rng, panel, 512, error_rate=2.0 / width)
+    for k in range(mixed):
+        word, at = panel[1 + 9 * k], 7 * k % width
+        panel[1 + 9 * k] = word[:at] + "N" + word[at + 1 :]
+    reference = jax_compile({"sample": make_pamld_ontology(panel, confidence=0.0), "input segment cardinality": 1})
+    ours = carry_instrument(reference, "cpu")
+    dec = ours.decoders[0]
+    assert int((dec.panel_codes_u8 == 15).any(dim=1).sum()) == mixed
+    qcfail = rng.random(512) < 0.05
+    theirs = jax_classify.pamld_classify_device(
+        reference, reference.decoders[0], jnp.asarray(code), jnp.asarray(qual), jnp.asarray(qcfail),
+        want_uncertain=True,
+    )
+    kwargs = dict(want_uncertain=True, eps=ours.tpq_analytic_eps)
+    twin = pamld.pamld_classify_tile_order(dec, _t(code), _t(qual), torch.from_numpy(qcfail), **kwargs)
+    plain = pamld.pamld_classify_plain(dec, _t(code), _t(qual), torch.from_numpy(qcfail), **kwargs)
+    for mine in (twin, plain):
+        _hold_settled(mine, theirs, 0.6)
+
+
 @pytest.mark.parametrize("width", [65, 128, 160])
 def test_features_and_sigma_wide_match_jax(width):
     """The read features and sigma (F.G + qpos*U) of the plain version
