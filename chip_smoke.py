@@ -80,9 +80,10 @@ any failure propagates and the exit code is not 0:
                   4 shards in one process, held to K7 and to its plain
                   version, per shard timed
   3b. wide        the inputs the kernels once refused, N=131072: K1 at
-                  W = 65-300 (its MAXW 128 and looped instances) on 96 and
-                  384 barcodes, K7 at 96 x 4096 and K8 over two shards of
-                  it, each launched twice (identical), its decisions
+                  W = 65-300 (its looped instance) on 96 and 384
+                  barcodes, at W = 97 x B = 101 and with 5 of 384
+                  barcodes holding an N, K7 at 96 x 4096 and K8 over two
+                  shards of it, each launched twice (identical), its decisions
                   bit-equal to the tile-order twin and apart from the plain
                   version only on near ties in f64 or at a threshold both
                   flag (wide_pamld_entry, wide_k8_entry); K6 at 9 and 12
@@ -1929,8 +1930,8 @@ def k8_checks(whitelist: Whitelist, n: int = N_KERNEL) -> dict:
 
 
 # --- the wide phase: the inputs the kernels once refused -------------------
-#: K1's observation widths (65-128: the MAXW 128 instance; past 128 the
-#: looped one) and cellular panels in the wide phase
+#: K1's observation widths (all past 64: the looped instance) and cellular
+#: panels in the wide phase
 WIDE_WIDTHS = (65, 96, 128, 160, 300)
 WIDE_PANELS = (96, 384)
 #: K7 (and K8 over two shards) at 96 positions
@@ -1944,7 +1945,7 @@ WIDE_ODD = (101, 97)
 WIDE_MIXED = 5
 #: --times' wide rows (W, B): K1 at each, K7 and K8 over two shards at 96 x
 #: WIDE_K7_PANEL (wide_times)
-WIDE_TIMED = ((96, 384), (300, 384))
+WIDE_TIMED = ((65, 384), (96, 384), (300, 384))
 #: K6 past 8 segments or 64 positions: (segment widths, barcodes) of 9 and
 #: 12 segments of 80 and 130 positions (the 32-word and looped instances)
 WIDE_MDD = (([9] * 8 + [8], 80), ([7] * 8 + [6] * 4, 60), ([15] * 4 + [14] * 5, 50), ([11] * 10 + [10, 10], 40))
@@ -2330,7 +2331,7 @@ def fast_near_ties(label: str, ontology, n: int, threads: int) -> str:
 
 
 def wide_e2e(card: str, threads: int) -> dict:
-    """The wide flagship (a 96-nt cellular barcode: K1's MAXW 128 instance)
+    """The wide flagship (a 96-nt cellular barcode: K1's looped instance)
     through the engine: hybrid identical to strict on N_WIDE_HYBRID reads,
     its f64 re-resolution rate beside the rate the bound predicts
     (wide_predicted; RESOLVED_LIMIT does not apply: the bound flags nearly
@@ -3286,9 +3287,10 @@ def variant_library(source: str, define: str):
 def wide_times() -> dict:
     """--times' wide K1/K7/K8 rows at N_KERNEL reads of the wide phase's
     inputs (the same ontologies and seeds), CUDA events over 5 calls of
-    every launch a call makes (the looped instance's state launch too): K1
-    at each (W, B) of WIDE_TIMED, K7 at 96 x WIDE_K7_PANEL and K8 over two
-    shards of that panel in one process (its merges included)."""
+    every launch a call makes (the looped instance's state launch too),
+    and each call's device time by kernel (kernel_breakdown): K1 at each
+    (W, B) of WIDE_TIMED, K7 at 96 x WIDE_K7_PANEL and K8 over two shards
+    of that panel in one process (its merges included)."""
     from pheniqs_tpu_torch.device import tp
     from pheniqs_tpu_torch.kernels import pamld
 
@@ -3298,90 +3300,17 @@ def wide_times() -> dict:
         dec, codes, quals, qcfail, short = observations[1]
         kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True, eps=instrument.tpq_analytic_eps,
                       short=short)
-        label = f"K{7 if b > pamld.LARGE_PANEL_B else 1} W={w} B={b}"
-        times[label] = event_ms(lambda: pamld.pamld_classify(dec, codes, quals, qcfail, **kwargs), reps=5)
+        calls = {f"K{7 if b > pamld.LARGE_PANEL_B else 1} W={w} B={b}":
+                 lambda: pamld.pamld_classify(dec, codes, quals, qcfail, **kwargs)}
         if b > pamld.LARGE_PANEL_B:
             shards = [tp.shard_panel(dec, rank, 2) for rank in range(2)]
-            times[f"K8 W={w} B={b} P=2"] = event_ms(
-                lambda: pamld.pamld_classify_sharded(dec, shards, codes, quals, qcfail, **kwargs), reps=5)
-    for key, value in times.items():
-        say(f"[times] {key} N={N_KERNEL}: {value:.4f} ms")
-    return times
-
-
-#: the wide tile loop's candidates: (reads, barcodes) a thread, and whether
-#: observations of 65-128 positions keep their state in registers (the
-#: MAXW 128 instance) or run the looped one
-WIDE_VARIANTS = ((1, 16, 0), (1, 8, 0), (2, 8, 0), (2, 16, 0), (4, 4, 0), (1, 16, 1))
-#: the second round's candidates, each (reads, barcodes, defines): the
-#: last block of positions run whole (PHQ_PAMLD_WIDE_REST_FULL), and 3
-#: resident blocks asked of the compiler (PHQ_PAMLD_WIDE_BLOCKS)
-WIDE_VARIANTS_2 = ((1, 16, ()), (1, 8, ()), (1, 16, ("PHQ_PAMLD_WIDE_REST_FULL=1",)),
-                   (1, 8, ("PHQ_PAMLD_WIDE_REST_FULL=1",)), (1, 16, ("PHQ_PAMLD_WIDE_BLOCKS=3",)))
-#: the (W, B) rows each candidate is timed on
-WIDE_VARIANT_ROWS = ((65, 384), (96, 384), (97, 384), (128, 384), (160, 384), (300, 384), (96, WIDE_K7_PANEL))
-
-
-def wide_variant_times(variants=None) -> dict:
-    """Each candidate of the wide tile loop (`variants`, (reads, barcodes,
-    defines); by default WIDE_VARIANTS), csrc/pamld.cu built alone with
-    PHQ_PAMLD_WIDE_READS, _UNROLL and the defines set (all builds started
-    together): its instances' registers, spills and blocks
-    per SM (phq_pamld_info), and the device time of pamld_classify (CUDA
-    events over 5 calls, the state launch included) at WIDE_VARIANT_ROWS on
-    N_KERNEL reads of the wide phase's inputs. {} where the tree has no
-    such macros."""
-    import ctypes
-
-    from pheniqs_tpu_torch.kernels import build, pamld
-
-    path = build.CSRC / "pamld.cu"
-    if "PHQ_PAMLD_WIDE_READS" not in path.read_text():
-        return {}
-    os.makedirs(WORK, exist_ok=True)
-    if variants is None:
-        variants = [(reads, unroll, (f"PHQ_PAMLD_WIDE_REGISTERS={registers}",) if registers else ())
-                    for reads, unroll, registers in WIDE_VARIANTS]
-    targets, builds = [], []
-    for k, (reads, unroll, extra) in enumerate(variants):
-        target = os.path.join(WORK, f"pamld.{k}.so")
-        defines = [f"-DPHQ_PAMLD_WIDE_READS={reads}", f"-DPHQ_PAMLD_WIDE_UNROLL={unroll}"]
-        defines += [f"-D{define}" for define in extra]
-        builds.append(subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, *defines, "-shared", "-o", target,
-                                        str(path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        targets.append(target)
-    for process in builds:
-        log = process.communicate()[0]
-        if process.returncode:
-            raise RuntimeError(f"a wide variant failed to build:\n{log[-3000:]}")
-    inputs = []
-    for w, b in WIDE_VARIANT_ROWS:
-        instrument, observations = pamld_observations(wide_ontology(b, w), N_KERNEL, seed=w + b)
-        inputs.append((w, b, instrument, observations[1]))
-    kept = build._LIBRARY
-    times = {}
-    try:
-        for (reads, unroll, extra), target in zip(variants, targets):
-            lib = ctypes.CDLL(target)
-            for name, argtypes in build.SIGNATURES.items():
-                if hasattr(lib, name):
-                    getattr(lib, name).argtypes = list(argtypes)
-                    getattr(lib, name).restype = ctypes.c_int
-            build._LIBRARY = lib
-            pamld._TILE_LOOPS.clear()
-            label = " ".join([f"{reads}x{unroll}", *extra])
-            for w, b, instrument, (dec, codes, quals, qcfail, short) in inputs:
-                loop = pamld.tile_loop(w, codes.device)
-                kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True,
-                              eps=instrument.tpq_analytic_eps, short=short)
-                ms = event_ms(lambda: pamld.pamld_classify(dec, codes, quals, qcfail, **kwargs), reps=5)
-                times[f"{label} W={w} B={b}"] = {"ms": ms, "maxw": loop.maxw, "instances": loop.instances}
-                say(f"[times] wide variant {label} W={w} B={b} N={N_KERNEL}: {ms:.4f} ms (MAXW={loop.maxw};"
-                    f" blocks/SM, registers, local bytes: {loop.instances})")
-    finally:
-        build._LIBRARY = kept
-        pamld._TILE_LOOPS.clear()
-        shutil.rmtree(WORK, ignore_errors=True)
+            calls[f"K8 W={w} B={b} P=2"] = lambda: pamld.pamld_classify_sharded(dec, shards, codes, quals, qcfail,
+                                                                                **kwargs)
+        for label, call in calls.items():
+            times[label] = event_ms(call, reps=5)
+            times[f"{label} by kernel"] = kernel_breakdown(call, reps=3)
+            say(f"[times] {label} N={N_KERNEL}: {times[label]:.4f} ms; by kernel"
+                f" {json.dumps(times[f'{label} by kernel'])}")
     return times
 
 
@@ -3482,9 +3411,8 @@ def kernel_times(card: str, tree: str):
     MDD flagship's whole decode step and its device launches a batch; and,
     one call each with CUDA events,
     K7 and K8 at P = 2 and 4 on a synthetic panel of the whitelist's size
-    (random codes from a seed); the wide K1/K7/K8 rows (wide_times) and,
-    where the tree has them, the wide tile loop's candidates
-    (wide_variant_times); K3, K6, K4 and K5 (unpack_mdd_times); the
+    (random codes from a seed); the wide K1/K7/K8 rows (wide_times); K3,
+    K6, K4 and K5 (unpack_mdd_times); the
     plan's choice on panels of one tile (slice_rule_times); and, where the
     tree takes a plan, K1's slice unit (slice_cut_sweep). The steps are also timed with CUDA events over 10
     and, three times, over 200 back-to-back calls: their launches, not the
@@ -3543,7 +3471,6 @@ def kernel_times(card: str, tree: str):
         times[f"K8 P={panels} shard"] = once_ms(lambda: pamld.pamld_classify_sharded(
             wide, shards[:1], codes, quals, None, finish=False, **kwargs))[1]
     times.update(wide_times())
-    times["wide variants"] = wide_variant_times()
     times.update(unpack_mdd_times())
     takes_plan = "plan" in inspect.signature(pamld._classify_launches).parameters
     times.update(slice_rule_times(takes_plan))

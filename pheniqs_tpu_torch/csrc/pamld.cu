@@ -83,21 +83,26 @@
 //    one shared-memory load feeds every read and each thread keeps several
 //    sigma sums in flight.
 //  - Any width. An observation of up to 64 positions keeps its W match
-//    features in registers (instances MAXW 16, 32, 64). Up to 128 (MAXW
-//    128) a read keeps its qualities packed four to a word beside its codes
-//    and reads a matching position's feature from the block's 256-entry
-//    table fm[q] = tpq(q) - q (the same two f32 operations, so the same
-//    bits); past 128 (the looped instance, MAXW 0) one launch first writes
-//    each read's codes, quality words and C to device memory, word k of
-//    read i at [k * N + i], and the tile loop walks them position by
-//    position, its tile sized to the row. Both keep the sigma order above,
-//    so pamld_classify_tile_order stays their twin.
+//    features in registers (instances MAXW 16, 32, 64). Past 64 they would
+//    pass the 255-register cap, and a read fetched position by position
+//    leaves each add waiting on a load: the looped instance (MAXW 0) first
+//    writes each read's strict codes and quality bytes to device memory
+//    (one launch, 16-byte vectors of 16 positions, vector v of read i at
+//    [v * N + i]) with C beside them, and its tile loop is blocked, as the
+//    arithmetic binds it: a thread keeps 1 read x 16 barcodes of sums and
+//    walks the positions in blocks of 16. Per block it loads the read's
+//    two vectors one block ahead of their use and its 16 features from the
+//    block's 256-entry table fm[q] = tpq(q) - q (the same two f32
+//    operations, so the same bits) once, then per barcode one 16-byte
+//    broadcast load of the row, and per word one AND and four predicated
+//    adds: about two issue slots a (read, barcode, position), no load on
+//    an add chain. Each sum adds its terms in position order, so
+//    pamld_classify_tile_order stays its twin; its tile is sized to the
+//    row, in whole groups of 16 barcodes.
 // Kept from K1: an exact f32 sigma (products by 0 or 1 only, -fmad=false),
 // CUDA's expf, first-maximum ties (strict p > best), a runner-up that keeps
 // duplicated maxima (classify.py:_second_max), and padding columns never
 // visited.
-#include <type_traits>
-
 #include "common.cuh"
 #include <math.h>
 
@@ -113,29 +118,17 @@
 // PERF.md)
 #define PHQ_PAMLD_SLICE_UNIT 48
 
-// The wide tile loop (observations past 64 positions): each thread keeps
-// PHQ_PAMLD_WIDE_READS reads x PHQ_PAMLD_WIDE_UNROLL barcodes of sigma sums
-// and walks the positions in blocks of 16 (phq_wide_block); its kernels ask
-// the compiler for PHQ_PAMLD_WIDE_BLOCKS resident blocks.
-#ifndef PHQ_PAMLD_WIDE_READS
+// The wide tile loop (the looped instance, observations past 64
+// positions): a thread keeps PHQ_PAMLD_WIDE_READS reads x
+// PHQ_PAMLD_WIDE_UNROLL barcodes of sigma sums and walks the positions in
+// blocks of 16 (phq_wide_block); its kernels ask the compiler for
+// PHQ_PAMLD_WIDE_BLOCKS resident blocks. On an H100 (PERF.md's sweep of
+// chip_smoke.py --times): 1 x 16 takes 128 registers, no spills,
+// 4 blocks/SM; 1 x 8 (96 registers, 5 blocks/SM) ran 4-8 % slower from 96
+// positions on; 2 x 8, 2 x 16 and 4 x 4 spill at that cap and ran slower.
 #define PHQ_PAMLD_WIDE_READS 1
-#endif
-#ifndef PHQ_PAMLD_WIDE_UNROLL
 #define PHQ_PAMLD_WIDE_UNROLL 16
-#endif
-#ifndef PHQ_PAMLD_WIDE_BLOCKS
 #define PHQ_PAMLD_WIDE_BLOCKS 4
-#endif
-// 1: observations of 65-128 positions keep their state in registers (the
-// MAXW 128 instance); 0: every observation past 64 runs the looped one
-#ifndef PHQ_PAMLD_WIDE_REGISTERS
-#define PHQ_PAMLD_WIDE_REGISTERS 0
-#endif
-// 1: the last block of positions runs as a whole one (its words past W are
-// 0); 0: it runs only its words
-#ifndef PHQ_PAMLD_WIDE_REST_FULL
-#define PHQ_PAMLD_WIDE_REST_FULL 0
-#endif
 
 // The looped instance (MAXW 0, observations wider than 64 positions): its
 // read state lives in device memory (phq_pamld_state_kernel), and its tile
@@ -144,19 +137,15 @@
 
 template <int MAXW>
 struct PhqPamldShape {
-  // whether the read keeps its qualities packed beside its codes and reads
-  // its match features from the block's shared table fm[q] = tpq(q) - q,
-  // walked by the wide tile loop (past 64 positions), rather than keeping W
-  // of them in registers
-  static constexpr bool fm_table = MAXW == PHQ_PAMLD_LOOPED || MAXW > 64;
+  static constexpr bool looped = MAXW == PHQ_PAMLD_LOOPED;
   // reads a thread takes: two while the register arrays stay small
-  static constexpr int reads = fm_table ? PHQ_PAMLD_WIDE_READS : MAXW <= 16 ? 2 : 1;
+  static constexpr int reads = looped ? PHQ_PAMLD_WIDE_READS : MAXW <= 16 ? 2 : 1;
   // 32-bit words of a read or a barcode row (the looped instance's are
   // counted at run time: phq_pamld_row_bytes)
-  static constexpr int words = MAXW != PHQ_PAMLD_LOOPED ? MAXW / 4 : 4;
-  static constexpr int tile_b = MAXW != PHQ_PAMLD_LOOPED ? PHQ_PAMLD_TILE_BYTES / MAXW : 0;
+  static constexpr int words = looped ? 4 : MAXW / 4;
+  static constexpr int tile_b = looped ? 0 : PHQ_PAMLD_TILE_BYTES / MAXW;
   // barcodes a step of the barcode loop takes
-  static constexpr int unroll = fm_table ? PHQ_PAMLD_WIDE_UNROLL : PHQ_PAMLD_UNROLL;
+  static constexpr int unroll = looped ? PHQ_PAMLD_WIDE_UNROLL : PHQ_PAMLD_UNROLL;
 };
 
 // bytes of a barcode row in the tile: whole 16-byte vectors
@@ -333,49 +322,14 @@ struct PhqRead {
   }
 };
 
-// The MAXW 128 instance's read (64 < W <= 128): the same strict codes and
-// C, and the quality bytes packed four to a word in place of W features in
-// registers (which would pass the 255-register cap): a matching position's
-// fm is read from the block's table s_fm[q] = tpq(q) - q, the same f32
-// value PhqRead keeps, so sigma is the same bit for bit.
-template <int MAXW>
-struct PhqReadPacked {
-  uint32_t code[PhqPamldShape<MAXW>::words];
-  uint32_t qual[PhqPamldShape<MAXW>::words];
-  const uint8_t* oc;  // the read's code row (the interleaved loop's)
-  float c;
-  float qpos_u;
-
-  __device__ __forceinline__ void load(const PhqPamldParams& p, const PhqRaw<MAXW>& raw) {
-    int qpos = 0;
-    float fs_sum = 0.0f;
-#pragma unroll
-    for (int k = 0; k < PhqPamldShape<MAXW>::words; ++k) {
-      code[k] = 0u;
-      qual[k] = raw.quals[k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (4 * k + j < p.W) {
-          const uint32_t cw = (raw.codes[k] >> (8 * j)) & 0xFFu;
-          const int q = (int)((raw.quals[k] >> (8 * j)) & 0xFFu);
-          if (phq_strict(cw) && q > 0) {
-            code[k] |= cw << (8 * j);
-            fs_sum = fs_sum + ((float)q - p.U);
-          }
-          qpos += q > 0 ? 1 : 0;
-        }
-      }
-    }
-    qpos_u = (float)qpos * p.U;
-    c = fs_sum + qpos_u;
-  }
-};
-
-// The looped instance's read: its strict codes and quality bytes in device
+// The looped instance's read (W > 64, where W match features would pass
+// the 255-register cap): its strict codes and quality bytes in device
 // memory as 16-byte vectors of 16 positions, vector v of read i at
 // [v * n + i] (a warp reads one vector of 32 reads in one 512-byte run),
 // C and qpos*U beside them, all written once per batch by
-// phq_pamld_state_kernel.
+// phq_pamld_state_kernel. A matching position's fm is read from the
+// block's table s_fm[q] = tpq(q) - q, the same f32 value PhqRead keeps, so
+// sigma is the same bit for bit.
 struct PhqReadLooped {
   const uint4* code;  // vector v at code[v * n]
   const uint4* qual;
@@ -510,9 +464,9 @@ __device__ __forceinline__ void phq_wide_rest(int rest, const uint4 (&code)[R], 
 }
 
 // M of R reads against U all-strict barcode rows (row u at e[u * V] of the
-// tile), the looped instance's: the reads' state read from device memory
-// one block of 16 positions ahead of its use, once per block for all U
-// barcodes.
+// tile): the reads' state read from device memory one block of 16
+// positions ahead of its use, once per block for all U barcodes; the last
+// block cut to the observation's words (W = 65, 97, 300).
 template <int R, int U>
 __device__ __forceinline__ void phq_wide_match(const PhqReadLooped (&r)[R], const float* s_fm, const uint4* e,
                                                int V, int W, float (&m)[R][U]) {
@@ -529,7 +483,7 @@ __device__ __forceinline__ void phq_wide_match(const PhqReadLooped (&r)[R], cons
     qual[k] = r[k].qual[0];
   }
 #pragma unroll 1
-  for (int v = 0; v < (PHQ_PAMLD_WIDE_REST_FULL ? V : words / 4); ++v) {
+  for (int v = 0; v < words / 4; ++v) {
     uint4 c[R], q[R];
 #pragma unroll
     for (int k = 0; k < R; ++k) {
@@ -542,33 +496,7 @@ __device__ __forceinline__ void phq_wide_match(const PhqReadLooped (&r)[R], cons
     }
     phq_wide_block<R, U, 4>(c, q, s_fm, e + v, V, m);
   }
-  if (!PHQ_PAMLD_WIDE_REST_FULL) phq_wide_rest<R, U>(words & 3, code, qual, s_fm, e + words / 4, V, m);
-}
-
-// The MAXW 128 instance's: the reads' state from registers.
-template <int R, int U, int MAXW>
-__device__ __forceinline__ void phq_wide_match(const PhqReadPacked<MAXW> (&r)[R], const float* s_fm,
-                                               const uint4* e, int V, int W, float (&m)[R][U]) {
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-#pragma unroll
-    for (int u = 0; u < U; ++u) m[k][u] = 0.0f;
-  }
-  const int words = (W + 3) / 4;
-#pragma unroll
-  for (int v = 0; v < MAXW / 16; ++v) {
-    uint4 c[R], q[R];
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      c[k] = make_uint4(r[k].code[4 * v], r[k].code[4 * v + 1], r[k].code[4 * v + 2], r[k].code[4 * v + 3]);
-      q[k] = make_uint4(r[k].qual[4 * v], r[k].qual[4 * v + 1], r[k].qual[4 * v + 2], r[k].qual[4 * v + 3]);
-    }
-    if (4 * v + 4 <= words) {
-      phq_wide_block<R, U, 4>(c, q, s_fm, e + v, V, m);
-    } else if (4 * v < words) {
-      phq_wide_rest<R, U>(words & 3, c, q, s_fm, e + v, V, m);
-    }
-  }
+  phq_wide_rest<R, U>(words & 3, code, qual, s_fm, e + words / 4, V, m);
 }
 
 // sigma of a barcode with codes other than A, C, G and T: per position the
@@ -592,26 +520,8 @@ __device__ __forceinline__ float phq_sigma_mixed(const PhqRead<MAXW>& r, const u
   return acc + r.qpos_u;
 }
 
-// The wide instances': the same sum, its positions looped over the read's
-// rows (MAXW 128: unrolled over its registers, the W code bytes of this
-// barcode-invariant loop would be hoisted out of the barcode loop into W
-// registers) or its state (looped); a barcode with other codes is rare.
-template <int MAXW>
-__device__ __forceinline__ float phq_sigma_mixed(const PhqReadPacked<MAXW>& r, const float* s_fm,
-                                                 const uint8_t* e, const uint8_t* oq, const PhqPamldParams& p) {
-  float acc = 0.0f;
-#pragma unroll 1
-  for (int w = 0; w < p.W; ++w) {
-    const uint32_t ew = e[w];
-    const uint32_t q = oq[w];
-    const uint32_t code = r.oc[w];
-    const uint32_t ow = phq_strict(code) && q > 0 ? code : 0u;
-    if (ew == ow && ow != 0u) acc = acc + s_fm[q];
-    if (ow != 0u && phq_strict(ew)) acc = acc + ((float)q - p.U);
-  }
-  return acc + r.qpos_u;
-}
-
+// The looped instance's: the same sum, its positions looped over the
+// read's state; a barcode with other codes is rare.
 __device__ __forceinline__ float phq_sigma_mixed(const PhqReadLooped& r, const float* s_fm, const uint8_t* e,
                                                  const uint8_t* oq, const PhqPamldParams& p) {
   float acc = 0.0f;
@@ -976,18 +886,13 @@ __device__ __forceinline__ void phq_pamld_body(PhqPamldParams p, PhqPamldArgs a,
   }
 }
 
-// the read a thread keeps in the wide tile loop, by instance
-template <int MAXW>
-using PhqReadOf =
-    typename std::conditional<MAXW == PHQ_PAMLD_LOOPED, PhqReadLooped, PhqReadPacked<MAXW>>::type;
-
 // One group of G barcodes of the wide tile loop, tile rows [b, b + G),
 // global columns from `col`: their match terms for the R reads
 // (phq_wide_match), then barcode by barcode in column order pass A's row
 // minimum (PASS 0) or pass B's posterior (PASS 1). A barcode with codes
 // other than A, C, G and T takes the interleaved sum.
-template <int PASS, int R, int G, typename Read>
-__device__ __forceinline__ void phq_wide_group(const Read (&r)[R], const PhqPamldParams& p, const float* s_fm,
+template <int PASS, int R, int G>
+__device__ __forceinline__ void phq_wide_group(const PhqReadLooped (&r)[R], const PhqPamldParams& p, const float* s_fm,
                                                const uint4* s_rows, int V, const uint8_t* s_strict,
                                                const float* s_conc, bool all_strict, int b, int col,
                                                const uint8_t* const (&oq)[R], const float (&shift)[R],
@@ -1020,8 +925,8 @@ __device__ __forceinline__ void phq_wide_group(const Read (&r)[R], const PhqPaml
 
 // One pass over `count` barcodes of the tile: groups of U, then the rest
 // one at a time.
-template <int PASS, int R, int U, typename Read>
-__device__ __forceinline__ void phq_wide_tile(const Read (&r)[R], const PhqPamldParams& p, const float* s_fm,
+template <int PASS, int R, int U>
+__device__ __forceinline__ void phq_wide_tile(const PhqReadLooped (&r)[R], const PhqPamldParams& p, const float* s_fm,
                                               const uint4* s_rows, int V, const uint8_t* s_strict,
                                               const float* s_conc, bool all_strict, int count, int t0,
                                               const uint8_t* const (&oq)[R], const float (&shift)[R],
@@ -1037,17 +942,16 @@ __device__ __forceinline__ void phq_wide_tile(const Read (&r)[R], const PhqPamld
   }
 }
 
-// The tile loop past 64 positions: the same slices, tiles, passes and
-// outputs as phq_pamld_body, its barcodes walked in groups of
-// Shape::unroll by the blocked loop (phq_wide_block).
-template <int MAXW, int MODE>
+// The tile loop past 64 positions (the looped instance): the same slices,
+// tiles, passes and outputs as phq_pamld_body, its barcodes walked in
+// groups of PHQ_PAMLD_WIDE_UNROLL by the blocked loop (phq_wide_block).
+template <int MODE>
 __device__ __forceinline__ void phq_pamld_wide_body(PhqPamldParams p, PhqPamldArgs a, int tile_b, int cut,
                                                     int shift_rows) {
-  using Shape = PhqPamldShape<MAXW>;
-  constexpr int R = Shape::reads;
-  constexpr int U = Shape::unroll;
-  // 16-byte vectors of a barcode row
-  const int V = MAXW != PHQ_PAMLD_LOOPED ? Shape::words / 4 : phq_pamld_row_bytes(p.W) / 16;
+  constexpr int R = PHQ_PAMLD_WIDE_READS;
+  constexpr int U = PHQ_PAMLD_WIDE_UNROLL;
+  // 16-byte vectors of a barcode row and of a read's codes or qualities
+  const int V = phq_pamld_row_bytes(p.W) / 16;
   PHQ_DYNAMIC_SMEM(smem);
   float* s_fm = (float*)smem;                                 // 256: fm[q] = tpq(q) - q
   float* s_conc = s_fm + 256;                                 // tile_b, rounded up to 4
@@ -1055,16 +959,13 @@ __device__ __forceinline__ void phq_pamld_wide_body(PhqPamldParams p, PhqPamldAr
   uint8_t* s_strict = (uint8_t*)(s_rows + (size_t)tile_b * V);  // tile_b
   __shared__ float s_consts[24];
   const size_t n = (size_t)p.n;
-  const bool words = phq_words(p, a);
   int row[R];
   const uint8_t* oq[R];
-  PhqRaw<MAXW> raw[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     const int i = (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x;
     row[k] = i < p.n ? i : p.n - 1;
     oq[k] = a.obs_qual + (size_t)row[k] * p.ld_obs;
-    if constexpr (MAXW != PHQ_PAMLD_LOOPED) raw[k].fetch(p, a.obs_code + (size_t)row[k] * p.ld_obs, oq[k], words);
   }
   phq_tpq_table<true>(s_fm, s_consts, a.tpq_consts);
   __syncthreads();
@@ -1073,23 +974,18 @@ __device__ __forceinline__ void phq_pamld_wide_body(PhqPamldParams p, PhqPamldAr
   const int col0 = (int)((long long)blockIdx.y * units / gridDim.y) * cut;
   const int col1 = min((int)((long long)(blockIdx.y + 1) * units / gridDim.y) * cut, p.B);
 
-  PhqReadOf<MAXW> r[R];
+  const uint4* state = (const uint4*)a.state;
+  const float* tail = (const float*)(state + 2 * V * n);
+  PhqReadLooped r[R];
   float mmin[R], smin[R], shift[R];
   PhqPosterior post[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    if constexpr (MAXW == PHQ_PAMLD_LOOPED) {
-      const uint4* state = (const uint4*)a.state;
-      const float* tail = (const float*)(state + 2 * V * n);
-      r[k].code = state + row[k];
-      r[k].qual = state + V * n + row[k];
-      r[k].n = n;
-      r[k].c = tail[row[k]];
-      r[k].qpos_u = tail[n + row[k]];
-    } else {
-      r[k].load(p, raw[k]);
-      r[k].oc = a.obs_code + (size_t)row[k] * p.ld_obs;
-    }
+    r[k].code = state + row[k];
+    r[k].qual = state + V * n + row[k];
+    r[k].n = n;
+    r[k].c = tail[row[k]];
+    r[k].qpos_u = tail[n + row[k]];
     mmin[k] = INFINITY;
     smin[k] = INFINITY;
     shift[k] = INFINITY;
@@ -1108,8 +1004,8 @@ __device__ __forceinline__ void phq_pamld_wide_body(PhqPamldParams p, PhqPamldAr
       const int count = min(tile_b, col1 - t0);
       if (pass == first_pass || !resident) {
         const bool conc = pass == 1 || (resident && MODE == PHQ_MODE_CLASSIFY);
-        all_strict = phq_load_tile<MAXW>(p, a.panel + (size_t)t0 * p.W, conc ? a.conc + t0 : nullptr, count,
-                                         s_rows, s_conc, s_strict);
+        all_strict = phq_load_tile<PHQ_PAMLD_LOOPED>(p, a.panel + (size_t)t0 * p.W, conc ? a.conc + t0 : nullptr,
+                                                     count, s_rows, s_conc, s_strict);
       }
       if (MODE != PHQ_MODE_SLICE_POSTERIOR && pass == 0) {
         phq_wide_tile<0, R, U>(r, p, s_fm, s_rows, V, s_strict, s_conc, all_strict, count, t0, oq, shift, mmin,
@@ -1127,7 +1023,8 @@ __device__ __forceinline__ void phq_pamld_wide_body(PhqPamldParams p, PhqPamldAr
 
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    phq_pamld_store<MODE>(p, a, (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x, shift[k], post[k], words);
+    phq_pamld_store<MODE>(p, a, (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x, shift[k], post[k],
+                          phq_words(p, a));
   }
 }
 
@@ -1137,13 +1034,13 @@ __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
   phq_pamld_body<MAXW, MODE>(p, a, tile_b, cut, shift_rows);
 }
 
-// The wide instances, with the resident blocks asked of the compiler (a
-// second bound on the narrow ones would move their register allocation:
-// 125 -> 136 at MAXW 16).
-template <int MAXW, int MODE>
+// The looped instance, with the resident blocks asked of the compiler (a
+// second bound on the register instances would move their register
+// allocation: 125 -> 136 at MAXW 16).
+template <int MODE>
 __global__ void __launch_bounds__(PHQ_PAMLD_THREADS, PHQ_PAMLD_WIDE_BLOCKS) phq_pamld_wide_kernel(
     PhqPamldParams p, PhqPamldArgs a, int tile_b, int cut, int shift_rows) {
-  phq_pamld_wide_body<MAXW, MODE>(p, a, tile_b, cut, shift_rows);
+  phq_pamld_wide_body<MODE>(p, a, tile_b, cut, shift_rows);
 }
 
 // the kernel of an instance
@@ -1151,8 +1048,8 @@ typedef void (*PhqPamldKernel)(PhqPamldParams, PhqPamldArgs, int, int, int);
 
 template <int MAXW, int MODE>
 static PhqPamldKernel phq_pamld_kernel_of() {
-  if constexpr (PhqPamldShape<MAXW>::fm_table) {
-    return phq_pamld_wide_kernel<MAXW, MODE>;
+  if constexpr (MAXW == PHQ_PAMLD_LOOPED) {
+    return phq_pamld_wide_kernel<MODE>;
   } else {
     return phq_pamld_kernel<MAXW, MODE>;
   }
@@ -1268,9 +1165,6 @@ static int phq_pamld_dispatch(const PhqPamldParams& p, const PhqPamldArgs& a, in
   if (p.W <= 16) return phq_pamld_launch<16, MODE>(p, a, slices, cut, shift_rows, s);
   if (p.W <= 32) return phq_pamld_launch<32, MODE>(p, a, slices, cut, shift_rows, s);
   if (p.W <= 64) return phq_pamld_launch<64, MODE>(p, a, slices, cut, shift_rows, s);
-#if PHQ_PAMLD_WIDE_REGISTERS
-  if (p.W <= 128) return phq_pamld_launch<128, MODE>(p, a, slices, cut, shift_rows, s);
-#endif
   return phq_pamld_launch<PHQ_PAMLD_LOOPED, MODE>(p, a, slices, cut, shift_rows, s);
 }
 
@@ -1437,9 +1331,6 @@ PHQ_EXPORT int phq_pamld_info(int W, void* out) {
   if (W <= 16) return phq_pamld_info_for<16>(W, o);
   if (W <= 32) return phq_pamld_info_for<32>(W, o);
   if (W <= 64) return phq_pamld_info_for<64>(W, o);
-#if PHQ_PAMLD_WIDE_REGISTERS
-  if (W <= 128) return phq_pamld_info_for<128>(W, o);
-#endif
   return phq_pamld_info_for<PHQ_PAMLD_LOOPED>(W, o);
 }
 

@@ -11,8 +11,10 @@ distance to the decoded barcode, branch, confidence, chained qcfail and
 launches the kernel: one launch over a panel of one slice, else stage A
 (each slice's row minimum), stage B (each slice's partials) and the merge
 (stage C), with S slices from ``slice_plan``; an observation of any width
-runs (instances of MAXW 16, 32, 64 and 128 keep a read in registers, a
-wider one runs the looped instance, ``instance_width``). On a CPU tensor it runs the
+runs (instances of MAXW 16, 32 and 64 keep a read in registers; a wider
+one runs the looped instance, whose read state one more launch writes to
+device memory first and whose tile loop is blocked, 16 barcodes by 16
+positions, ``instance_width``). On a CPU tensor it runs the
 plain version below, the torch port of
 ``pheniqs_tpu.device.classify.pamld_classify_device``: the monolithic
 posterior for B <= 1024, ``_posterior_chunked`` above it, and the

@@ -385,8 +385,9 @@ def test_sharded_step_two_slices_on_one_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [65, 128, 160, 300])
 def test_pamld_wide_instances_match_plain(cuda, width):
-    """K1's MAXW 128 instance (65, 128 positions) and its looped one (160,
-    300) on 16384 reads of the wide flagship's 96-barcode cellular panel:
+    """K1's looped instance (every width past 64, its blocked loop) at 65,
+    128, 160 and 300 positions on 16384 reads of the wide flagship's
+    96-barcode cellular panel:
     two launches identical, decisions bit-equal to the tile-order twin, the
     plain version's apart only on near ties in f64
     (chip_smoke.wide_pamld_entry)."""
@@ -396,7 +397,7 @@ def test_pamld_wide_instances_match_plain(cuda, width):
     instrument, observations = pamld_observations(wide_flagship_ontology(96, width), 16384, seed=width)
     dec, codes, quals, qcfail, short = observations[1]
     entry = wide_pamld_entry(dec, instrument, codes, quals, qcfail, short)
-    assert entry["instance"] == (128 if width <= 128 else 0)
+    assert entry["instance"] == 0 and entry["launches"] == (1 if entry["slices"] == 1 else 3) + 1
 
 
 @pytest.mark.cuda

@@ -91,8 +91,8 @@ def _hold_settled(mine, theirs, min_settled):
 @pytest.mark.parametrize("confidence", [0.0, 0.95])
 @pytest.mark.parametrize("width", [65, 96, 128, 160])
 def test_pamld_wide_matches_jax(width, confidence):
-    """K1's plain version at 65-160 positions (the MAXW 128 and looped
-    instances' widths) against JAX's pamld_classify_device on 96 barcodes.
+    """K1's plain version at 65-160 positions (the looped instance's
+    widths) against JAX's pamld_classify_device on 96 barcodes.
     Without a confidence threshold most rows settle; at 0.95 the bound
     flags nearly every confident read, which the hybrid host re-resolves."""
     reference, ours, code, qual, qcfail = _pamld_case(width, 96, 768, width, confidence)
@@ -475,7 +475,7 @@ def test_wide_flagship_layout():
 
 
 def test_wide_flagship_hybrid_identical_to_strict(tmp_path):
-    """The wide flagship (a 96-nt cellular panel: K1's MAXW 128 instance on
+    """The wide flagship (a 96-nt cellular panel: K1's looped instance on
     the card) through the port's device engine on the CPU and through the
     JAX package's engine on the same FASTQ: hybrid identical to strict in
     both, though the bound re-resolves most reads in f64 at this width."""
