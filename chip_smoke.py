@@ -1552,7 +1552,7 @@ def k4_threshold_sweep(n: int = N_KERNEL) -> list:
 
 def tile_loop_report(n: int, panels) -> dict:
     """The tile loop as the card runs it (csrc/pamld.cu phq_pamld_info):
-    per instance (MAXW 16, 32, 64 and 128, and the looped one at W = 160
+    per instance (MAXW 16, 32 and 64, and the looped one at W = 128, 160
     and 300; classify, stage A, stage B) its
     registers, local (spill) bytes and resident blocks per SM; threads,
     reads and barcodes a step, tiles and the slice unit; and for each panel
@@ -1945,7 +1945,7 @@ WIDE_ODD = (101, 97)
 WIDE_MIXED = 5
 #: --times' wide rows (W, B): K1 at each, K7 and K8 over two shards at 96 x
 #: WIDE_K7_PANEL (wide_times)
-WIDE_TIMED = ((65, 384), (96, 384), (300, 384))
+WIDE_TIMED = ((65, 96), (65, 384), (96, 96), (96, 384), (300, 96), (300, 384))
 #: K6 past 8 segments or 64 positions: (segment widths, barcodes) of 9 and
 #: 12 segments of 80 and 130 positions (the 32-word and looped instances)
 WIDE_MDD = (([9] * 8 + [8], 80), ([7] * 8 + [6] * 4, 60), ([15] * 4 + [14] * 5, 50), ([11] * 10 + [10, 10], 40))
@@ -2040,9 +2040,12 @@ def wide_pamld_entry(dec, instrument, codes, quals, qcfail, short, mixed: int = 
         raise AssertionError(f"{name}: {holding} barcodes of the panel hold an N")
     kwargs = dict(want_uncertain=True, eps=instrument.tpq_analytic_eps, short=short)
     counter = "pamld_chunked" if b > pamld.LARGE_PANEL_B else "pamld_classify"
-    mine, ms, launches = counted_once_ms(counter, lambda: pamld.pamld_classify(
-        dec, codes, quals, qcfail, tpq_constants=instrument.tpq_constants, **kwargs))
-    again = pamld.pamld_classify(dec, codes, quals, qcfail, tpq_constants=instrument.tpq_constants, **kwargs)
+
+    def call():
+        return pamld.pamld_classify(dec, codes, quals, qcfail, tpq_constants=instrument.tpq_constants, **kwargs)
+
+    mine, again = call(), call()
+    ms, launches = counted_event_ms(counter, call, reps=5)
     for key in mine:
         if not torch.equal(mine[key], again[key]):
             raise AssertionError(f"{name}: two launches differ in {key} on {int((mine[key] != again[key]).sum())} rows")
@@ -2062,7 +2065,8 @@ def wide_pamld_entry(dec, instrument, codes, quals, qcfail, short, mixed: int = 
     twin_flags = int((mine["uncertain"] != twin["uncertain"]).sum())
     if twin_flags > int(n * FLAG_DISAGREE_LIMIT):
         raise AssertionError(f"{name}: uncertain flags differ from the tile-order twin's on {twin_flags} rows")
-    plain, plain_ms = once_ms(lambda: pamld.pamld_classify_plain(dec, codes, quals, qcfail, **kwargs))
+    plain = pamld.pamld_classify_plain(dec, codes, quals, qcfail, **kwargs)
+    plain_ms = event_ms(lambda: pamld.pamld_classify_plain(dec, codes, quals, qcfail, **kwargs), reps=3)
     differs = torch.zeros_like(mine["uncertain"])
     for key in keys:
         differs |= mine[key] != plain[key]
@@ -2096,8 +2100,8 @@ def wide_pamld_entry(dec, instrument, codes, quals, qcfail, short, mixed: int = 
         f" relative {twin_rel:.3e}, flags apart on {twin_flags} rows); vs plain {ties}, settled rows"
         f" {float(settled.float().mean()):.4%}, confidence max relative {plain_rel:.3e} (each within rel_eps(read));"
         f" flagged {entry['flagged']:.4%}{one_launch}; instance MAXW={loop.maxw} ({registers} registers, {local} B"
-        f" local, {blocks} blocks/SM), {entry['launches']} launches; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (one"
-        f" call each), bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+        f" local, {blocks} blocks/SM), {entry['launches']} launches; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA"
+        f" events over 5 and 3 calls), bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
     return entry
 
 
@@ -2117,18 +2121,21 @@ def wide_k8_entry(dec, instrument, codes, quals, qcfail, short, panels: int = 2)
     shards = [tp.shard_panel(dec, rank, panels) for rank in range(panels)]
     kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True, eps=instrument.tpq_analytic_eps,
                   short=short)
-    before = pamld.panel_sharded_launches
-    k8, ms = once_ms(lambda: pamld.pamld_classify_sharded(dec, shards, codes, quals, qcfail, **kwargs))
-    launches = pamld.panel_sharded_launches - before
-    again = pamld.pamld_classify_sharded(dec, shards, codes, quals, qcfail, **kwargs)
+
+    def call():
+        return pamld.pamld_classify_sharded(dec, shards, codes, quals, qcfail, **kwargs)
+
+    k8, again = call(), call()
+    ms, launches = counted_event_ms("pamld_panel_sharded", call, reps=5)
     for key in k8:
         if not torch.equal(k8[key], again[key]):
             raise AssertionError(f"{label}: two launches differ in {key}")
     k7 = pamld.pamld_classify(dec, codes, quals, qcfail, **kwargs)
     if not torch.equal(k8["argmax"], k7["argmax"]):
         raise AssertionError(f"{label}: argmax differs from K7's on {int((k8['argmax'] != k7['argmax']).sum())} rows")
-    plain, plain_ms = once_ms(lambda: pamld.pamld_classify_sharded(dec, shards, codes, quals, qcfail, plain=True,
-                                                                   **kwargs))
+    plain = pamld.pamld_classify_sharded(dec, shards, codes, quals, qcfail, plain=True, **kwargs)
+    plain_ms = event_ms(lambda: pamld.pamld_classify_sharded(dec, shards, codes, quals, qcfail, plain=True, **kwargs),
+                        reps=3)
     keys = ("decoded", "argmax", "distance", "branch", "qcfail")
     differs = torch.zeros_like(k8["uncertain"])
     for key in keys:
@@ -2148,7 +2155,8 @@ def wide_k8_entry(dec, instrument, codes, quals, qcfail, short, panels: int = 2)
              "bytes": moved, "ops": ops, "launches": launches}
     entry["bound_ms"], entry["bound_by"] = bound(entry)
     say(f"[wide] {label}: two launches identical; argmax = K7's on every row; vs plain {ties}; decisions bit-equal to"
-        f" the tile-order twin; whole K8 {ms:.4f} ms in {launches} launches, plain {plain_ms:.4f} ms (one call each), bound"
+        f" the tile-order twin; whole K8 {ms:.4f} ms in {launches} launches, plain {plain_ms:.4f} ms (CUDA events over 5"
+        f" and 3 calls), bound"
         f" {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
     return entry
 
@@ -3289,8 +3297,13 @@ def wide_times() -> dict:
     inputs (the same ontologies and seeds), CUDA events over 5 calls of
     every launch a call makes (the looped instance's state launch too),
     and each call's device time by kernel (kernel_breakdown): K1 at each
-    (W, B) of WIDE_TIMED, K7 at 96 x WIDE_K7_PANEL and K8 over two shards
-    of that panel in one process (its merges included)."""
+    (W, B) of WIDE_TIMED as planned and, where the tree takes a plan,
+    forced to one launch (`one`) and to the slices (`sliced`,
+    pamld.sliced_plan); K7 at 96 x WIDE_K7_PANEL and K8 over two shards of
+    that panel in one process (its merges included)."""
+    import dataclasses
+    import inspect
+
     from pheniqs_tpu_torch.device import tp
     from pheniqs_tpu_torch.kernels import pamld
 
@@ -3300,8 +3313,16 @@ def wide_times() -> dict:
         dec, codes, quals, qcfail, short = observations[1]
         kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True, eps=instrument.tpq_analytic_eps,
                       short=short)
-        calls = {f"K{7 if b > pamld.LARGE_PANEL_B else 1} W={w} B={b}":
-                 lambda: pamld.pamld_classify(dec, codes, quals, qcfail, **kwargs)}
+        label = f"K{7 if b > pamld.LARGE_PANEL_B else 1} W={w} B={b}"
+        calls = {label: lambda: pamld.pamld_classify(dec, codes, quals, qcfail, **kwargs)}
+        if b <= pamld.LARGE_PANEL_B and "plan" in inspect.signature(pamld._classify_launches).parameters:
+            args = (dec, codes, quals, qcfail, short, instrument.tpq_constants, True, instrument.tpq_analytic_eps,
+                    None)
+            sliced = pamld.sliced_plan(N_KERNEL, b, w, codes.device)
+            calls[f"{label} one"] = lambda: pamld._classify_launches(*args, plan=dataclasses.replace(sliced, slices=1))
+            calls[f"{label} sliced"] = lambda: pamld._classify_launches(*args, plan=sliced)
+            say(f"[times] {label}: as planned {pamld.plan_for(N_KERNEL, b, w, codes.device).slices} slices;"
+                f" sliced {sliced.slices} slices of {sliced.cut} barcodes")
         if b > pamld.LARGE_PANEL_B:
             shards = [tp.shard_panel(dec, rank, 2) for rank in range(2)]
             calls[f"K8 W={w} B={b} P=2"] = lambda: pamld.pamld_classify_sharded(dec, shards, codes, quals, qcfail,

@@ -455,9 +455,14 @@ def tile_loop(w: int, device) -> TileLoop:
 
 
 def plan_for(n: int, barcodes: int, w: int, device) -> SlicePlan:
-    """The slice plan of one launch of the tile loop on the card."""
+    """The slice plan of one launch of the tile loop on the card. The
+    looped instance keeps one launch only for a panel of one cut: its
+    one-launch kernel holds both passes' blocked loops at the register cap
+    and ran slower on an H100 than its stages A and B where both plans
+    fill their slots alike (PERF.md)."""
     loop = tile_loop(w, device)
-    return slice_plan(n, barcodes, loop.tile, loop.reads_per_block, loop.slots, loop.unit, loop.whole_slots)
+    whole = loop.whole_slots if loop.maxw else 0
+    return slice_plan(n, barcodes, loop.tile, loop.reads_per_block, loop.slots, loop.unit, whole)
 
 
 def sliced_plan(n: int, barcodes: int, w: int, device) -> SlicePlan:

@@ -313,7 +313,7 @@ def tile_loop_library(monkeypatch):
     return fake
 
 
-@pytest.mark.parametrize("width,barcodes,n", [(16, 96, 131072), (64, 384, 16384), (65, 96, 131072), (97, 101, 4096),
+@pytest.mark.parametrize("width,barcodes,n", [(16, 96, 131072), (64, 384, 16384), (65, 96, 131072), (97, 101, 4096), (97, 40, 4096),
                                               (128, 384, 131072), (300, 384, 131072), (96, 4096, 131072)])
 def test_tile_loop_launches_follow_the_instance(tile_loop_library, width, barcodes, n):
     """What _classify_launches runs for an observation of `width`
@@ -322,7 +322,8 @@ def test_tile_loop_launches_follow_the_instance(tile_loop_library, width, barcod
     launch writes first, counted with the tile loop's; then one launch over
     a panel of one slice, else stages A, B and C, by the card's plan
     (tile_loop, asked once per instance, and for the looped one per row of
-    16-byte vectors). K1's count takes them below 1024 barcodes, K7's
+    16-byte vectors; the looped instance sliced wherever its panel holds
+    more than one cut). K1's count takes them below 1024 barcodes, K7's
     above."""
     rows = torch.zeros((n, width + 4), dtype=torch.uint8)
     codes, quals = rows[:, :width], rows[:, 2 : width + 2]
@@ -345,6 +346,9 @@ def test_tile_loop_launches_follow_the_instance(tile_loop_library, width, barcod
     assert loop.maxw == pamld.instance_width(width) and loop.maxw in ((0,) if looped else (16, 32, 64))
     assert (loop.maxw, -(-width // 16) if looped else 0, 0) in pamld._TILE_LOOPS
     plan = pamld.plan_for(n, barcodes, width, "cpu")
+    if looped:
+        # the looped instance keeps one launch only for a panel of one cut
+        assert (plan.slices == 1) == (-(-barcodes // plan.cut) == 1)
     launches = ["classify"] if plan.slices == 1 else ["stage A", "stage B", "merge"]
     assert [c for c in tile_loop_library.calls if c != ("info", width)] == ["state"] * looped + launches
     added = (pamld.launches - counts[0], pamld.chunked_launches - counts[1])
