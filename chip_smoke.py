@@ -2034,7 +2034,9 @@ def wide_pamld_entry(dec, instrument, codes, quals, qcfail, short, mixed: int = 
 
     n, w = codes.shape
     b = dec.barcode_count
-    name = f"K{7 if b > pamld.LARGE_PANEL_B else 1} W={w} B={b} N={n}" + (f" ({mixed} barcodes with an N)" if mixed else "")
+    name = f"K{7 if b > pamld.LARGE_PANEL_B else 1} W={w} B={b} N={n}"
+    if mixed:
+        name += f" ({mixed} barcodes with an N)"
     holding = int((dec.panel_codes_u8 == 15).any(dim=1).sum())
     if holding != mixed:
         raise AssertionError(f"{name}: {holding} barcodes of the panel hold an N")
@@ -2155,8 +2157,8 @@ def wide_k8_entry(dec, instrument, codes, quals, qcfail, short, panels: int = 2)
              "bytes": moved, "ops": ops, "launches": launches}
     entry["bound_ms"], entry["bound_by"] = bound(entry)
     say(f"[wide] {label}: two launches identical; argmax = K7's on every row; vs plain {ties}; decisions bit-equal to"
-        f" the tile-order twin; whole K8 {ms:.4f} ms in {launches} launches, plain {plain_ms:.4f} ms (CUDA events over 5"
-        f" and 3 calls), bound"
+        f" the tile-order twin; whole K8 {ms:.4f} ms in {launches} launches, plain {plain_ms:.4f} ms (CUDA events over"
+        f" 5 and 3 calls), bound"
         f" {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
     return entry
 

@@ -95,7 +95,7 @@
 //    block's 256-entry table fm[q] = tpq(q) - q (the same two f32
 //    operations, so the same bits) once, then per barcode one 16-byte
 //    broadcast load of the row, and per word one AND and four predicated
-//    adds: about two issue slots a (read, barcode, position), no load on
+//    adds: about two instructions a (read, barcode, position), no load on
 //    an add chain. Each sum adds its terms in position order, so
 //    pamld_classify_tile_order stays its twin; its tile is sized to the
 //    row, in whole groups of 16 barcodes.
@@ -103,6 +103,8 @@
 // CUDA's expf, first-maximum ties (strict p > best), a runner-up that keeps
 // duplicated maxima (classify.py:_second_max), and padding columns never
 // visited.
+#include <type_traits>
+
 #include "common.cuh"
 #include <math.h>
 
@@ -748,144 +750,6 @@ __device__ __forceinline__ void phq_pamld_store(const PhqPamldParams& p, const P
   }
 }
 
-template <int MAXW, int MODE>
-__device__ __forceinline__ void phq_pamld_body(PhqPamldParams p, PhqPamldArgs a, int tile_b, int cut,
-                                               int shift_rows) {
-  using Shape = PhqPamldShape<MAXW>;
-  constexpr int R = Shape::reads;
-  constexpr int U = PHQ_PAMLD_UNROLL;
-  // 16-byte vectors of a barcode row
-  constexpr int V = Shape::words / 4;
-  PHQ_DYNAMIC_SMEM(smem);
-  float* s_tpq = (float*)smem;                                // 256
-  float* s_conc = s_tpq + 256;                                // tile_b, rounded up to 4
-  uint4* s_rows = (uint4*)(s_conc + ((tile_b + 3) & ~3));     // tile_b * V
-  uint8_t* s_strict = (uint8_t*)(s_rows + (size_t)tile_b * V);  // tile_b
-  __shared__ float s_consts[24];
-  // every thread takes part in the tile loads; a read past the last one is
-  // computed on the last read and writes nothing. Its bytes are fetched
-  // first, in flight while the TPQ table is built.
-  const size_t n = (size_t)p.n;
-  const bool words = phq_words(p, a);
-  int row[R];
-  PhqRaw<MAXW> raw[R];
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    const int i = (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x;
-    row[k] = i < p.n ? i : p.n - 1;
-    raw[k].fetch(p, a.obs_code + (size_t)row[k] * p.ld_obs, a.obs_qual + (size_t)row[k] * p.ld_obs, words);
-  }
-  phq_tpq_table<false>(s_tpq, s_consts, a.tpq_consts);
-  __syncthreads();
-
-  // this block's slice of the columns: cuts [s*C/S, (s+1)*C/S) of the
-  // C = ceil(B/cut) runs of `cut` barcodes
-  const int units = (p.B + cut - 1) / cut;
-  const int col0 = (int)((long long)blockIdx.y * units / gridDim.y) * cut;
-  const int col1 = min((int)((long long)(blockIdx.y + 1) * units / gridDim.y) * cut, p.B);
-
-  PhqRead<MAXW> r[R];
-  float mmin[R], smin[R], shift[R];
-  PhqPosterior post[R];
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    r[k].load(p, raw[k], s_tpq);
-    mmin[k] = INFINITY;
-    smin[k] = INFINITY;
-    shift[k] = INFINITY;
-    if (MODE == PHQ_MODE_SLICE_POSTERIOR) {
-      // the minimum over the slices' rows, exact in any order: loads kept
-      // in flight together
-#pragma unroll 4
-      for (int s = 0; s < shift_rows; ++s) shift[k] = fminf(shift[k], a.shift[s * n + row[k]]);
-    }
-  }
-
-  // a slice of one tile is loaded once, for both passes
-  const bool resident = col1 - col0 <= tile_b;
-  const int first_pass = MODE == PHQ_MODE_SLICE_POSTERIOR ? 1 : 0;
-  const int last_pass = MODE == PHQ_MODE_SLICE_MIN ? 0 : 1;
-  bool all_strict = false;
-  for (int pass = first_pass; pass <= last_pass; ++pass) {
-    for (int t0 = col0; t0 < col1; t0 += tile_b) {
-      const int count = min(tile_b, col1 - t0);
-      if (pass == first_pass || !resident) {
-        const bool conc = pass == 1 || (resident && MODE == PHQ_MODE_CLASSIFY);
-        all_strict = phq_load_tile<MAXW>(p, a.panel + (size_t)t0 * p.W,
-                                         conc ? a.conc + t0 : nullptr, count, s_rows, s_conc,
-                                         s_strict);
-      }
-      if (pass == 0) {
-        if (all_strict) {
-          int b = 0;
-          for (; b + U <= count; b += U) {
-#pragma unroll
-            for (int u = 0; u < U; ++u) {
-#pragma unroll
-              for (int k = 0; k < R; ++k) {
-                mmin[k] = fminf(mmin[k], phq_match(r[k], s_rows + (b + u) * V, p.W));
-              }
-            }
-          }
-          for (; b < count; ++b) {
-#pragma unroll
-            for (int k = 0; k < R; ++k) {
-              mmin[k] = fminf(mmin[k], phq_match(r[k], s_rows + b * V, p.W));
-            }
-          }
-        } else {
-          for (int b = 0; b < count; ++b) {
-            const uint4* e = s_rows + b * V;
-            if (s_strict[b]) {
-#pragma unroll
-              for (int k = 0; k < R; ++k) mmin[k] = fminf(mmin[k], phq_match(r[k], e, p.W));
-            } else {
-#pragma unroll
-              for (int k = 0; k < R; ++k) {
-                const uint8_t* oq = a.obs_qual + (size_t)row[k] * p.ld_obs;
-                smin[k] = fminf(smin[k], phq_sigma_mixed(r[k], (const uint8_t*)e, oq, p));
-              }
-            }
-          }
-        }
-      } else {
-        int b = 0;
-        if (all_strict) {
-          for (; b + U <= count; b += U) {
-#pragma unroll
-            for (int u = 0; u < U; ++u) {
-              const float conc = s_conc[b + u];
-#pragma unroll
-              for (int k = 0; k < R; ++k) {
-                const float s = phq_match(r[k], s_rows + (b + u) * V, p.W) + r[k].c;
-                post[k].add(expf(p.lam * (s - shift[k])) * conc, s, t0 + b + u);
-              }
-            }
-          }
-        }
-        for (; b < count; ++b) {
-          const float conc = s_conc[b];
-#pragma unroll
-          for (int k = 0; k < R; ++k) {
-            const uint8_t* oq = a.obs_qual + (size_t)row[k] * p.ld_obs;
-            const float s = phq_sigma(r[k], s_rows, V, s_strict, b, oq, p);
-            post[k].add(expf(p.lam * (s - shift[k])) * conc, s, t0 + b);
-          }
-        }
-      }
-    }
-    if (pass == 0) {
-#pragma unroll
-      for (int k = 0; k < R; ++k) shift[k] = fminf(mmin[k] + r[k].c, smin[k]);
-    }
-  }
-
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    phq_pamld_store<MODE>(p, a, (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x, shift[k], post[k], words);
-  }
-}
-
 // One group of G barcodes of the wide tile loop, tile rows [b, b + G),
 // global columns from `col`: their match terms for the R reads
 // (phq_wide_match), then barcode by barcode in column order pass A's row
@@ -942,59 +806,73 @@ __device__ __forceinline__ void phq_wide_tile(const PhqReadLooped (&r)[R], const
   }
 }
 
-// The tile loop past 64 positions (the looped instance): the same slices,
-// tiles, passes and outputs as phq_pamld_body, its barcodes walked in
-// groups of PHQ_PAMLD_WIDE_UNROLL by the blocked loop (phq_wide_block).
-template <int MODE>
-__device__ __forceinline__ void phq_pamld_wide_body(PhqPamldParams p, PhqPamldArgs a, int tile_b, int cut,
-                                                    int shift_rows) {
-  constexpr int R = PHQ_PAMLD_WIDE_READS;
-  constexpr int U = PHQ_PAMLD_WIDE_UNROLL;
-  // 16-byte vectors of a barcode row and of a read's codes or qualities
-  const int V = phq_pamld_row_bytes(p.W) / 16;
+template <int MAXW, int MODE>
+__device__ __forceinline__ void phq_pamld_body(PhqPamldParams p, PhqPamldArgs a, int tile_b, int cut,
+                                               int shift_rows) {
+  using Shape = PhqPamldShape<MAXW>;
+  constexpr int R = Shape::reads;
+  constexpr int U = Shape::unroll;
+  // 16-byte vectors of a barcode row (and of the looped instance's read
+  // state)
+  const int V = Shape::looped ? phq_pamld_row_bytes(p.W) / 16 : Shape::words / 4;
   PHQ_DYNAMIC_SMEM(smem);
-  float* s_fm = (float*)smem;                                 // 256: fm[q] = tpq(q) - q
-  float* s_conc = s_fm + 256;                                 // tile_b, rounded up to 4
+  float* s_tpq = (float*)smem;                                // 256 (fm with Shape::looped)
+  float* s_conc = s_tpq + 256;                                // tile_b, rounded up to 4
   uint4* s_rows = (uint4*)(s_conc + ((tile_b + 3) & ~3));     // tile_b * V
   uint8_t* s_strict = (uint8_t*)(s_rows + (size_t)tile_b * V);  // tile_b
   __shared__ float s_consts[24];
+  // every thread takes part in the tile loads; a read past the last one is
+  // computed on the last read and writes nothing. Its bytes are fetched
+  // first, in flight while the TPQ table is built.
   const size_t n = (size_t)p.n;
+  const bool words = phq_words(p, a);
   int row[R];
-  const uint8_t* oq[R];
+  const uint8_t* row_qual[R];
+  PhqRaw<MAXW> raw[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     const int i = (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x;
     row[k] = i < p.n ? i : p.n - 1;
-    oq[k] = a.obs_qual + (size_t)row[k] * p.ld_obs;
+    row_qual[k] = a.obs_qual + (size_t)row[k] * p.ld_obs;
+    if constexpr (!Shape::looped) raw[k].fetch(p, a.obs_code + (size_t)row[k] * p.ld_obs, row_qual[k], words);
   }
-  phq_tpq_table<true>(s_fm, s_consts, a.tpq_consts);
+  phq_tpq_table<Shape::looped>(s_tpq, s_consts, a.tpq_consts);
   __syncthreads();
 
+  // this block's slice of the columns: cuts [s*C/S, (s+1)*C/S) of the
+  // C = ceil(B/cut) runs of `cut` barcodes
   const int units = (p.B + cut - 1) / cut;
   const int col0 = (int)((long long)blockIdx.y * units / gridDim.y) * cut;
   const int col1 = min((int)((long long)(blockIdx.y + 1) * units / gridDim.y) * cut, p.B);
 
-  const uint4* state = (const uint4*)a.state;
-  const float* tail = (const float*)(state + 2 * V * n);
-  PhqReadLooped r[R];
+  typename std::conditional<Shape::looped, PhqReadLooped, PhqRead<MAXW>>::type r[R];
   float mmin[R], smin[R], shift[R];
   PhqPosterior post[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    r[k].code = state + row[k];
-    r[k].qual = state + V * n + row[k];
-    r[k].n = n;
-    r[k].c = tail[row[k]];
-    r[k].qpos_u = tail[n + row[k]];
+    if constexpr (Shape::looped) {
+      const uint4* state = (const uint4*)a.state;
+      const float* tail = (const float*)(state + 2 * V * n);
+      r[k].code = state + row[k];
+      r[k].qual = state + V * n + row[k];
+      r[k].n = n;
+      r[k].c = tail[row[k]];
+      r[k].qpos_u = tail[n + row[k]];
+    } else {
+      r[k].load(p, raw[k], s_tpq);
+    }
     mmin[k] = INFINITY;
     smin[k] = INFINITY;
     shift[k] = INFINITY;
     if (MODE == PHQ_MODE_SLICE_POSTERIOR) {
+      // the minimum over the slices' rows, exact in any order: loads kept
+      // in flight together
 #pragma unroll 4
       for (int s = 0; s < shift_rows; ++s) shift[k] = fminf(shift[k], a.shift[s * n + row[k]]);
     }
   }
 
+  // a slice of one tile is loaded once, for both passes
   const bool resident = col1 - col0 <= tile_b;
   const int first_pass = MODE == PHQ_MODE_SLICE_POSTERIOR ? 1 : 0;
   const int last_pass = MODE == PHQ_MODE_SLICE_MIN ? 0 : 1;
@@ -1004,15 +882,77 @@ __device__ __forceinline__ void phq_pamld_wide_body(PhqPamldParams p, PhqPamldAr
       const int count = min(tile_b, col1 - t0);
       if (pass == first_pass || !resident) {
         const bool conc = pass == 1 || (resident && MODE == PHQ_MODE_CLASSIFY);
-        all_strict = phq_load_tile<PHQ_PAMLD_LOOPED>(p, a.panel + (size_t)t0 * p.W, conc ? a.conc + t0 : nullptr,
-                                                     count, s_rows, s_conc, s_strict);
+        all_strict = phq_load_tile<MAXW>(p, a.panel + (size_t)t0 * p.W,
+                                         conc ? a.conc + t0 : nullptr, count, s_rows, s_conc,
+                                         s_strict);
       }
-      if (MODE != PHQ_MODE_SLICE_POSTERIOR && pass == 0) {
-        phq_wide_tile<0, R, U>(r, p, s_fm, s_rows, V, s_strict, s_conc, all_strict, count, t0, oq, shift, mmin,
-                               smin, post);
-      } else if (MODE != PHQ_MODE_SLICE_MIN) {
-        phq_wide_tile<1, R, U>(r, p, s_fm, s_rows, V, s_strict, s_conc, all_strict, count, t0, oq, shift, mmin,
-                               smin, post);
+      if constexpr (Shape::looped) {
+        if (MODE != PHQ_MODE_SLICE_POSTERIOR && pass == 0) {
+          phq_wide_tile<0, R, U>(r, p, s_tpq, s_rows, V, s_strict, s_conc, all_strict, count, t0, row_qual, shift,
+                                 mmin, smin, post);
+        } else if (MODE != PHQ_MODE_SLICE_MIN) {
+          phq_wide_tile<1, R, U>(r, p, s_tpq, s_rows, V, s_strict, s_conc, all_strict, count, t0, row_qual, shift,
+                                 mmin, smin, post);
+        }
+      } else {
+        if (pass == 0) {
+          if (all_strict) {
+            int b = 0;
+            for (; b + U <= count; b += U) {
+#pragma unroll
+              for (int u = 0; u < U; ++u) {
+#pragma unroll
+                for (int k = 0; k < R; ++k) {
+                  mmin[k] = fminf(mmin[k], phq_match(r[k], s_rows + (b + u) * V, p.W));
+                }
+              }
+            }
+            for (; b < count; ++b) {
+#pragma unroll
+              for (int k = 0; k < R; ++k) {
+                mmin[k] = fminf(mmin[k], phq_match(r[k], s_rows + b * V, p.W));
+              }
+            }
+          } else {
+            for (int b = 0; b < count; ++b) {
+              const uint4* e = s_rows + b * V;
+              if (s_strict[b]) {
+#pragma unroll
+                for (int k = 0; k < R; ++k) mmin[k] = fminf(mmin[k], phq_match(r[k], e, p.W));
+              } else {
+#pragma unroll
+                for (int k = 0; k < R; ++k) {
+                  const uint8_t* oq = a.obs_qual + (size_t)row[k] * p.ld_obs;
+                  smin[k] = fminf(smin[k], phq_sigma_mixed(r[k], (const uint8_t*)e, oq, p));
+                }
+              }
+            }
+          }
+        } else {
+          int b = 0;
+          if (all_strict) {
+            for (; b + U <= count; b += U) {
+#pragma unroll
+              for (int u = 0; u < U; ++u) {
+                const float conc = s_conc[b + u];
+#pragma unroll
+                for (int k = 0; k < R; ++k) {
+                  const float s = phq_match(r[k], s_rows + (b + u) * V, p.W) + r[k].c;
+                  post[k].add(expf(p.lam * (s - shift[k])) * conc, s, t0 + b + u);
+                }
+              }
+            }
+          }
+          for (; b < count; ++b) {
+            const float conc = s_conc[b];
+#pragma unroll
+            for (int k = 0; k < R; ++k) {
+              const uint8_t* oq = a.obs_qual + (size_t)row[k] * p.ld_obs;
+              const float s = phq_sigma(r[k], s_rows, V, s_strict, b, oq, p);
+              post[k].add(expf(p.lam * (s - shift[k])) * conc, s, t0 + b);
+            }
+          }
+        }
       }
     }
     if (pass == 0) {
@@ -1023,8 +963,7 @@ __device__ __forceinline__ void phq_pamld_wide_body(PhqPamldParams p, PhqPamldAr
 
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    phq_pamld_store<MODE>(p, a, (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x, shift[k], post[k],
-                          phq_words(p, a));
+    phq_pamld_store<MODE>(p, a, (blockIdx.x * R + k) * PHQ_PAMLD_THREADS + threadIdx.x, shift[k], post[k], words);
   }
 }
 
@@ -1040,7 +979,7 @@ __global__ void __launch_bounds__(PHQ_PAMLD_THREADS) phq_pamld_kernel(
 template <int MODE>
 __global__ void __launch_bounds__(PHQ_PAMLD_THREADS, PHQ_PAMLD_WIDE_BLOCKS) phq_pamld_wide_kernel(
     PhqPamldParams p, PhqPamldArgs a, int tile_b, int cut, int shift_rows) {
-  phq_pamld_wide_body<MODE>(p, a, tile_b, cut, shift_rows);
+  phq_pamld_body<PHQ_PAMLD_LOOPED, MODE>(p, a, tile_b, cut, shift_rows);
 }
 
 // the kernel of an instance

@@ -313,8 +313,9 @@ def tile_loop_library(monkeypatch):
     return fake
 
 
-@pytest.mark.parametrize("width,barcodes,n", [(16, 96, 131072), (64, 384, 16384), (65, 96, 131072), (97, 101, 4096), (97, 40, 4096),
-                                              (128, 384, 131072), (300, 384, 131072), (96, 4096, 131072)])
+@pytest.mark.parametrize("width,barcodes,n", [(16, 96, 131072), (64, 384, 16384), (65, 96, 131072), (97, 101, 4096),
+                                              (97, 40, 4096), (128, 384, 131072), (300, 384, 131072),
+                                              (96, 4096, 131072)])
 def test_tile_loop_launches_follow_the_instance(tile_loop_library, width, barcodes, n):
     """What _classify_launches runs for an observation of `width`
     positions: past LOOPED_PAST the looped instance, whose read state (8 *
