@@ -13,9 +13,11 @@
                                      # and the decode steps' device times
                                      # and launches, the plan's choice at
                                      # batch sizes from 16384 to 262144
-                                     # and K1's slice unit, the package
-                                     # imported from tree T, a copy of
-                                     # another commit inside this checkout
+                                     # and K1's slice unit, K3's column-
+                                     # plan rows and K6's wide rows, the
+                                     # package imported from tree T, a
+                                     # copy of another commit inside this
+                                     # checkout; --sections picks some
 
 It drives six paths of the port, all on the flagship read layout
 (150 + 8 + 8 + 26 nt, RTA3 qualities; the wide flagship's segment 3 is
@@ -39,14 +41,16 @@ any failure propagates and the exit code is not 0:
                   (plus a 1024-barcode panel for K1, and K3 on every wire
                   layout and the general gather, two launches identical,
                   with its reads a block and shared bytes, and on its edge
-                  cases: N = 0, 1, R - 1, R + 1, 16384 + 7, blobs off
-                  16-byte alignment, unpack_edge_checks), on the MDD
+                  cases under the block plan and the column plan: N = 0,
+                  1, R - 1, R + 1, 16384 + 7, blobs off 16-byte
+                  alignment, unpack_edge_checks), on the MDD
                   flagship (K6 byte-exact and two launches identical, also
                   at tolerance 2 with quality masking and short reads; its
                   share of reads resolved by the key table and reads
                   scanned a warp; a panel with a duplicated barcode, 5-,
                   24- and 64-position and 2000-barcode panels on unaligned
-                  rows, mdd_edge_checks; K5 byte-exact, two launches
+                  rows, and a wide panel of 8 bit planes,
+                  mdd_edge_checks; K5 byte-exact, two launches
                   identical and nothing written past its span on eight
                   layouts of 10-261 bytes a read at N = 0 to 131071,
                   pack_edge_checks, and its plan on each path; ptxas'
@@ -86,17 +90,22 @@ any failure propagates and the exit code is not 0:
                   shards of it, each launched twice (identical), its decisions
                   bit-equal to the tile-order twin and apart from the plain
                   version only on near ties in f64 or at a threshold both
-                  flag (wide_pamld_entry, wide_k8_entry); K6 at 9 and 12
-                  segments of 80 and 130 positions, K3's programs of ~3,000
-                  and ~10,000 ints staged and read in place, K4 and K5 at
-                  33 and 64 decoders and K5's rows in place, byte-exact
-                  (their edge cases also in the kernels phase); each timed
-                  beside its bound (the kernels line's extra.wide); the
-                  wide flagship (a 96-nt cellular barcode) hybrid identical
-                  to strict on 20k reads, its f64 re-resolution rate beside
-                  the bound's prediction, its launches, and fast against
-                  strict on 200k reads, every record apart a near tie; the
-                  same on its 4096-barcode variant on fewer reads
+                  flag (wide_pamld_entry, wide_k8_entry); K6's wide
+                  instance at 9 and 12 segments of 80 and 130 positions,
+                  K3's column plan on programs of ~3,000 (beside the block
+                  plan) and ~10,000 ints and 2048 length columns, K4 and
+                  K5 at 33 and 64 decoders and K5's rows in place,
+                  byte-exact (their edge cases also in the kernels phase);
+                  each timed beside its bound (the kernels line's
+                  extra.wide); the wide flagship (a 96-nt cellular
+                  barcode) hybrid identical to strict on 20k reads, its f64
+                  re-resolution rate beside the bound's prediction, its
+                  launches, and fast against strict on 200k reads, every
+                  record apart a near tie; the same on its 4096-barcode
+                  variant on fewer reads; the wide MDD instrument (an MDD
+                  sample barcode of 12 segments and 130 positions,
+                  tolerance 2) hybrid identical to strict on 20k reads,
+                  its K6 launches counted
   4. decisions    the hybrid port (streamed engine, forked render workers)
                   identical to the strict f64 engine: on 200k flagship
                   reads, on 200k MDD-flagship reads and on 20k reads of a
@@ -261,6 +270,8 @@ PATH_KERNELS = {
     # the wide phase's flagship variants (96-nt cellular barcodes)
     "wide": ("unpack_tokens", "pamld_classify", "counters", "pack_outputs"),
     "wide K7": ("unpack_tokens", "pamld_classify", "pamld_chunked", "counters", "pack_outputs"),
+    # the wide MDD instrument (a sample barcode of 12 segments, 130 positions)
+    "wide mdd": ("unpack_tokens", "mdd_classify", "pamld_classify", "counters", "pack_outputs"),
 }
 
 
@@ -438,6 +449,17 @@ def counted_event_ms(counter: str, fn, reps: int = 10) -> tuple[float, int]:
     if total % (reps + 1):
         raise AssertionError(f"{counter}: {total} launches over {reps + 1} calls")
     return ms, total // (reps + 1)
+
+
+def counted_device_ms(counter: str, fn, reps: int = 10) -> tuple[float, int]:
+    """(device_ms of `fn`, launches of kernel `counter` in one call of it,
+    counted just before and just after that call)."""
+    from pheniqs_tpu_torch.kernels import launch_counts
+
+    before = launch_counts()[counter]
+    fn()
+    launches = launch_counts()[counter] - before
+    return device_ms(fn, reps), launches
 
 
 def held_launches(label: str, launches: int, expected: int) -> int:
@@ -634,20 +656,29 @@ def token_case(decoders, widths, n: int, seed: int):
             torch.from_numpy(ccb).to(cuda), torch.from_numpy(qcb).to(cuda))
 
 
-def forced_program(layout, row_bytes: int, staged: bool):
-    """K3's plan for `layout` with its program staged or read in place as
-    asked, the rows staged as block_plan stages them (the first staging and
-    the most reads whose areas, unpack._areas, fit), put in the layout's
-    cache so the wrapper launches it. Returns the plan."""
+def forced_plan(layout, row_bytes: int, columns: bool):
+    """K3's column plan for `layout`, or its block plan (which must fit a
+    block), put in the layout's cache so the wrapper launches it. Returns
+    the plan."""
     from pheniqs_tpu_torch.kernels import unpack
 
-    program = layout.program.size
-    plans = (unpack._areas(layout, program, row_bytes, reads, wire, tokens, staged, lengths)
-             for wire, tokens, lengths in unpack._STAGINGS
-             for reads in range(unpack.MAX_BLOCK_READS, unpack.MIN_BLOCK_READS - 1, -16))
-    plan = next(plan for plan in plans if plan.shared_bytes <= unpack.SHARED_BYTES)
-    layout.block_plans[(row_bytes, program)] = plan.ints()
+    plan = unpack.column_plan(layout, row_bytes) if columns else unpack.block_plan(layout, row_bytes)
+    if not columns and plan.shared_bytes > unpack.SHARED_BYTES:
+        raise AssertionError(f"K3: no block of 128 reads stages the layout of {layout.program.size} ints")
+    layout.block_plans[(row_bytes, layout.program.size)] = plan
     return plan
+
+
+def plan_name(plan) -> str:
+    """A K3 plan in words."""
+    from pheniqs_tpu_torch.kernels import unpack
+
+    if isinstance(plan, unpack.BlockPlan):
+        return f"block plan (R = {plan.reads}, {plan.shared_bytes} shared bytes)"
+    in_place = sum(1 for _, _, staged in plan.chunks if not staged)
+    wire = "wire rows staged" if plan.stage_wire else "wire read in place"
+    return (f"column plan ({unpack.COLUMN_READS} reads x {len(plan.chunks)} chunks of slots, {in_place} in place,"
+            f" {plan.shared_bytes} shared bytes, {wire})")
 
 
 TOKEN_FIELDS = ("codes", "quals", "lengths", "short", "qcfail", "pad", "forced")
@@ -697,51 +728,62 @@ def unpack_checks(n: int):
 
 def unpack_edge_checks() -> int:
     """K3 on the ragged and unaligned cases, byte-exact against its plain
-    version and across two launches: N = 0, 1, R - 1, R + 1 and 16384 + 7
-    reads (R the reads a block owns) on the 6-bit and j4 wires with the
-    general gather, each also as a view 3 bytes into a larger buffer; and
-    token programs past 2048 ints (program_blob: ~3,000 and ~10,000),
-    each staged in shared memory and read in place (forced_program).
-    Returns the cases held."""
+    version and across two launches, under the block plan and forced to
+    the column plan (forced_plan): N = 0, 1, R - 1, R + 1 and 16384 + 7
+    reads (R the reads a block plan's block owns) on the 6-bit and j4
+    wires with the general gather, each also as a view 3 bytes into a
+    larger buffer; token programs past 2048 ints (program_blob: ~3,000
+    ints, which a block of 128 reads stages whole, under both plans;
+    ~10,000, which it does not, under the column plan); and 2048
+    length columns (lengths_blob), under the column plan, aligned and 3
+    bytes off. Returns the cases held."""
     from pheniqs_tpu_torch.device import wire
     from pheniqs_tpu_torch.kernels import unpack
 
     held = 0
-    instrument, layout, program, blob, ccb, qcb = gather_blob(16384 + 7, wire.JOINT4)
-    plan = unpack.block_plan(layout, blob.shape[1])
-    empty = unpack.unpack_tokens(instrument, layout, program, blob[:0], ccb, qcb)
-    if empty.codes.shape != (0, layout.token_cols) or empty.lengths.shape != (0, layout.length_cols):
-        raise AssertionError("K3 N=0: outputs of the wrong shape")
-    held += 1
-    for mode in (6, wire.JOINT4):
-        instrument, layout, program, blob, ccb, qcb = gather_blob(16384 + 7, mode, seed=10)
-        for n in (1, plan.reads - 1, plan.reads + 1, 16384 + 7):
-            for offset in (0, 3):
-                rows = blob[:n].contiguous() if offset == 0 else unaligned(blob[:n], offset)
-                if rows.data_ptr() % 16 != offset:
-                    raise AssertionError(f"K3 edge case: the view is {rows.data_ptr() % 16} bytes off, not {offset}")
-                hold_unpack(f"{mode}-wire N={n} at offset {offset}", instrument, layout, program, rows, ccb, qcb)
-                held += 1
+    reads = unpack.MAX_BLOCK_READS
+    for columns in (False, True):
+        instrument, layout, program, blob, ccb, qcb = gather_blob(16384 + 7, wire.JOINT4)
+        if not isinstance(unpack.unpack_plan(layout, blob.shape[1]), unpack.BlockPlan):
+            raise AssertionError("K3: the general gather's layout left the block plan")
+        forced_plan(layout, blob.shape[1], columns)
+        empty = unpack.unpack_tokens(instrument, layout, program, blob[:0], ccb, qcb)
+        if empty.codes.shape != (0, layout.token_cols) or empty.lengths.shape != (0, layout.length_cols):
+            raise AssertionError("K3 N=0: outputs of the wrong shape")
+        held += 1
+        for mode in (6, wire.JOINT4):
+            instrument, layout, program, blob, ccb, qcb = gather_blob(16384 + 7, mode, seed=10)
+            plan = forced_plan(layout, blob.shape[1], columns)
+            for n in (1, reads - 1, reads + 1, 16384 + 7):
+                for offset in (0, 3):
+                    rows = blob[:n].contiguous() if offset == 0 else unaligned(blob[:n], offset)
+                    if rows.data_ptr() % 16 != offset:
+                        raise AssertionError(f"K3 edge case: the view is {rows.data_ptr() % 16} bytes off, not {offset}")
+                    hold_unpack(f"{mode}-wire N={n} at offset {offset}, {plan_name(plan)}", instrument, layout,
+                                program, rows, ccb, qcb)
+                    held += 1
     programs = []
     for count in WIDE_PROGRAM_PLANS:
         instrument, layout, program, blob, ccb, qcb = program_blob(16384 + 7, count)
-        for staged in (True, False):
-            forced = forced_program(layout, blob.shape[1], staged)
+        planned = unpack.unpack_plan(layout, blob.shape[1])
+        fits = unpack.block_plan(layout, blob.shape[1]).shared_bytes <= unpack.SHARED_BYTES
+        for columns in (False, True) if fits else (True,):
+            plan = forced_plan(layout, blob.shape[1], columns)
             for rows in (blob, unaligned(blob, 3)):
-                hold_unpack(f"program of {program.numel()} ints {'in shared memory' if staged else 'in place'}",
-                            instrument, layout, program, rows, ccb, qcb)
+                hold_unpack(f"program of {program.numel()} ints, {plan_name(plan)}", instrument, layout, program,
+                            rows, ccb, qcb)
                 held += 1
-        programs.append(f"{program.numel()} ints (R = {forced.reads})")
+        programs.append(f"{program.numel()} ints (planned: {plan_name(planned)})")
     instrument, layout, program, blob, ccb, qcb = lengths_blob(16384 + 7)
-    if unpack.block_plan(layout, blob.shape[1]).stage_lengths:
-        raise AssertionError(f"K3: {layout.length_cols} length columns staged")
+    if not isinstance(unpack.unpack_plan(layout, blob.shape[1]), unpack.ColumnPlan):
+        raise AssertionError(f"K3: {layout.length_cols} length columns not on the column plan")
     for rows in (blob, unaligned(blob, 3)):
-        hold_unpack(f"{layout.length_cols} length columns in place", instrument, layout, program, rows, ccb, qcb)
+        hold_unpack(f"{layout.length_cols} length columns, column plan", instrument, layout, program, rows, ccb, qcb)
         held += 1
-    say(f"[kernels] K3 byte-exact and two launches identical on {held} edge cases: N = 0, 1, {plan.reads - 1},"
-        f" {plan.reads + 1}, 16391 on the 6-bit and j4 wires, aligned and 3 bytes off; programs of"
-        f" {', '.join(programs)} in shared memory and read in place, and {layout.length_cols} length columns"
-        " written in place, 16391 reads aligned and 3 bytes off")
+    say(f"[kernels] K3 byte-exact and two launches identical on {held} edge cases: N = 0, 1, {reads - 1},"
+        f" {reads + 1}, 16391 on the 6-bit and j4 wires, aligned and 3 bytes off, under the block plan and the"
+        f" column plan; programs of {', '.join(programs)}, under each plan that stages them, and"
+        f" {layout.length_cols} length columns under the column plan, 16391 reads aligned and 3 bytes off")
     return held
 
 
@@ -904,9 +946,10 @@ def mdd_edge_checks(n: int = N_KERNEL) -> int:
     index), synthetic panels of 5, 24 and 64 positions (the 4-, 8- and
     16-word instances; 1 to 2 segments) and of 2000 barcodes (a key table
     too large for shared memory, read from L2), and the wide ones (WIDE_MDD:
-    9 and 12 segments of 80 and 130 positions, the 32-word and looped
-    instances), at tolerance 1 and at tolerance 2 with quality masking and
-    20 % short segments, on unaligned rows of 16384 + 7 reads. Returns the
+    9 and 12 segments of 50-130 positions, the wide instance), at
+    tolerance 1 and at tolerance 2 with quality masking and
+    20 % short segments, on unaligned rows of 16384 + 7 reads; and a wide
+    panel holding codes of 16 and more (mdd_eight_planes). Returns the
     cases held."""
     import dataclasses
 
@@ -955,7 +998,41 @@ def mdd_edge_checks(n: int = N_KERNEL) -> int:
             say(f"[kernels] K6 S={len(widths)} W={widths} B={barcodes} tolerance {tolerance} qmt {qmt} short {cut:.0%}"
                 f" N={codes.shape[0]}, unaligned rows: {pair['line']}")
             held += 1
-    return held
+    dec, codes, quals, lengths, qcfail = mdd_eight_planes(16384 + 7)
+    short = torch.zeros(codes.shape[0], dtype=torch.bool, device=cuda)
+    pair = classify_pair(dec, instrument, codes, quals, lengths, qcfail, short, pamld.empty_result(codes.shape[0], cuda))
+    say(f"[kernels] K6 S=12 W=130 B=40, a panel with codes of 16 and 31 ({mdd.decoder_planes(dec)} planes),"
+        f" N={codes.shape[0]}: {pair['line']}")
+    return held + 1
+
+
+def mdd_eight_planes(n: int):
+    """WIDE_MDD's last shape (12 segments, 130 positions, 40 barcodes) with
+    codes of 16 and 31 in three barcodes and in a fifth of the reads drawn
+    from them (outside the wire's 4-bit codes: the wide instance's 8-plane
+    panel), tolerance 2, qmt 5, 20 % short: (dec, codes, quals, lengths,
+    qcfail)."""
+    import dataclasses
+
+    import torch
+
+    from pheniqs_tpu_torch.kernels import mdd
+
+    widths, barcodes = WIDE_MDD[-1]
+    dec, codes, quals, lengths, qcfail = mdd_synthetic(widths, barcodes, n, 2, 5, 0.2, seed=31,
+                                                       error_rate=0.5 / sum(widths))
+    panel = dec.panel_codes_u8.clone()
+    panel[3, 5] = 16
+    panel[7, 40:60] = 31
+    panel[9] = 16
+    dec = dataclasses.replace(dec, panel_codes=panel.to(torch.int32), panel_codes_u8=panel,
+                              key_table=mdd.key_table_tensor(panel))
+    gen = torch.Generator(device=codes.device).manual_seed(31)
+    rows = torch.randperm(n, device=codes.device, generator=gen)[: n // 5]
+    codes = codes.clone()
+    codes[rows] = torch.where(codes[rows] == 0, 0, panel[torch.tensor([3, 7, 9], device=codes.device)[rows % 3]])
+    codes[: n // 50, 3] = 31
+    return dec, codes, quals.contiguous(), lengths, qcfail
 
 
 def sliced_vs_one_launch(dec, instrument, codes, quals, qcfail, short) -> str:
@@ -1161,10 +1238,12 @@ def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: flo
 
     tokens = hold_unpack(label, instrument, layout, step.program, blob, ccb, qcb)
     hold_unpack(f"{label} 5 bytes off alignment", instrument, layout, step.program, unaligned(blob, 5), ccb, qcb)
-    plan = unpack.block_plan(layout, blob.shape[1], step.program.numel())
+    plan = unpack.unpack_plan(layout, blob.shape[1], step.program.numel())
+    if not isinstance(plan, unpack.BlockPlan):
+        raise AssertionError(f"{label} K3: the layout left the block plan ({plan})")
     say(f"[kernels] {label} K3 N={n}: byte-exact, two launches identical, also on a view 5 bytes off alignment;"
-        f" R = {plan.reads} reads a block, {plan.shared_bytes} shared bytes a block (wire rows staged:"
-        f" {plan.stage_wire}, tokens staged: {plan.stage_tokens})")
+        f" the block plan, R = {plan.reads} reads a block, {plan.shared_bytes} shared bytes a block, everything"
+        " staged")
     if timed:
         results["unpack_tokens"] = {
             "max_abs_err": 0.0,
@@ -1280,11 +1359,15 @@ def step_checks(label: str, ontology, n: int, seed: int, timed: bool, short: flo
             "plain_ms": device_ms(lambda: step.forward_plain(blob, ccb, qcb), reps=3),
             "event_ms": event_ms(lambda: step(blob, ccb, qcb)),
             "plain_event_ms": event_ms(lambda: step.forward_plain(blob, ccb, qcb), reps=3),
-            "launches": device_launches(lambda: step(blob, ccb, qcb)),
         }
-        launched = results["step"]["launches"]
-        say(f"[kernels] {label} decode step: {sum(launched.values())} device launches a batch (torch.profiler):"
-            f" {json.dumps(launched)}")
+        try:
+            launched = device_launches(lambda: step(blob, ccb, qcb))
+            say(f"[kernels] {label} decode step: {sum(launched.values())} device launches a batch (torch.profiler):"
+                f" {json.dumps(launched)}")
+        except RuntimeError as error:  # a count read from the profiler: its dropped events are reported, not counted
+            launched = str(error)
+            say(f"[kernels] {label} decode step: device launches not counted: {error}")
+        results["step"]["launches"] = launched
         say(f"[kernels] {label} decode step N={n}: kernels {results['step']['ms']:.4f} ms,"
             f" plain {results['step']['plain_ms']:.4f} ms (device time)")
     return results
@@ -1736,7 +1819,7 @@ def kernel_checks(n: int = N_KERNEL, timed: bool = True) -> dict:
     mdd_edge_checks(n)
     pack_edge_checks()
     say(f"[kernels] K3's, K6's and K5's edge checks took {time.perf_counter() - start:.1f} s")
-    for fragment in ("phq_unpack_kernel", "phq_mdd_kernel", "phq_pack_kernel"):
+    for fragment in ("phq_unpack_kernel", "phq_unpack_columns", "phq_mdd_kernel", "phq_mdd_wide", "phq_pack_kernel"):
         for kernel, line in ptxas_report(fragment).items():
             say(f"[kernels] ptxas {kernel}: {line}")
 
@@ -1947,7 +2030,7 @@ WIDE_MIXED = 5
 #: WIDE_K7_PANEL (wide_times)
 WIDE_TIMED = ((65, 96), (65, 384), (96, 96), (96, 384), (300, 96), (300, 384))
 #: K6 past 8 segments or 64 positions: (segment widths, barcodes) of 9 and
-#: 12 segments of 80 and 130 positions (the 32-word and looped instances)
+#: 12 segments of 40-130 positions (the wide instance past 64)
 WIDE_MDD = (([9] * 8 + [8], 80), ([7] * 8 + [6] * 4, 60), ([15] * 4 + [14] * 5, 50), ([11] * 10 + [10, 10], 40))
 #: token plans of K3's programs past 2048 ints (~3,000 and ~10,000 ints)
 WIDE_PROGRAM_PLANS = (330, 1100)
@@ -1962,6 +2045,23 @@ N_WIDE_HYBRID = 20_000
 N_WIDE_FAST = 200_000
 N_WIDE_K7_HYBRID = 4_000
 N_WIDE_K7_FAST = 20_000
+#: the wide MDD instrument's hybrid run against strict
+N_WIDE_MDD = 20_000
+
+
+def wide_unpack_cases(n: int):
+    """((instrument, layout, program, blob, ccb, qcb), columns) of K3's
+    wide rows on `n` reads: each program of WIDE_PROGRAM_PLANS under the
+    column plan, and under the block plan where it stages the program
+    whole; the 2048 length columns of lengths_blob under the column plan."""
+    from pheniqs_tpu_torch.kernels import unpack
+
+    for count in WIDE_PROGRAM_PLANS:
+        case = program_blob(n, count)
+        if unpack.block_plan(case[1], case[3].shape[1]).shared_bytes <= unpack.SHARED_BYTES:
+            yield case, False
+        yield case, True
+    yield lengths_blob(n), True
 
 
 def wide_ontology(b: int, w: int, mixed: int = 0) -> dict:
@@ -2177,7 +2277,7 @@ def wide_checks(n: int = N_KERNEL) -> dict:
     Returns {kernel: [extra.wide entries]}."""
     import torch
 
-    from pheniqs_tpu_torch.kernels import pack, pamld, unpack
+    from pheniqs_tpu_torch.kernels import mdd, pack, pamld, unpack
 
     cuda = torch.device("cuda")
     entries = {name: [] for name in KERNELS}
@@ -2191,38 +2291,39 @@ def wide_checks(n: int = N_KERNEL) -> dict:
         dec, codes, quals, lengths, qcfail = mdd_synthetic(widths, barcodes, n, 2, 5, 0.2, seed=barcodes,
                                                            error_rate=0.5 / sum(widths))
         short = torch.zeros(n, dtype=torch.bool, device=cuda)
-        pair = classify_pair(dec, None, codes, quals, lengths, qcfail, short, pamld.empty_result(n, cuda))
+        out = pamld.empty_result(n, cuda)
+        pair = classify_pair(dec, None, codes, quals, lengths, qcfail, short, out)
+        ms, launches = counted_device_ms("mdd_classify",
+                                         lambda: mdd.mdd_classify(dec, codes, quals, lengths, qcfail, out=out))
         moved, ops = classify_work(dec, n, sum(widths), pair["plain"])
-        entry = {"S": len(widths), "W": sum(widths), "B": barcodes, "N": n, "ms": pair["ms"],
-                 "plain_ms": pair["plain_ms"], "bytes": moved, "ops": ops,
-                 "launches": held_launches(f"K6 S={len(widths)}", pair["launches"], 1)}
+        planes = mdd.decoder_planes(dec)
+        entry = {"S": len(widths), "W": sum(widths), "B": barcodes, "N": n, "ms": ms,
+                 "plain_ms": pair["plain_ms"], "bytes": moved, "ops": ops, "planes": planes,
+                 "batch_reads": mdd.batch_reads(sum(widths), planes),
+                 "launches": held_launches(f"K6 S={len(widths)}", launches, 1)}
         entry["bound_ms"], entry["bound_by"] = bound(entry)
         entries["mdd_classify"].append(entry)
         say(f"[wide] K6 S={len(widths)} W={sum(widths)} B={barcodes} tolerance 2 qmt 5 short 20% N={n}: {pair['line']};"
-            f" kernel {pair['ms']:.4f} ms, plain {pair['plain_ms']:.4f} ms (one call), bound {entry['bound_ms']:.4f} ms"
-            f" ({entry['bound_by']})")
-    k3_cases = [(program_blob(n, count), staged) for count in WIDE_PROGRAM_PLANS for staged in (True, False)]
-    for (instrument, layout, program, blob, ccb, qcb), staged in k3_cases + [(lengths_blob(n), None)]:
-        if staged is None:
-            plan = unpack.block_plan(layout, blob.shape[1])
-            where = f"with its {layout.length_cols} length columns written in place"
-        else:
-            plan = forced_program(layout, blob.shape[1], staged)
-            where = "in shared memory" if staged else "read in place"
-        label = f"K3 program of {program.numel()} ints {where}"
+            f" wide instance, {planes} planes, {entry['batch_reads']} reads a warp's batch; kernel {ms:.4f} ms (device"
+            f" time over 10 calls, {launches} launch a call), plain {pair['plain_ms']:.4f} ms (one call), bound"
+            f" {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+    for (instrument, layout, program, blob, ccb, qcb), columns in wide_unpack_cases(n):
+        planned = unpack.unpack_plan(layout, blob.shape[1])
+        plan = forced_plan(layout, blob.shape[1], columns)
+        label = (f"K3 program of {program.numel()} ints ({layout.token_cols} token and {layout.length_cols} length"
+                 f" columns), {plan_name(plan)}{'' if plan == planned else ', forced'}")
         tokens = hold_unpack(f"{label} N={n}", instrument, layout, program, blob, ccb, qcb)
-        ms, launches = counted_event_ms("unpack_tokens",
-                                        lambda: unpack.unpack_tokens(instrument, layout, program, blob, ccb, qcb))
+        ms, launches = counted_device_ms("unpack_tokens",
+                                         lambda: unpack.unpack_tokens(instrument, layout, program, blob, ccb, qcb))
         _, plain_ms = once_ms(lambda: unpack.unpack_tokens_plain(instrument, layout, blob, ccb=ccb, qcb=qcb))
         moved = nbytes(blob, program, *(getattr(tokens, field) for field in TOKEN_FIELDS))
-        entry = {"program_ints": program.numel(), "staged": plan.stage_program, "lengths_staged": plan.stage_lengths,
-                 "N": n, "reads_per_block": plan.reads, "ms": ms, "plain_ms": plain_ms, "bytes": moved,
-                 "launches": held_launches(label, launches, 1)}
+        entry = {"program_ints": program.numel(), "token_cols": layout.token_cols, "length_cols": layout.length_cols,
+                 "plan": "columns" if columns else "block", "planned": plan == planned, "N": n, "ms": ms,
+                 "plain_ms": plain_ms, "bytes": moved, "launches": held_launches(label, launches, 1)}
         entry["bound_ms"], entry["bound_by"] = bound(entry)
         entries["unpack_tokens"].append(entry)
-        say(f"[wide] {label} (R = {plan.reads}, {plan.shared_bytes} shared bytes), N={n}: byte-exact, two launches"
-            f" identical, {launches} launch a call; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound"
-            f" {entry['bound_ms']:.4f} ms (bytes)")
+        say(f"[wide] {label}, N={n}: byte-exact, two launches identical; kernel {ms:.4f} ms (device time over 10"
+            f" calls, {launches} launch a call), plain {plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms (bytes)")
     for d in WIDE_DECODERS:
         decoders = ((("pamld", 96, 16), ("mdd", 40, 8), ("naive", 0, 0)) * 22)[:d]
         instrument, arrays = k4_case(f"{d} decoders", n, decoders=decoders)
@@ -2348,28 +2449,35 @@ def wide_e2e(card: str, threads: int) -> dict:
     every confident read at this width), its kernel launches (counts set to
     0 just before the run); fast against strict on N_WIDE_FAST reads, every
     record apart a near tie (fast_near_ties); the same two on the
-    WIDE_K7_PANEL variant (K7) on fewer reads. Returns the hybrid runs'
+    WIDE_K7_PANEL variant (K7) on fewer reads; and the wide MDD instrument
+    (wide_mdd_ontology: a sample barcode of 12 segments and 130 positions,
+    tolerance 2, K6's wide instance) hybrid identical to strict on
+    N_WIDE_MDD reads, its K6 launches counted. Returns the hybrid runs'
     launches summed."""
-    from pheniqs_tpu_torch.device.flagship import wide_flagship_ontology
+    from pheniqs_tpu_torch.device.flagship import wide_flagship_ontology, wide_mdd_ontology
     from pheniqs_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     total = {name: 0 for name in KERNELS}
     runs = (("wide flagship", wide_flagship_ontology(), N_WIDE_HYBRID, N_WIDE_FAST, "wide"),
             (f"wide flagship B={WIDE_K7_PANEL}", wide_flagship_ontology(WIDE_K7_PANEL), N_WIDE_K7_HYBRID,
-             N_WIDE_K7_FAST, "wide K7"))
+             N_WIDE_K7_FAST, "wide K7"),
+            ("wide MDD S=12 W=130", wide_mdd_ontology(), N_WIDE_MDD, None, "wide mdd"))
     for label, ontology, n_hybrid, n_fast, path in runs:
-        predicted = wide_predicted(ontology)
+        mdd_run = path == "wide mdd"
+        predicted = None if mdd_run else wide_predicted(ontology)
         reset_launch_counts()
-        stats = decisions_vs_strict(label, ontology, n_hybrid, threads, resolved_limit=None)
+        stats = decisions_vs_strict(label, ontology, n_hybrid, threads, resolved_limit=RESOLVED_LIMIT if mdd_run else None)
         counts = launch_counts()
         missing = [name for name in PATH_KERNELS[path] if counts[name] <= 0]
         if missing:
             raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
+        rate = "" if predicted is None else f", predicted from the bound {predicted:.4%}"
         say(f"[wide] {card} | {label} hybrid: identical to strict on {n_hybrid} reads; f64 re-resolution rate"
-            f" {stats['resolved_fraction']:.4%}, predicted from the bound {predicted:.4%}; launches {json.dumps(counts)}")
+            f" {stats['resolved_fraction']:.4%}{rate}; launches {json.dumps(counts)}")
         for name, count in counts.items():
             total[name] += count
-        say(f"[wide] {card} | {fast_near_ties(label, ontology, n_fast, threads)}")
+        if n_fast is not None:
+            say(f"[wide] {card} | {fast_near_ties(label, ontology, n_fast, threads)}")
     return total
 
 
@@ -3426,7 +3534,53 @@ def unpack_mdd_times() -> dict:
     return times
 
 
-def kernel_times(card: str, tree: str):
+#: --times' sections, in the order they run (kernel_times)
+TIME_SECTIONS = ("pamld", "steps", "whitelist", "wide", "unpack_mdd", "wide_unpack_mdd", "rules")
+
+
+def wide_unpack_mdd_times() -> dict:
+    """--times' K3 and K6 rows past the block plan and past 64 positions,
+    at N_KERNEL reads of the wide phase's inputs (the same helpers and
+    seeds): K3 on each program of
+    WIDE_PROGRAM_PLANS and on the 2048 length columns of lengths_blob as
+    the tree plans them and, where the tree has a column plan, under the
+    column plan and (where it stages the layout whole) the block plan;
+    K6 at the wide phase's two rows (WIDE_MDD's first and last: S = 9,
+    W = 80 and S = 12, W = 130; tolerance 2, qmt 5, 20 % short); device
+    time over 10 calls (device_ms)."""
+    import torch
+
+    from pheniqs_tpu_torch.kernels import mdd, pamld, unpack
+
+    cuda = torch.device("cuda")
+    times = {}
+    cases = [(program_blob(N_KERNEL, count), "program") for count in WIDE_PROGRAM_PLANS]
+    for (instrument, layout, program, blob, ccb, qcb), kind in cases + [(lengths_blob(N_KERNEL), "lengths")]:
+        label = f"K3 {program.numel()} ints" + (f" {layout.length_cols} length columns" if kind == "lengths" else "")
+
+        def call():
+            return unpack.unpack_tokens(instrument, layout, program, blob, ccb, qcb)
+
+        times[label] = device_ms(call)
+        if hasattr(unpack, "column_plan"):
+            times[f"{label} planned"] = plan_name(unpack.unpack_plan(layout, blob.shape[1]))
+            for columns in (False, True):
+                if columns or unpack.block_plan(layout, blob.shape[1]).shared_bytes <= unpack.SHARED_BYTES:
+                    forced_plan(layout, blob.shape[1], columns)
+                    times[f"{label} {'column' if columns else 'block'} plan"] = device_ms(call)
+            layout.block_plans.clear()
+    for widths, barcodes in (WIDE_MDD[0], WIDE_MDD[-1]):
+        dec, codes, quals, lengths, qcfail = mdd_synthetic(widths, barcodes, N_KERNEL, 2, 5, 0.2, seed=barcodes,
+                                                           error_rate=0.5 / sum(widths))
+        out = pamld.empty_result(N_KERNEL, cuda)
+        times[f"K6 S={len(widths)} W={sum(widths)} B={barcodes}"] = device_ms(
+            lambda: mdd.mdd_classify(dec, codes, quals, lengths, qcfail, out=out))
+    for key, value in times.items():
+        say(f"[times] {key}: {value if isinstance(value, str) else f'{value:.4f} ms'}")
+    return times
+
+
+def kernel_times(card: str, tree: str, sections=TIME_SECTIONS):
     """--times: with the package imported from `tree`, at N_KERNEL reads,
     the device time of one pamld_classify call (every launch it makes) on
     the flagship's 96- and 384-barcode panels (K1), on a 1024-barcode
@@ -3437,10 +3591,13 @@ def kernel_times(card: str, tree: str):
     (random codes from a seed); the wide K1/K7/K8 rows (wide_times); K3,
     K6, K4 and K5 (unpack_mdd_times); the
     plan's choice on panels of one tile (slice_rule_times); and, where the
-    tree takes a plan, K1's slice unit (slice_cut_sweep). The steps are also timed with CUDA events over 10
+    tree takes a plan, K1's slice unit (slice_cut_sweep); K3's and K6's
+    rows past the block plan and past 64 positions
+    (wide_unpack_mdd_times). The steps are also timed with CUDA events over 10
     and, three times, over 200 back-to-back calls: their launches, not the
-    card, bound them. Two trees are compared in one call (parent, change,
-    change, parent). One JSON line."""
+    card, bound them. `sections` (of TIME_SECTIONS) picks what runs. Two
+    trees are compared in one call (parent, change, change, parent). One
+    JSON line."""
     import dataclasses
     import inspect
 
@@ -3454,7 +3611,7 @@ def kernel_times(card: str, tree: str):
     from pheniqs_tpu_torch.kernels import pamld
 
     times = {}
-    for cellular in (384, LARGE_PANEL_B, K7_PANEL):
+    for cellular in (384, LARGE_PANEL_B, K7_PANEL) if "pamld" in sections else ():
         instrument, observations = pamld_observations(flagship_ontology(cellular_barcodes=cellular), N_KERNEL,
                                                       seed=cellular)
         for dec, codes, quals, qcfail, short in observations:
@@ -3463,7 +3620,8 @@ def kernel_times(card: str, tree: str):
                     dec, codes, quals, qcfail, tpq_constants=instrument.tpq_constants,
                     want_uncertain=True, eps=instrument.tpq_analytic_eps, short=short))
     cuda = torch.device("cuda")
-    for label, ontology in (("flagship", flagship_ontology()), ("mdd flagship", mdd_flagship_ontology())):
+    steps = (("flagship", flagship_ontology()), ("mdd flagship", mdd_flagship_ontology()))
+    for label, ontology in steps if "steps" in sections else ():
         instrument = compile_instrument(ontology, cuda)
         widths, *arrays = flagship_blob(ontology, instrument, N_KERNEL, seed=96)
         blob, ccb, qcb = (torch.from_numpy(x).to(cuda) for x in arrays)
@@ -3471,34 +3629,43 @@ def kernel_times(card: str, tree: str):
         times[f"{label} step"] = device_ms(lambda: step(blob, ccb, qcb))
         times[f"{label} step events"] = event_ms(lambda: step(blob, ccb, qcb))
         times[f"{label} step events x200"] = [event_ms(lambda: step(blob, ccb, qcb), reps=200) for _ in range(3)]
-        times[f"{label} step launches"] = device_launches(lambda: step(blob, ccb, qcb))
-    # K7 and K8 at the whitelist's 737,280 x 16 nt, the flagship cellular
-    # decoder's parameters on a random panel
-    rng = np.random.default_rng(737)
-    panel = np.array([1, 2, 4, 8], np.uint8)[rng.integers(4, size=(737_280, 16))]
-    instrument, observations = pamld_observations(flagship_ontology(), N_KERNEL, seed=737)
-    dec, codes, _, qcfail, short = observations[1]
-    wide = dataclasses.replace(dec, barcode_count=panel.shape[0], **dict(zip(
-        ("panel_codes", "panel_codes_u8", "likelihood_matrix", "concentration"),
-        _panel_matrices(panel, np.full(panel.shape[0], 0.95 / panel.shape[0]), cuda))))
-    reads = torch.from_numpy(panel[rng.integers(panel.shape[0], size=N_KERNEL)]).to(cuda)
-    errors = torch.from_numpy(rng.random((N_KERNEL, 16)) < 0.05).to(cuda)
-    codes = torch.where(errors, torch.roll(reads, 1, dims=1), reads).contiguous()
-    quals = torch.from_numpy(rng.integers(2, 42, size=(N_KERNEL, 16)).astype(np.uint8)).to(cuda)
-    kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True, eps=instrument.tpq_analytic_eps,
-                  short=short)
-    pamld.pamld_classify(wide, codes, quals, qcfail, **kwargs)
-    times["K7 whitelist"] = once_ms(lambda: pamld.pamld_classify(wide, codes, quals, qcfail, **kwargs))[1]
-    for panels in K8_PANELS:
-        shards = [tp.shard_panel(wide, rank, panels) for rank in range(panels)]
-        times[f"K8 P={panels} shard"] = once_ms(lambda: pamld.pamld_classify_sharded(
-            wide, shards[:1], codes, quals, None, finish=False, **kwargs))[1]
-    times.update(wide_times())
-    times.update(unpack_mdd_times())
+        try:
+            times[f"{label} step launches"] = device_launches(lambda: step(blob, ccb, qcb))
+        except RuntimeError as error:  # a measurement here: the profiler's dropped events are noted
+            times[f"{label} step launches"] = str(error)
+    if "whitelist" in sections:
+        # K7 and K8 at the whitelist's 737,280 x 16 nt, the flagship cellular
+        # decoder's parameters on a random panel
+        rng = np.random.default_rng(737)
+        panel = np.array([1, 2, 4, 8], np.uint8)[rng.integers(4, size=(737_280, 16))]
+        instrument, observations = pamld_observations(flagship_ontology(), N_KERNEL, seed=737)
+        dec, codes, _, qcfail, short = observations[1]
+        wide = dataclasses.replace(dec, barcode_count=panel.shape[0], **dict(zip(
+            ("panel_codes", "panel_codes_u8", "likelihood_matrix", "concentration"),
+            _panel_matrices(panel, np.full(panel.shape[0], 0.95 / panel.shape[0]), cuda))))
+        reads = torch.from_numpy(panel[rng.integers(panel.shape[0], size=N_KERNEL)]).to(cuda)
+        errors = torch.from_numpy(rng.random((N_KERNEL, 16)) < 0.05).to(cuda)
+        codes = torch.where(errors, torch.roll(reads, 1, dims=1), reads).contiguous()
+        quals = torch.from_numpy(rng.integers(2, 42, size=(N_KERNEL, 16)).astype(np.uint8)).to(cuda)
+        kwargs = dict(tpq_constants=instrument.tpq_constants, want_uncertain=True, eps=instrument.tpq_analytic_eps,
+                      short=short)
+        pamld.pamld_classify(wide, codes, quals, qcfail, **kwargs)
+        times["K7 whitelist"] = once_ms(lambda: pamld.pamld_classify(wide, codes, quals, qcfail, **kwargs))[1]
+        for panels in K8_PANELS:
+            shards = [tp.shard_panel(wide, rank, panels) for rank in range(panels)]
+            times[f"K8 P={panels} shard"] = once_ms(lambda: pamld.pamld_classify_sharded(
+                wide, shards[:1], codes, quals, None, finish=False, **kwargs))[1]
+    if "wide" in sections:
+        times.update(wide_times())
+    if "unpack_mdd" in sections:
+        times.update(unpack_mdd_times())
+    if "wide_unpack_mdd" in sections:
+        times.update(wide_unpack_mdd_times())
     takes_plan = "plan" in inspect.signature(pamld._classify_launches).parameters
-    times.update(slice_rule_times(takes_plan))
-    if takes_plan:
-        times["cut sweep"] = slice_cut_sweep()
+    if "rules" in sections:
+        times.update(slice_rule_times(takes_plan))
+        if takes_plan:
+            times["cut sweep"] = slice_cut_sweep()
     say(json.dumps({"tree": tree, "card": card, "n": N_KERNEL, "device_ms": times}))
 
 
@@ -3508,7 +3675,12 @@ def main() -> int:
                         help="only the PHENIQS_TP run over NCCL and the reads phase over two cards (>= 2 cards)")
     parser.add_argument("--times", metavar="TREE",
                         help="only time the tile loop (kernel_times), the package imported from TREE")
+    parser.add_argument("--sections", default=",".join(TIME_SECTIONS),
+                        help=f"--times' sections, comma-separated, of {','.join(TIME_SECTIONS)} (default: all)")
     args = parser.parse_args()
+    sections = tuple(args.sections.split(","))
+    if not set(sections) <= set(TIME_SECTIONS):
+        parser.error(f"--sections: of {','.join(TIME_SECTIONS)}")
     if args.times:
         # a copy of another commit inside this checkout (.compare/ is
         # ignored by git): its kernels build into its own _build/
@@ -3525,7 +3697,7 @@ def main() -> int:
     card = environment()
     if args.times:
         build_kernels()
-        kernel_times(card, args.times)
+        kernel_times(card, args.times, sections)
         return 0
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)

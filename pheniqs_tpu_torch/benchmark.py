@@ -43,6 +43,7 @@ from .device.flagship import (
     synthetic_batch,
     whitelist_flagship_ontology,
     wide_flagship_ontology,
+    wide_mdd_ontology,
 )
 
 #: the paths the program runs, by name
@@ -51,6 +52,7 @@ ONTOLOGIES = {
     "mdd": mdd_flagship_ontology,
     "whitelist": whitelist_flagship_ontology,
     "wide": wide_flagship_ontology,
+    "wide-mdd": wide_mdd_ontology,
 }
 
 def synthesize_fastq_input(

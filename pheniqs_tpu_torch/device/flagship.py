@@ -12,10 +12,12 @@ same reads: ``mdd_flagship_ontology`` demultiplexes samples by minimum
 distance (MDD, the bcl2fastq-style decoder Illumina index sets are
 designed for), ``whitelist_flagship_ontology`` replaces the cellular panel
 with a 737,280-barcode 16 nt whitelist, the size of 10x Genomics' 3' v2
-whitelist (``737K-august-2016.txt``), and ``wide_flagship_ontology``
+whitelist (``737K-august-2016.txt``), ``wide_flagship_ontology``
 widens the cellular barcode past the 64 positions the PAMLD kernels once
 held in registers (synthetic: no published single-cell design reads a
-barcode that long).
+barcode that long), and ``wide_mdd_ontology`` gives the MDD sample decoder
+a barcode of 12 segments and 130 positions read from segment 0 (synthetic
+too: no published index design is that long or has that many segments).
 """
 
 from __future__ import annotations
@@ -211,6 +213,33 @@ def wide_flagship_ontology(
     return ontology
 
 
+def wide_mdd_ontology(
+    segments: int = 12,
+    width: int = 130,
+    tolerance: int = 2,
+    sample_barcodes: int = 96,
+    seed: int = 20260816,
+) -> dict:
+    """The MDD flagship with a sample barcode of `segments` segments and
+    `width` positions, read from the first `width` nt of segment 0 (the
+    segments as even as they divide, the first ones a position longer),
+    each segment's words drawn at pairwise distance >= 2 * `tolerance` + 1
+    so that the config compiler admits the distance tolerance `tolerance`
+    on every segment. ``synthetic_batch`` draws segment 0's first `width`
+    nt from the sample panel. The cellular PAMLD decoder and the UMI are
+    the flagship's."""
+    ontology = mdd_flagship_ontology(sample_barcodes, 384, seed)
+    widths = [width // segments + (1 if s < width % segments else 0) for s in range(segments)]
+    starts = np.concatenate([[0], np.cumsum(widths)[:-1]])
+    rng = np.random.default_rng(seed + 5)
+    words = [_distant_words(rng, sample_barcodes, w, 2 * tolerance + 1) for w in widths]
+    sample = ontology["sample"]
+    sample["codec"] = _codec(["".join(parts) for parts in zip(*words)], widths, sample["noise"])
+    sample["distance tolerance"] = [tolerance] * segments
+    sample["transform"] = {"token": [f"0:{s}:{s + w}" for s, w in zip(starts, widths)]}
+    return ontology
+
+
 def panel_codes(ontology: dict) -> tuple[np.ndarray, np.ndarray]:
     """(sample, cellular) (B, W) uint8 panel codes of an ontology, as
     ``synthetic_batch`` draws from them."""
@@ -259,10 +288,18 @@ def synthetic_batch(
         )
         return code, qual
 
+    # a sample barcode other than the dual index (wide_mdd_ontology) is
+    # read from the start of segment 0; the index reads are then random
+    dual_index = sample_codes.shape[1] == 16
     for s, width in enumerate(segment_widths):
         if s == 0:
             code = BASE_CODES[rng.integers(4, size=(n, width))]
             qual = rng.integers(20, 41, size=(n, width)).astype(np.uint8)
+            if not dual_index:
+                w = sample_codes.shape[1]
+                code[:, :w], qual[:, :w] = noisy(draw_sample)
+        elif s in (1, 2) and not dual_index:
+            code, qual = noisy(BASE_CODES[rng.integers(4, size=(n, width))])
         elif s == 1:
             code, qual = noisy(draw_sample[:, :8])
         elif s == 2:

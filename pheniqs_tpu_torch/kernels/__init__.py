@@ -14,7 +14,7 @@ chunked posterior, in ``pamld.chunked_launches``; K8's stages in
 versions take: any observation width and segment count, any token
 program, any number of decoders. Two ceilings of a block's shared memory
 remain, far past any instrument in use: a looped K1/K7/K8 barcode row
-past 231,392 positions and a looped K6 read past some 19,000;
+past 231,392 positions and a wide K6 read past 29,024 positions;
 ``check_kernel_limits`` refuses them when an engine is built for a card.
 """
 
@@ -32,7 +32,7 @@ def kernel_limits(instrument) -> list[str]:
     """One line for each decoder of `instrument` that no block of its
     kernel can hold in the shared memory an H100 block may take: a PAMLD
     barcode row of the looped K1/K7/K8 (pamld.looped_shared_bytes) or a
-    looped K6 read with its tables (mdd.shared_bytes). The plain versions
+    wide K6 read with its tables (mdd.shared_bytes). The plain versions
     have no such ceiling."""
     from . import mdd, pamld
 
@@ -44,7 +44,7 @@ def kernel_limits(instrument) -> list[str]:
         if dec.algorithm == "pamld" and width > pamld.LOOPED_PAST:
             need, limit = pamld.looped_shared_bytes(width), pamld.SHARED_LIMIT
         elif dec.algorithm == "mdd":
-            need, limit = mdd.shared_bytes(dec.barcode_count, dec.segment_widths), mdd.SHARED_LIMIT
+            need, limit = mdd.shared_bytes(dec.barcode_count, dec.segment_widths, mdd.decoder_planes(dec)), mdd.SHARED_LIMIT
         else:
             continue
         if need > limit:

@@ -41,6 +41,7 @@ _I = ctypes.c_int
 #: argtypes of every exported entry (csrc/*.cu); each returns cudaError_t
 SIGNATURES = {
     "phq_unpack_tokens": (_P, _I, _I, _P, _I) + (_P,) * 11,
+    "phq_unpack_columns": (_P, _I, _I) + (_P,) * 5 + (_I,) * 3 + (_P,) * 8,
     "phq_pamld": (_P, _P) + (_P,) * 16,
     "phq_pamld_slices": (_P, _P, _I, _I, _I, _I, _I) + (_P,) * 9,
     "phq_pamld_state": (_P,) * 6,

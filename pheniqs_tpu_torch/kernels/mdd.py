@@ -14,8 +14,10 @@ The kernel resolves exact matches by a lookup in the decoder's key table
 time, only for the other reads; ``mdd_classify_two_phase`` is that
 algorithm in torch, for the tests. It takes any number of segments (its
 segment table, ``segment_table``, is a device array made once per decoder)
-and any width: up to 128 positions an instance keeps a read in registers,
-past it the looped instance stages it in shared memory.
+and any width: up to 64 positions an instance keeps a read in registers;
+past it the wide instance stages a warp's pending reads as bit planes and
+scans (read, barcode) pairs against the panel's planes, which the key
+table carries (``key_table``).
 """
 
 from __future__ import annotations
@@ -33,41 +35,89 @@ SHARED_LIMIT = 227 * 1024
 SHARED_TABLE = 40 * 1024
 SHARED_SEGMENTS = 8 * 1024
 WARPS = 8
+#: the wide instance (past 64 positions): the most reads a warp stages at
+#: once (PHQ_MDD_BATCH_MAX), and the shared bytes its block's batches may
+#: take before the batch shrinks (to one read at the least)
+BATCH_MAX = 32
+BATCH_BYTES = 48 * 1024
+#: the widest observation of the register instances
+REGISTER_WIDTH = 64
 
 
 def key_words(w: int) -> int:
     """The 32-bit words the kernel packs a W-position observation into
-    (NW: its register instances take 4, 8, 16 or 32; past 128 positions
-    the looped instance takes whole 16-position runs)."""
-    for nw in (4, 8, 16, 32):
+    (NW: its register instances take 4, 8 or 16; past 64 positions the
+    wide instance takes whole 16-position runs)."""
+    for nw in (4, 8, 16):
         if w <= 4 * nw:
             return nw
     return 4 * -(-w // 16)
 
 
 def mask_words(w: int) -> int:
-    """The 64-bit words of a segment's position mask in the segment table
-    (csrc/mdd.cu phq_mdd_mask_words): one up to 64 positions, two up to
-    128, none for the looped instance (it counts on each segment's range)."""
-    nw = key_words(w)
-    return 1 if nw <= 16 else 2 if nw == 32 else 0
+    """The 64-bit words of a segment's position mask in the segment table:
+    one up to 64 positions, none past it (the wide instance counts on each
+    segment's range)."""
+    return 1 if w <= REGISTER_WIDTH else 0
 
 
-def shared_bytes(barcodes: int, widths) -> int:
+def groups(w: int) -> int:
+    """The wide instance's groups of 32 positions."""
+    return -(-w // 32)
+
+
+def panel_planes(panel_codes) -> int:
+    """The bit planes of a panel in the key table past 64 positions: 4
+    where every code is below 16 (the IUPAC codes), else 8."""
+    return 4 if int(np.asarray(panel_codes).max(initial=0)) < 16 else 8
+
+
+def decoder_planes(dec) -> int:
+    """The bit planes of a decoder's key table past 64 positions (from its
+    size), 4 where it has none yet."""
+    w, b = sum(dec.segment_widths), dec.barcode_count
+    if dec.key_table is None or w <= REGISTER_WIDTH:
+        return 4
+    return (dec.key_table.numel() - 2 * b * key_words(w) - 4 * -(-b // 4)) // (groups(w) * b)
+
+
+def read_words(w: int, planes: int) -> int:
+    """The words of a read the wide instance stages (csrc/mdd.cu
+    PhqWideRead): per group 8 (4 planes, the OR of its codes' high bits,
+    its in-range and low-quality masks, a pad word) or 12 (8 planes, the
+    masks, two pad words), then its result, distance, row and a pad."""
+    return groups(w) * (8 if planes == 4 else 12) + 4
+
+
+def batch_reads(w: int, planes: int) -> int:
+    """The reads a warp of the wide instance stages at once: BATCH_MAX
+    where a block's batches fit BATCH_BYTES, fewer where they do not, one
+    at the least."""
+    read = 4 * read_words(w, planes)
+    return max(1, min(BATCH_MAX, BATCH_BYTES // (WARPS * read)))
+
+
+def shared_bytes(barcodes: int, widths, planes: int = 4) -> int:
     """The dynamic shared bytes of K6's block for a decoder of `barcodes`
-    barcodes and observation segments `widths` (csrc/mdd.cu phq_mdd): the
-    key table and the segment table where each fits its share, and past
-    128 positions each warp's staged read (10 bytes a position). Past
-    SHARED_LIMIT, from 19,361 positions (one barcode) or 23,233, no block
-    holds it."""
+    barcodes (of `planes` bit planes past 64 positions) and observation
+    segments `widths` (csrc/mdd.cu phq_mdd): past 64 positions each
+    warp's batch of staged reads (a byte a position at one read a batch),
+    and the part of the key table its instance reads and the segment table
+    where each fits its share and beside the batches. Past SHARED_LIMIT,
+    from 29,025 positions at any number of barcodes, no block holds it."""
     w = sum(widths)
     nw = key_words(w)
-    table = 4 * (2 * barcodes * nw + 4 * -(-barcodes // 4))
+    index = 4 * -(-barcodes // 4)
+    if w > REGISTER_WIDTH:
+        table = 4 * (barcodes * nw + index + groups(w) * planes * barcodes)
+    else:
+        table = 4 * (2 * barcodes * nw + index)
     segments = 4 * len(widths) * (4 + 2 * mask_words(w))
-    total = (table if table <= SHARED_TABLE else 0) + (16 * -(-segments // 16) if segments <= SHARED_SEGMENTS else 0)
-    if w > 128:
-        total += WARPS * 4 * (nw + 4 * ((4 * nw + 63) // 64))
-    return total
+    buffers = WARPS * 4 * batch_reads(w, planes) * read_words(w, planes) if w > REGISTER_WIDTH else 0
+    table = table if table <= SHARED_TABLE and table + buffers <= SHARED_LIMIT else 0
+    segments = 16 * -(-segments // 16)
+    segments = segments if segments <= SHARED_SEGMENTS and table + segments + buffers <= SHARED_LIMIT else 0
+    return table + segments + buffers
 
 
 def segment_table(widths, tolerance) -> np.ndarray:
@@ -120,7 +170,9 @@ def key_table(codes: np.ndarray) -> np.ndarray:
     in order, word 0 first as unsigned, then barcode index), and the
     0-based barcode index of each sorted key, padded to whole 16-byte
     words. With duplicated barcodes the lowest index sorts first, so a
-    lower-bound search finds it."""
+    lower-bound search finds it. Past 64 positions the panel's bit planes
+    follow (plane_words), [group][barcode][plane], which the wide instance
+    scans."""
     codes = np.asarray(codes)
     b, w = codes.shape
     nw = key_words(w)
@@ -128,7 +180,24 @@ def key_table(codes: np.ndarray) -> np.ndarray:
     order = np.lexsort([np.arange(b)] + [words[:, k] for k in reversed(range(nw))])
     index = np.zeros(-(-b // 4) * 4, dtype=np.int32)
     index[:b] = order
-    return np.concatenate([words.ravel().view(np.int32), words[order].ravel().view(np.int32), index])
+    parts = [words.ravel().view(np.int32), words[order].ravel().view(np.int32), index]
+    if w > REGISTER_WIDTH:
+        parts.append(plane_words(codes, panel_planes(codes)).transpose(0, 2, 1).ravel().view(np.int32))
+    return np.concatenate(parts)
+
+
+def plane_words(codes, planes: int) -> np.ndarray:
+    """(G, planes, N) uint32 bit planes of (N, W) codes: bit j of word
+    [g, q, i] is bit q of the code at position 32g + j of row i (zero past
+    W)."""
+    codes = np.asarray(codes).astype(np.uint32)
+    n, w = codes.shape
+    g = groups(w)
+    padded = np.zeros((n, 32 * g), dtype=np.uint32)
+    padded[:, :w] = codes
+    bits = (padded.reshape(n, g, 32, 1) >> np.arange(planes, dtype=np.uint32)) & 1
+    words = (bits << np.arange(32, dtype=np.uint32)[:, None]).sum(axis=2, dtype=np.uint64).astype(np.uint32)
+    return np.ascontiguousarray(words.transpose(1, 2, 0))
 
 
 def key_table_tensor(panel_codes_u8: torch.Tensor) -> torch.Tensor:
@@ -143,6 +212,14 @@ def table_parts(table, b: int, nw: int):
     words = flat[: b * nw].view(b, nw)
     keys = flat[b * nw : 2 * b * nw].view(b, nw)
     return words, keys, flat[2 * b * nw : 2 * b * nw + b]
+
+
+def table_planes(table, b: int, w: int):
+    """(G, planes, B) int64 bit planes of a key table past 64 positions
+    (stored [group][barcode][plane])."""
+    flat = torch.as_tensor(table).cpu().to(torch.int64) & 0xFFFFFFFF
+    at = 2 * b * key_words(w) + 4 * -(-b // 4)
+    return flat[at:].view(groups(w), b, -1).transpose(1, 2)
 
 
 def key_order(keys, words):
@@ -184,9 +261,12 @@ def mdd_classify_two_phase(dec, obs_code, obs_qual, lengths, qcfail_in) -> dict:
     """K6's algorithm in torch (CPU; for the tests): the reads at full
     length look their packed key up in the decoder's key table, a hit
     being the first exact match; every other read takes the first barcode
-    in codec order within tolerance, its errors counted from the packed
-    words as the kernel counts them. The results of ``mdd_classify_plain``
-    plus ``exact``, the reads the lookup resolved."""
+    in codec order within tolerance, its errors counted as the kernel
+    counts them: from the packed words up to 64 positions, past it from
+    the key table's bit planes (the read's 8 planes; with a 4-plane panel
+    any code of 16 or more a mismatch), each read's first barcode found
+    in the wide instance's order (pair_walk). The results of
+    ``mdd_classify_plain`` plus ``exact``, the reads the lookup resolved."""
     n, w = obs_code.shape
     b = dec.barcode_count
     nw = key_words(w)
@@ -206,30 +286,49 @@ def mdd_classify_two_phase(dec, obs_code, obs_qual, lengths, qcfail_in) -> dict:
         exact[rows] = found >= 0
     distance = torch.zeros(n, dtype=torch.int64)
     pending = (~exact).nonzero()[:, 0]
-    positions = torch.arange(4 * nw)
-    segment = torch.full((4 * nw,), -1, dtype=torch.int64)
+    m = pending.numel()
+    span = 4 * nw if w <= REGISTER_WIDTH else 32 * groups(w)
+    positions = torch.arange(span)
+    segment = torch.full((span,), -1, dtype=torch.int64)
     for s, (start, width) in enumerate(zip(starts, widths)):
         segment[start : start + width] = s
-    in_range = torch.zeros((pending.numel(), 4 * nw), dtype=torch.bool)
+    in_range = torch.zeros((m, span), dtype=torch.bool)
     for s, (start, width) in enumerate(zip(starts, widths)):
         length = lengths[pending, s].clamp(0, width)
         in_range |= (positions >= start) & (positions < start + length[:, None])
-    quality = torch.zeros((pending.numel(), 4 * nw), dtype=torch.int64)
+    quality = torch.zeros((m, span), dtype=torch.int64)
     quality[:, :w] = obs_qual.cpu()[pending].to(torch.int64)
     low = in_range & (quality < dec.quality_masking_threshold)
-    # (pending, B, NW) words of read ^ barcode, their nonzero bytes as
-    # position bits
-    nibbles = nonzero_nibbles(read[pending][:, None, :] ^ words[None, :, :])
-    mismatch = ((nibbles[..., None] >> torch.arange(4)) & 1).bool().view(pending.numel(), b, 4 * nw)
+    if w <= REGISTER_WIDTH:
+        # (pending, B, NW) words of read ^ barcode, their nonzero bytes as
+        # position bits
+        nibbles = nonzero_nibbles(read[pending][:, None, :] ^ words[None, :, :])
+        mismatch = ((nibbles[..., None] >> torch.arange(4)) & 1).bool().view(m, b, span)
+    else:
+        # (G, pending, B) words of the planes' XORs, one bit a position
+        panel = table_planes(dec.key_table, b, w)
+        planes = panel.shape[1]
+        mine = torch.from_numpy(plane_words(obs_code.cpu()[pending].numpy(), 8).astype(np.int64))
+        words32 = torch.zeros((groups(w), m, b), dtype=torch.int64)
+        for q in range(planes):
+            words32 |= mine[:, q, :, None] ^ panel[:, q, None, :]
+        if planes == 4:
+            words32 |= (mine[:, 4] | mine[:, 5] | mine[:, 6] | mine[:, 7])[:, :, None]
+        mismatch = ((words32[..., None] >> torch.arange(32)) & 1).bool().permute(1, 2, 0, 3).reshape(m, b, span)
     errors = (mismatch & in_range[:, None, :]) | low[:, None, :]
-    within = torch.ones((pending.numel(), b), dtype=torch.bool)
-    total = torch.zeros((pending.numel(), b), dtype=torch.int64)
+    within = torch.ones((m, b), dtype=torch.bool)
+    total = torch.zeros((m, b), dtype=torch.int64)
     for s in range(len(widths)):
         count = (errors & (segment == s)).sum(dim=2)
         within &= count <= tolerance[s]
         total += count
-    any_within = within.any(dim=1)
-    first = torch.argmax(within.to(torch.uint8), dim=1)
+    if w <= REGISTER_WIDTH:
+        any_within = within.any(dim=1)
+        first = torch.argmax(within.to(torch.uint8), dim=1)
+    else:
+        first = pair_walk(within, batch_reads(w, panel.shape[1]))
+        any_within = first >= 0
+        first = first.clamp(min=0)
     result[pending] = torch.where(any_within, first, -1)
     distance[pending] = torch.where(any_within, torch.gather(total, 1, first[:, None])[:, 0], 0)
     decoded = (result + 1).to(torch.int32)
@@ -242,6 +341,32 @@ def mdd_classify_two_phase(dec, obs_code, obs_qual, lengths, qcfail_in) -> dict:
         "argmax": decoded.clone(),
         "exact": exact,
     }
+
+
+def pair_walk(within, batch: int, lanes: int = 32):
+    """The wide instance's scan order over a warp's pending reads (rows of
+    `within`, (M, B) bool: the pair within every segment's tolerance): a
+    batch of `batch` reads at a time, their (read, barcode) pairs in order,
+    `lanes` a round; a read's first hit in a round is its lowest lane that
+    hits, and a round whose last read hit moves on to the next read.
+    Returns each read's first barcode within tolerance, -1 for none (the
+    first True of its row, whatever the order)."""
+    m, b = within.shape
+    flat = within.reshape(-1).tolist()
+    first = [-1] * m
+    for k0 in range(0, m, batch):
+        kb = min(batch, m - k0)
+        pairs, pos = kb * b, 0
+        while pos < pairs:
+            hits = [pos + lane < pairs and flat[k0 * b + pos + lane] for lane in range(lanes)]
+            for lane in range(lanes):
+                k, bc = divmod(pos + lane, b)
+                low = max(k * b - pos, 0)
+                if hits[lane] and not any(hits[low:lane]):
+                    first[k0 + k] = bc
+            k_last = min(pos + lanes - 1, pairs - 1) // b
+            pos = (k_last + 1) * b if any(hits[max(k_last * b - pos, 0):]) else pos + lanes
+    return torch.tensor(first, dtype=torch.int64)
 
 
 def mdd_classify_plain(dec, obs_code, obs_qual, lengths, qcfail_in) -> dict:
@@ -299,9 +424,16 @@ def mdd_classify_plain(dec, obs_code, obs_qual, lengths, qcfail_in) -> dict:
 
 
 def _ints(dec, n: int, ld_obs: int, ld_len: int) -> np.ndarray:
+    """csrc/mdd.cu PhqMddParams; past 64 positions the panel's planes (from
+    the key table's size) and the reads a warp stages at once."""
     widths = list(dec.segment_widths)
-    return np.array([n, dec.barcode_count, sum(widths), len(widths), ld_obs, ld_len,
-                     dec.quality_masking_threshold, key_words(sum(widths))], dtype=np.int32)
+    w, b = sum(widths), dec.barcode_count
+    planes = batch = 0
+    if w > REGISTER_WIDTH:
+        planes = decoder_planes(dec)
+        batch = batch_reads(w, planes)
+    return np.array([n, b, w, len(widths), ld_obs, ld_len, dec.quality_masking_threshold, key_words(w), planes,
+                     batch], dtype=np.int32)
 
 
 def mdd_classify(dec, obs_code, obs_qual, lengths, qcfail_in, *, out=None) -> dict:

@@ -11,6 +11,15 @@ it runs the plain version below (the torch port of
 decoders get no observation: the decode step discards theirs too.
 ``apply_plans`` runs the token extraction alone, on segments that are
 already unpacked, through the same kernel.
+
+Two plans (``unpack_plan``): where a block of 128 reads stages
+everything in shared memory, two blocks an SM (``block_plan``; the
+flagship, MDD flagship and whitelist layouts), a thread walks its read's
+program; everywhere else (a long program, rows too wide to stage) the
+column plan gives a block 32 reads, a lane each, and a chunk of decoder
+slots, whose plans its warps walk from a table built once per layout
+(``column_table``; ``unpack_tokens_columns`` walks it in torch, for the
+tests).
 """
 
 from __future__ import annotations
@@ -32,13 +41,16 @@ launches = 0
 RAW = "raw"
 _WIRE_MODE = {6: 6, 2: 2, 4: 4, RAW: 8, JOINT4: 16}
 _HEADER = 24
-#: the reads a block owns (one thread each), most and fewest; a multiple
+#: the reads a block of the block plan owns (one thread each); a multiple
 #: of 16 keeps every block's output spans 16-byte aligned
 MAX_BLOCK_READS = 128
-MIN_BLOCK_READS = 32
 #: the dynamic shared memory a block may take on the H100 (227 KB a block
 #: by opt-in, less the kernel's 128 static bytes of codebooks)
 SHARED_BYTES = 227 * 1024 - 128
+#: the most the block plan may stage to be chosen: two blocks, 8 warps, an
+#: SM (a block plan staging more leaves one block of 4 warps an SM, and
+#: the column plan ran 3.1x faster on a 3,058-int program that did)
+BLOCK_SHARED = SHARED_BYTES // 2
 
 
 @dataclass
@@ -55,8 +67,10 @@ class TokenLayout:
     token_cols: int
     length_cols: int
     program: np.ndarray  # int32
-    #: K3's block plans by (row bytes, program ints), as the kernel takes them
+    #: K3's plans by (row bytes, program ints) (unpack_plan)
     block_plans: dict = field(default_factory=dict, repr=False, compare=False)
+    #: the column table (column_table) on each device, made once
+    column_tables: dict = field(default_factory=dict, repr=False, compare=False)
 
 
 @dataclass
@@ -100,21 +114,15 @@ def token_layout(instrument, widths: list[int], qual_bits) -> TokenLayout:
 
 @dataclass(frozen=True)
 class BlockPlan:
-    """How K3 stages a block's rows in shared memory for one program and
-    wire row size (``block_plan``): ``reads`` rows a block; the wire rows
-    (``stage_wire``), the codes and qualities (``stage_tokens``) and the
-    lengths and short flags (``stage_lengths``) staged or read and written
-    in place; the program (``stage_program``) in shared memory or read in
-    place; a staged token row ``token_pitch`` bytes
-    and a length row ``length_pitch`` ints (odd word counts: a warp's 32
-    stores to one column fall in 32 banks); each area's byte offset; and
-    the dynamic shared bytes in all."""
+    """How K3's block plan stages a block of MAX_BLOCK_READS reads in
+    shared memory for one program and wire row size (``block_plan``): the
+    program, and each read's wire row, codes and qualities, lengths, short
+    flags and three flags; a staged token row ``token_pitch`` bytes and a
+    length row ``length_pitch`` ints (odd word counts: a warp's 32 stores
+    to one column fall in 32 banks); each area's byte offset; and the
+    dynamic shared bytes in all."""
 
     reads: int
-    stage_wire: bool
-    stage_tokens: bool
-    stage_program: bool
-    stage_lengths: bool
     token_pitch: int
     length_pitch: int
     wire_at: int
@@ -128,16 +136,12 @@ class BlockPlan:
     def ints(self) -> np.ndarray:
         """The plan as the kernel's entry takes it (csrc/unpack_tokens.cu
         PhqUnpackPlan)."""
-        return np.array([
-            self.reads, int(self.stage_wire), int(self.stage_tokens), int(self.stage_program),
-            int(self.stage_lengths), self.token_pitch, self.length_pitch,
-            self.wire_at, self.codes_at, self.quals_at, self.lengths_at, self.short_at, self.flags_at,
-            self.shared_bytes,
-        ], dtype=np.int32)
+        return np.array([getattr(self, name) for name in self.__dataclass_fields__], dtype=np.int32)
 
 
 def _odd_words(size: int) -> int:
-    """`size` rounded up to whole 4-byte words, an odd number of them."""
+    """`size` rounded up to whole 4-byte words, an odd number of them (a
+    staged row's pitch; csrc/unpack_tokens.cu phq_odd_pitch)."""
     words = (size + 3) // 4
     return 4 * (words | 1) if size else 0
 
@@ -146,53 +150,164 @@ def _round16(size: int) -> int:
     return (size + 15) // 16 * 16
 
 
-def _areas(layout: TokenLayout, program_ints: int, row_bytes: int, reads: int, stage_wire: bool,
-           stage_tokens: bool, stage_program: bool = True, stage_lengths: bool = True) -> BlockPlan:
-    token_pitch = _odd_words(layout.token_cols)
-    length_pitch = layout.length_cols | 1 if layout.length_cols else 0
-    at = _round16(4 * program_ints) if stage_program else 0
-    offsets = {}
-    sizes = (
-        # the wire span may start anywhere in its first 16 bytes
-        ("wire_at", reads * row_bytes + 16 if stage_wire else 0),
-        ("codes_at", reads * token_pitch if stage_tokens else 0),
-        ("quals_at", reads * token_pitch if stage_tokens else 0),
-        ("lengths_at", 4 * reads * length_pitch if stage_lengths else 0),
-        ("short_at", reads * len(layout.slots) if stage_lengths else 0),
-        ("flags_at", 3 * reads),
-    )
-    for name, size in sizes:
-        offsets[name] = at
-        at += _round16(size)
-    return BlockPlan(reads, stage_wire, stage_tokens, stage_program, stage_lengths, token_pitch, length_pitch,
-                     shared_bytes=at, **offsets)
-
-
-#: what block_plan stages, in the order it gives it up: (wire rows, codes
-#: and qualities, lengths and short flags); the last keeps only each
-#: read's three flag bytes, which always fit
-_STAGINGS = ((True, True, True), (False, True, True), (False, False, True), (False, False, False))
-
-
 def block_plan(layout: TokenLayout, row_bytes: int, program_ints: int | None = None) -> BlockPlan:
-    """The most reads a block (MAX_BLOCK_READS down to MIN_BLOCK_READS, in
-    steps of 16) whose staging fits SHARED_BYTES: the program, and for
-    each read its wire row, codes and qualities, lengths, short flags and
-    three flags. Rows too wide to stage at MIN_BLOCK_READS are read (the
-    wire), then written (codes and qualities, then lengths and short
-    flags), in place instead. The program is staged where it fits beside
-    the rows, else read in place (past ~50,000 ints beside the flagship's
-    rows), so it never costs the rows their staging. Every layout and
-    program has a plan."""
+    """The block plan's staging of MAX_BLOCK_READS reads: the program,
+    then for each read its wire row (the span may start anywhere in its
+    first 16 bytes), codes and qualities, lengths, short flags and three
+    flags, each area 16-byte aligned. Its shared bytes may pass what a
+    block can take; unpack_plan then takes the column plan."""
     if program_ints is None:
         program_ints = layout.program.size
-    plans = (
-        _areas(layout, program_ints, row_bytes, reads, stage_wire, stage_tokens, stage_program, stage_lengths)
-        for stage_wire, stage_tokens, stage_lengths in _STAGINGS
-        for reads in range(MAX_BLOCK_READS, MIN_BLOCK_READS - 1, -16)
-        for stage_program in (True, False)
-    )
-    return next(plan for plan in plans if plan.shared_bytes <= SHARED_BYTES)
+    reads = MAX_BLOCK_READS
+    token_pitch = _odd_words(layout.token_cols)
+    length_pitch = layout.length_cols | 1 if layout.length_cols else 0
+    at = _round16(4 * program_ints)
+    offsets = {}
+    for name, size in (("wire_at", reads * row_bytes + 16), ("codes_at", reads * token_pitch),
+                       ("quals_at", reads * token_pitch), ("lengths_at", 4 * reads * length_pitch),
+                       ("short_at", reads * len(layout.slots)), ("flags_at", 3 * reads)):
+        offsets[name] = at
+        at += _round16(size)
+    return BlockPlan(reads, token_pitch, length_pitch, shared_bytes=at, **offsets)
+
+
+#: the column plan: the reads a block owns (a lane each), the shared bytes
+#: a chunk of slots may stage for them (four blocks an SM), the most the 32
+#: wire rows may take to be staged too, and the most plans of one length
+#: column an item walks
+COLUMN_READS = 32
+CHUNK_SHARED = 54 * 1024
+WIRE_SHARED = 16 * 1024
+ITEM_PLANS = 16
+#: the dynamic shared memory a block of the column plan may take: 227 KB
+#: less the kernel's static arrays (PHQ_COLUMN_SPEC_SHARED ints of the
+#: program's head and 32 of codebooks)
+COLUMN_SHARED_MAX = 227 * 1024 - 4 * (1024 + 32)
+#: the column table's header ints (csrc/unpack_tokens.cu PHQ_COLUMN_HEADER)
+_COLUMN_HEADER = 16
+
+
+def chunk_bytes(columns: int, length_columns: int, slots: int) -> int:
+    """The shared bytes of a chunk's staging for COLUMN_READS reads: codes
+    and qualities, lengths (an odd number of ints a row) and short flags,
+    in whole 16-byte words (the kernel zeroes them 16 bytes at a time)."""
+    return _round16(COLUMN_READS * (2 * _odd_words(columns) + 4 * (length_columns | 1) + slots))
+
+
+def column_chunks(layout: TokenLayout) -> list[tuple[int, int, bool]]:
+    """The decoder slots of `layout` cut into chunks, (first slot, end
+    slot, staged): consecutive slots while their staging (chunk_bytes)
+    takes at most CHUNK_SHARED; a slot past that alone, staged up to
+    COLUMN_SHARED_MAX, else in place."""
+    chunks, first = [], 0
+    for slot in range(len(layout.slots) + 1):
+        if slot < len(layout.slots) and _slot_bytes(layout, first, slot + 1) <= CHUNK_SHARED:
+            continue
+        if slot > first:
+            chunks.append((first, slot, True))
+            first = slot
+        if slot < len(layout.slots) and _slot_bytes(layout, slot, slot + 1) > CHUNK_SHARED:
+            chunks.append((slot, slot + 1, _slot_bytes(layout, slot, slot + 1) <= COLUMN_SHARED_MAX))
+            first = slot + 1
+    return chunks
+
+
+def _slot_bytes(layout: TokenLayout, first: int, end: int) -> int:
+    columns = sum(layout.token_columns[d][1] for d in range(first, end))
+    length_columns = sum(layout.length_columns[d][1] for d in range(first, end))
+    return chunk_bytes(columns, length_columns, end - first)
+
+
+@dataclass(frozen=True)
+class ColumnPlan:
+    """K3's column plan (csrc/unpack_tokens.cu phq_unpack_columns_kernel)
+    for one wire row size: a block owns COLUMN_READS reads and one chunk
+    of slots (column_chunks); ``stage_wire``: their wire rows staged in
+    shared memory too; ``shared_bytes``: the launch's dynamic shared
+    memory (the wire rows and the largest staged chunk); ``in_place``: a
+    chunk runs in place (the entry zeroes the token bytes and short flags
+    first)."""
+
+    chunks: tuple
+    stage_wire: bool
+    shared_bytes: int
+
+    @property
+    def in_place(self) -> bool:
+        return not all(staged for _, _, staged in self.chunks)
+
+
+def column_plan(layout: TokenLayout, row_bytes: int) -> ColumnPlan:
+    """The column plan of `layout` on wire rows of `row_bytes`: its chunks,
+    and the wire rows staged where COLUMN_READS of them take at most
+    WIRE_SHARED and fit beside the largest staged chunk."""
+    chunks = tuple(column_chunks(layout))
+    staging = max((_slot_bytes(layout, first, end) for first, end, staged in chunks if staged), default=0)
+    wire = _round16(COLUMN_READS * row_bytes + 16)
+    stage_wire = wire <= WIRE_SHARED and wire + staging <= COLUMN_SHARED_MAX
+    return ColumnPlan(chunks, stage_wire, staging + (wire if stage_wire else 0))
+
+
+def unpack_plan(layout: TokenLayout, row_bytes: int, program_ints: int | None = None):
+    """K3's plan for `layout` on wire rows of `row_bytes`: the block plan
+    where its staging takes at most BLOCK_SHARED bytes, else the column
+    plan."""
+    plan = block_plan(layout, row_bytes, program_ints)
+    return plan if plan.shared_bytes <= BLOCK_SHARED else column_plan(layout, row_bytes)
+
+
+def column_table(layout: TokenLayout) -> np.ndarray:
+    """The column plan's table of `layout`'s program, one int32 array of
+    16-byte records after a 16-int header [token columns, length columns,
+    slots, items, chunks, and the int offsets of the four parts below,
+    then zeros]:
+      - items: each length column's plans cut into runs of at most
+        ITEM_PLANS, as {first plan, end plan, length column, 0}, in length
+        column order;
+      - plans: ordered by their length column, each two records {start,
+        end, first token column, flags} {width, 0, 0, 0} (flags: bit 1 end
+        terminated, bit 2 reverse complement, the input segment from bit
+        8);
+      - per length column {first item, end item, the observation
+        segment's width, the decoder slot};
+      - per chunk of slots (column_chunks) three records {first, end token
+        column, first, end length column} {first, end item, first, end
+        slot} {staged, 0, 0, 0}."""
+    program = layout.program
+    n_segments, n_plans, n_entries, n_slots = (int(program[k]) for k in (1, 3, 4, 5))
+    token_cols, length_cols = int(program[6]), int(program[7])
+    at = _HEADER + 5 * n_segments
+    plans = program[at : at + 9 * n_plans].reshape(n_plans, 9).astype(np.int64)
+    entries = program[at + 9 * n_plans : at + 9 * n_plans + 3 * n_entries].reshape(n_entries, 3)
+    order = np.argsort(plans[:, 7], kind="stable")
+    plans = plans[order]
+    records = np.zeros((n_plans, 8), dtype=np.int64)
+    records[:, :3] = plans[:, [1, 2, 5]]
+    records[:, 3] = (plans[:, 3] << 1) | (plans[:, 4] << 2) | (plans[:, 0] << 8)
+    records[:, 4] = plans[:, 6]
+    bounds = np.searchsorted(plans[:, 7], np.arange(length_cols + 1))
+    items, lcols = [], np.zeros((length_cols, 4), dtype=np.int64)
+    for column in range(length_cols):
+        lcols[column, 0] = len(items)
+        for first in range(bounds[column], bounds[column + 1], ITEM_PLANS):
+            items.append([first, min(first + ITEM_PLANS, bounds[column + 1]), column, 0])
+        lcols[column, 1] = len(items)
+    lcols[entries[:, 1], 2] = entries[:, 2]
+    lcols[entries[:, 1], 3] = entries[:, 0]
+    items = np.array(items, dtype=np.int64).reshape(-1, 4)
+    chunks = []
+    for first, end, staged in column_chunks(layout):
+        c0, l0 = layout.token_columns[first][0], layout.length_columns[first][0]
+        c1 = layout.token_columns[end - 1][0] + layout.token_columns[end - 1][1]
+        l1 = layout.length_columns[end - 1][0] + layout.length_columns[end - 1][1]
+        chunks.append([c0, c1, l0, l1, lcols[l0, 0] if l1 > l0 else 0, lcols[l1 - 1, 1] if l1 > l0 else 0, first,
+                       end, int(staged), 0, 0, 0])
+    chunks = np.array(chunks, dtype=np.int64).reshape(-1, 12)
+    parts = [items, records, lcols, chunks]
+    offsets = np.cumsum([_COLUMN_HEADER] + [part.size for part in parts])
+    header = np.zeros(_COLUMN_HEADER, dtype=np.int64)
+    header[:9] = [token_cols, length_cols, n_slots, len(items), len(chunks), *offsets[:4]]
+    return np.concatenate([header] + [part.ravel() for part in parts]).astype(np.int32)
 
 
 def _segment_table(widths: list[int], qual_bits):
@@ -422,6 +537,66 @@ def unpack_tokens_plain(instrument, layout: TokenLayout, blob, ccb=None, qcb=Non
     return tokens
 
 
+def unpack_tokens_columns(layout: TokenLayout, blob, ccb=None, qcb=None) -> Tokens:
+    """The column plan's arithmetic in torch (CPU; for the tests), from
+    ``column_table`` alone: per length column its items' plans, each
+    plan's extent resolved once for every read, its width's code and
+    quality bytes written at its first token column (zero past its size,
+    and in columns no plan covers), its size added to its length column; a
+    read's short flag for a slot set by each of the slot's lengths below
+    its segment's width; the bases decoded as unpack_h2d_blob decodes
+    them. Equal to ``unpack_tokens_plain``."""
+    table = column_table(layout).astype(np.int64)
+    token_cols, length_cols, n_slots, _, _, items_at, plans_at, lcols_at, chunks_at = (int(x) for x in table[:9])
+    items = table[items_at:plans_at].reshape(-1, 4)
+    records = table[plans_at:lcols_at].reshape(-1, 8)
+    lcols = table[lcols_at:chunks_at].reshape(-1, 4)
+    n = blob.shape[0]
+    if layout.qual_bits == RAW:
+        segments, offset = [], 0
+        for w in layout.widths:
+            rows = blob[:, offset : offset + 2 * w + 2].to(torch.int32)
+            segments.append((rows[:, :w], rows[:, w : 2 * w], rows[:, 2 * w] | (rows[:, 2 * w + 1] << 8)))
+            offset += 2 * w + 2
+        flags = blob[:, offset].to(torch.int32)
+        qcfail, pad, forced = (flags & 1) > 0, (flags & 2) > 0, (flags & 4) > 0
+    else:
+        segments, qcfail, pad, forced = unpack_h2d_blob(layout.widths, blob, layout.qual_bits, qcb=qcb, ccb=ccb)
+    revcomp = torch.from_numpy(BAM_REVERSE_COMPLEMENT.astype(np.int64))
+    codes = torch.zeros((n, token_cols), dtype=torch.int64)
+    quals = torch.zeros((n, token_cols), dtype=torch.int64)
+    lengths = torch.zeros((n, length_cols), dtype=torch.int64)
+    for column, (first, end, _, _) in enumerate(lcols.tolist()):
+        for plan_first, plan_end, _, _ in items[first:end].tolist():
+            for start, stop, at, flags, width, *_ in records[plan_first:plan_end].tolist():
+                code, qual, length = segments[flags >> 8]
+                w_in = code.shape[1]
+                length = length.to(torch.int64)
+                lo = torch.clamp(length + start, min=0) if start < 0 else torch.where(length < start, 0, start)
+                if not flags & 2:
+                    hi = length
+                else:
+                    hi = torch.clamp(length + stop, min=0) if stop < 0 else torch.clamp(length, max=stop)
+                size = torch.clamp(hi - lo, min=0)
+                lengths[:, column] += size
+                j = torch.arange(width)[None, :]
+                reverse = bool(flags & 4)
+                pos = hi[:, None] - 1 - j if reverse else lo[:, None] + j
+                inside = (pos < w_in) if not reverse and start >= 0 else torch.ones_like(pos, dtype=torch.bool)
+                valid = (j < size[:, None]) & inside & (w_in > 0)
+                pos = torch.clamp(pos, 0, max(w_in - 1, 0))
+                piece_code = torch.gather(code.to(torch.int64), 1, pos) if w_in else torch.zeros_like(pos)
+                piece_qual = torch.gather(qual.to(torch.int64), 1, pos) if w_in else torch.zeros_like(pos)
+                if reverse:
+                    piece_code = revcomp[piece_code]
+                codes[:, at : at + width] = torch.where(valid, piece_code, 0)
+                quals[:, at : at + width] = torch.where(valid, piece_qual, 0)
+    shorter = (lengths < torch.from_numpy(lcols[:, 2])[None, :]).to(torch.int64)
+    short = torch.zeros((n, n_slots), dtype=torch.int64).index_add_(1, torch.from_numpy(lcols[:, 3]), shorter) > 0
+    return Tokens(codes=codes.to(torch.uint8), quals=quals.to(torch.uint8), lengths=lengths.to(torch.int32),
+                  short=short, qcfail=qcfail, pad=pad, forced=forced)
+
+
 # --- kernel wrapper ---------------------------------------------------------
 
 
@@ -438,7 +613,8 @@ def _empty_tokens(layout: TokenLayout, n: int, device) -> Tokens:
 
 
 def _launch(lib, layout: TokenLayout, program: torch.Tensor, blob, ccb, qcb, stream) -> Tokens:
-    """Run the kernel on `blob` (no device checks, no count)."""
+    """Run the kernel on `blob` (no device checks, no count) with the
+    layout's plan for its row size (unpack_plan, cached on the layout)."""
     from .build import check
 
     n = blob.shape[0]
@@ -446,15 +622,23 @@ def _launch(lib, layout: TokenLayout, program: torch.Tensor, blob, ccb, qcb, str
     key = (blob.shape[1], program.numel())
     plan = layout.block_plans.get(key)
     if plan is None:
-        plan = layout.block_plans[key] = block_plan(layout, *key).ints()
+        plan = layout.block_plans[key] = unpack_plan(layout, *key)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    status = lib.phq_unpack_tokens(
-        blob.data_ptr(), n, blob.shape[1], program.data_ptr(), program.numel(),
-        ptr(ccb), ptr(qcb), plan.ctypes.data, tokens.codes.data_ptr(), tokens.quals.data_ptr(),
-        tokens.lengths.data_ptr(), tokens.short.data_ptr(),
-        tokens.qcfail.data_ptr(), tokens.pad.data_ptr(), tokens.forced.data_ptr(),
-        stream,
-    )
+    outputs = (tokens.codes.data_ptr(), tokens.quals.data_ptr(), tokens.lengths.data_ptr(), tokens.short.data_ptr(),
+               tokens.qcfail.data_ptr(), tokens.pad.data_ptr(), tokens.forced.data_ptr())
+    if isinstance(plan, BlockPlan):
+        ints = plan.ints()
+        status = lib.phq_unpack_tokens(blob.data_ptr(), n, blob.shape[1], program.data_ptr(), program.numel(),
+                                       ptr(ccb), ptr(qcb), ints.ctypes.data, *outputs, stream)
+    else:
+        table = layout.column_tables.get(str(blob.device))
+        if table is None:
+            table = layout.column_tables[str(blob.device)] = torch.from_numpy(column_table(layout)).to(blob.device)
+        head = np.array([layout.token_cols, layout.length_cols, len(layout.slots), 0, len(plan.chunks)],
+                        dtype=np.int32)
+        status = lib.phq_unpack_columns(blob.data_ptr(), n, blob.shape[1], program.data_ptr(), ptr(ccb), ptr(qcb),
+                                        table.data_ptr(), head.ctypes.data, int(plan.stage_wire), plan.shared_bytes,
+                                        int(plan.in_place), *outputs, stream)
     check(status, "unpack_tokens")
     return tokens
 

@@ -135,9 +135,9 @@ def event_ms(fn, reps: int = 10) -> float:
 #: launch counts (kernels.launch_counts) puts on the card: one or more a
 #: counted launch (K1/K7/K8 count one a kernel of a shared tile loop)
 KERNEL_SYMBOLS = (
-    (("unpack_tokens",), ("phq_unpack_kernel",)),
+    (("unpack_tokens",), ("phq_unpack_kernel", "phq_unpack_columns_kernel")),
     (("pamld_classify", "pamld_chunked", "pamld_panel_sharded"), ("phq_pamld_kernel", "phq_pamld_merge_kernel")),
-    (("mdd_classify",), ("phq_mdd_kernel",)),
+    (("mdd_classify",), ("phq_mdd_kernel", "phq_mdd_wide_kernel")),
     (("counters",), ("phq_counters_accumulate",)),
     (("pack_outputs",), ("phq_pack_kernel",)),
 )

@@ -7,7 +7,7 @@ plan, the MDD key words and segment table, K3's block plan, K4's decoder
 table and K5's masks), and its plain path runs and equals the JAX
 package's. The flagships keep the plans they had. What a kernel still
 refuses, a decoder that no block of its kernel holds in shared memory
-(past 231,392 positions for K1/K7/K8, some 19,000 for K6), is refused
+(past 231,392 positions for K1/K7/K8, 29,024 for K6), is refused
 with the typed error, and nothing inside the reference's domain is. The
 kernels themselves run on the card (tests/test_torch_kernels.py -m cuda,
 chip_smoke.py)."""
@@ -76,10 +76,16 @@ def test_former_limit_has_a_kernel_plan(name):
         table = mdd.segment_table(dec.segment_widths, [1] * len(dec.segment_widths)).reshape(len(dec.segment_widths), -1)
         words = mdd.mask_words(w)
         assert table.shape[1] == 4 + 2 * words and list(table[:, 1]) == list(dec.segment_widths)
-        masks = table[:, 4:].copy().view(np.uint64)
-        bits = [sum(int(x) << (64 * m) for m, x in enumerate(row)) for row in masks]
-        assert sum(bin(b).count("1") for b in bits) == w and not any(a & b for a, b in zip(bits, bits[1:]))
-        assert mdd.key_words(w) == (16 if w <= 64 else 32)
+        assert list(table[:, 0]) == list(np.cumsum([0] + list(dec.segment_widths[:-1])))
+        if w <= 64:
+            masks = table[:, 4:].copy().view(np.uint64)
+            bits = [sum(int(x) << (64 * m) for m, x in enumerate(row)) for row in masks]
+            assert sum(bin(b).count("1") for b in bits) == w and not any(a & b for a, b in zip(bits, bits[1:]))
+            assert mdd.key_words(w) == 16
+        else:
+            # the wide instance: segments by their ranges, keys of whole
+            # 16-position runs, a warp's batch of 32 staged reads
+            assert words == 0 and mdd.key_words(w) == 4 * -(-w // 16) and mdd.batch_reads(w, 4) == mdd.BATCH_MAX
     elif name == "decoders":
         layout = wire.d2h_layout(instrument, True)
         plan = pack.pack_plan(instrument, True)
@@ -88,8 +94,8 @@ def test_former_limit_has_a_kernel_plan(name):
     else:
         layout = unpack.token_layout(instrument, [32], wire.JOINT4)
         assert layout.program.size > 2048
-        plan = unpack.block_plan(layout, unpack._segment_table([32], wire.JOINT4)[1] + 1)
-        assert plan.stage_program and plan.reads == unpack.MAX_BLOCK_READS
+        plan = unpack.unpack_plan(layout, unpack._segment_table([32], wire.JOINT4)[1] + 1)
+        assert isinstance(plan, unpack.BlockPlan) and plan.reads == unpack.MAX_BLOCK_READS
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -206,8 +212,9 @@ def test_flagship_plans_unchanged(ontology):
         if dec.algorithm == "mdd":
             assert mdd.key_words(sum(dec.segment_widths)) == 4 and mdd.mask_words(sum(dec.segment_widths)) == 1
     layout = unpack.token_layout(instrument, [8, 8, 28], wire.JOINT4)
-    plan = unpack.block_plan(layout, unpack._segment_table([8, 8, 28], wire.JOINT4)[1] + 1)
-    assert plan.stage_wire and plan.stage_tokens and plan.stage_program and plan.reads == 128
+    row_bytes = unpack._segment_table([8, 8, 28], wire.JOINT4)[1] + 1
+    plan = unpack.block_plan(layout, row_bytes)
+    assert unpack.unpack_plan(layout, row_bytes) == plan and plan.reads == 128
     packed = pack.pack_plan(instrument, True)
     assert packed.staged and packed.reads == 256 and packed.masks().shape == (3,)
 
@@ -216,13 +223,14 @@ def test_wrapper_refuses_with_the_same_type():
     """What a kernel still refuses is a ConfigurationError, raised when an
     engine is built for a card (check_kernel_limits): a decoder that no
     block of its kernel holds. K3, which refused a block whose lengths and
-    short flags alone passed a block's shared memory, now writes them in
-    place: eight MDD decoders of 256 segments (2048 length columns) get a
-    plan."""
+    short flags alone passed a block's shared memory, now gives eight MDD
+    decoders of 256 segments (2048 length columns) its column plan, each
+    decoder's columns staged by a block of its own."""
     wide = _instrument([_decoder("mdd", [1] * 256)] * 8)
     layout = unpack.token_layout(wide, [256], wire.JOINT4)
-    plan = unpack.block_plan(layout, unpack._segment_table([256], wire.JOINT4)[1] + 1)
-    assert not plan.stage_lengths and plan.reads >= 32 and plan.shared_bytes <= unpack.SHARED_BYTES
+    plan = unpack.unpack_plan(layout, unpack._segment_table([256], wire.JOINT4)[1] + 1)
+    assert isinstance(plan, unpack.ColumnPlan) and plan.chunks == tuple((d, d + 1, True) for d in range(8))
+    assert plan.shared_bytes <= unpack.SHARED_BYTES
     with pytest.raises(ConfigurationError, match="shared memory a block"):
         check_kernel_limits(_instrument([_decoder("pamld", [231_393])]))
 
@@ -237,22 +245,24 @@ def test_no_limit_within_the_reference_domain():
     assert kernel_limits(instrument) == []
     layout = unpack.token_layout(instrument, [32], wire.JOINT4)
     assert layout.program.size > 65_536 and layout.length_cols > 2048
-    plan = unpack.block_plan(layout, unpack._segment_table([32], wire.JOINT4)[1] + 1)
-    assert plan.reads >= unpack.MIN_BLOCK_READS and plan.shared_bytes <= unpack.SHARED_BYTES
+    plan = unpack.unpack_plan(layout, unpack._segment_table([32], wire.JOINT4)[1] + 1)
+    assert isinstance(plan, unpack.ColumnPlan) and plan.shared_bytes <= unpack.SHARED_BYTES
 
 
-@pytest.mark.parametrize("algorithm,barcodes,ceiling", [("pamld", 8, 231_392), ("mdd", 1, 19_360), ("mdd", 8, 23_232)])
+@pytest.mark.parametrize("algorithm,barcodes,ceiling", [("pamld", 8, 231_392), ("mdd", 1, 29_024), ("mdd", 8, 29_024)])
 def test_kernel_limits_at_the_shared_memory_ceiling(algorithm, barcodes, ceiling):
     """kernel_limits names a decoder one position past the widest its
-    kernel's block holds (a looped K1 barcode row; a looped K6 read with
-    its key table, in shared memory for one barcode) and not one at it;
-    the byte counts use the CUDA sources' constants."""
+    kernel's block holds (a looped K1 barcode row; a wide K6 warp's one
+    staged read, its key table past 40 KB and read from L2 at that width
+    even for one barcode) and not one at it; the byte counts use the CUDA
+    sources' constants."""
     csrc = Path(pamld.__file__).parent.parent / "csrc"
     source = (csrc / "pamld.cu").read_text() + (csrc / "mdd.cu").read_text()
     for name, value in (("PHQ_PAMLD_SMEM_MAX", pamld.SHARED_LIMIT), ("PHQ_MDD_SMEM_MAX", mdd.SHARED_LIMIT),
                         ("PHQ_MDD_SHARED_TABLE", mdd.SHARED_TABLE), ("PHQ_MDD_SHARED_SEGMENTS", mdd.SHARED_SEGMENTS)):
         assert int(re.search(rf"#define {name} \((\d+) \* 1024\)", source).group(1)) * 1024 == value
     assert int(re.search(r"#define PHQ_MDD_THREADS (\d+)", source).group(1)) == 32 * mdd.WARPS
+    assert int(re.search(r"#define PHQ_MDD_BATCH_MAX (\d+)", source).group(1)) == mdd.BATCH_MAX
     for width, refused in ((ceiling, False), (ceiling + 1, True)):
         dec = _decoder(algorithm, [width])
         dec.barcode_count = barcodes

@@ -162,12 +162,13 @@ def test_mdd_kernel_matches_plain(cuda, tolerance, qmt, short):
 def test_unpack_kernel_edge_cases(cuda):
     """K3 byte-exact and identical across two launches at N = 0, 1, R - 1,
     R + 1 and 16384 + 7 reads on the 6-bit and j4 wires with the general
-    gather, on aligned blobs and on views 3 bytes off alignment;
-    programs of ~3,000 and ~10,000 ints, staged and read in place; and
-    2048 length columns, written in place."""
+    gather, on aligned blobs and on views 3 bytes off alignment, under the
+    block plan and the column plan; programs of ~3,000 ints (both plans)
+    and ~10,000 ints (the column plan); and 2048 length columns (the
+    column plan)."""
     from chip_smoke import unpack_edge_checks
 
-    assert unpack_edge_checks() == 27
+    assert unpack_edge_checks() == 42
 
 
 @pytest.mark.cuda
@@ -187,12 +188,70 @@ def test_mdd_kernel_edge_cases(cuda):
     """K6 byte-exact and identical across two launches on a panel with a
     duplicated barcode (the lowest index wins), on 5-, 24- and 64-position
     observations (its three instances), on a 2000-barcode panel (the key
-    table in L2), on 9 and 12 segments of 80 and 130 positions (the 32-word
-    and looped instances) and on unaligned rows, at tolerance 1 and at
-    tolerance 2 with quality masking and short reads."""
+    table in L2), on 9 and 12 segments of 40-130 positions (the wide
+    instance) and on unaligned rows, at tolerance 1 and at tolerance 2
+    with quality masking and short reads, and on a wide panel holding codes
+    of 16 and more (8 bit planes)."""
     from chip_smoke import mdd_edge_checks
 
-    assert mdd_edge_checks(16384) == 17
+    assert mdd_edge_checks(16384) == 18
+
+
+@pytest.mark.cuda
+def test_unpack_column_plan_matches_plain(cuda):
+    """K3's column plan byte-exact against its plain version and across two
+    launches at 16384 + 7 reads: programs of ~3,000 and ~10,000 ints, 2048
+    length columns, and the general gather on every wire forced onto it,
+    each aligned and 3 bytes off."""
+    from chip_smoke import forced_plan, gather_blob, hold_unpack, unaligned, wide_unpack_cases
+    from pheniqs_tpu_torch.kernels import unpack
+
+    cases = [(case, columns) for case, columns in wide_unpack_cases(16384 + 7) if columns]
+    cases += [(gather_blob(16384 + 7, mode), True) for mode in (6, 2, 4, "j4")]
+    for (instrument, layout, program, blob, ccb, qcb), _ in cases:
+        plan = forced_plan(layout, blob.shape[1], True)
+        assert isinstance(plan, unpack.ColumnPlan)
+        before = unpack.launches
+        for rows in (blob, unaligned(blob, 3)):
+            hold_unpack(f"column plan, {program.numel()} ints", instrument, layout, program, rows, ccb, qcb)
+        assert unpack.launches == before + 4
+
+
+@pytest.mark.cuda
+def test_mdd_wide_instance_matches_plain(cuda):
+    """K6's wide instance byte-exact against its plain version at every
+    WIDE_MDD shape (9 and 12 segments of 50-130 positions) at tolerance 2
+    with quality masking and 20 % short segments, on the wide MDD
+    instrument's sample decoder, and on a panel of 8 bit planes."""
+    from chip_smoke import WIDE_MDD, mdd_eight_planes, mdd_synthetic
+    from pheniqs_tpu_torch.device.flagship import wide_mdd_ontology
+    from pheniqs_tpu_torch.device.instrument import compile_instrument
+    from pheniqs_tpu_torch.kernels import mdd
+
+    n = 16384 + 7
+    cases = [mdd_synthetic(widths, barcodes, n, 2, 5, 0.2, seed=barcodes, error_rate=0.5 / sum(widths))
+             for widths, barcodes in WIDE_MDD]
+    cases.append(mdd_eight_planes(n))
+    # the wide MDD instrument: reads drawn from its panel, 1.5 substitutions a read
+    dec = compile_instrument(wide_mdd_ontology(), cuda).decoders[0]
+    rng = np.random.default_rng(12)
+    panel = dec.panel_codes_u8.cpu().numpy()
+    codes = panel[rng.integers(dec.barcode_count, size=n)]
+    errors = rng.random(codes.shape) < 1.5 / codes.shape[1]
+    codes[errors] = rng.choice(np.array([1, 2, 4, 8, 15], np.uint8), size=int(errors.sum()))
+    quals = rng.integers(2, 41, size=codes.shape).astype(np.uint8)
+    lengths = np.tile(np.array(dec.segment_widths, np.int32), (n, 1))
+    cases.append((dec, *(torch.from_numpy(x).to(cuda) for x in (codes, quals, lengths)),
+                  torch.from_numpy(rng.random(n) < 0.05).to(cuda)))
+    for dec, codes, quals, lengths, qcfail in cases:
+        assert sum(dec.segment_widths) > 64
+        before = mdd.launches
+        mine = mdd.mdd_classify(dec, codes, quals, lengths, qcfail)
+        assert mdd.launches == before + 1
+        plain = mdd.mdd_classify_plain(dec, codes, quals, lengths, qcfail)
+        for key in ("decoded", "argmax", "distance", "branch", "confidence", "qcfail"):
+            assert torch.equal(mine[key], plain[key]), key
+        assert (plain["decoded"] > 0).any() and (plain["distance"] > 0).any()
 
 
 def _pamld_case(rng, barcodes: int, width: int, n: int):

@@ -1,8 +1,8 @@
-"""K3's block plan (kernels/unpack.py:block_plan) on the CPU: how many
-reads a block owns and how its rows are staged in shared memory, for every
-wire mode, the raw rows of apply_plans, programs of 2029 and ~3000 ints
-(staged) and ~60,000 (read in place), rows too wide to stage and 2048
-length columns (written in place). The kernel itself runs only on the card
+"""K3's block plan (kernels/unpack.py:block_plan) on the CPU: how a block
+of 128 reads stages its rows in shared memory, for every wire mode, the
+raw rows of apply_plans, programs of 2029, ~3000 and ~60,000 ints, rows
+too wide to stage and 2048 length columns, and where the layout takes the
+column plan instead. The kernel itself runs only on the card
 (tests/test_torch_kernels.py, chip_smoke.py)."""
 
 import re
@@ -75,24 +75,26 @@ CASES = _layouts()
 
 @pytest.mark.parametrize("label,layout,row_bytes", CASES, ids=[c[0] for c in CASES])
 def test_block_plan_fits_and_aligns(label, layout, row_bytes):
-    """R >= 32 and a multiple of 16; the staging areas (program, wire rows
-    with their 16-byte lead, codes, qualities, lengths, short flags, three
-    flags) lie 16-byte aligned one after another inside the shared bytes
-    the plan asks for, which fit the card; a staged token row has an odd
-    number of words; and every block's span of every output starts 16-byte
-    aligned given an aligned base."""
+    """The block plan stages 128 reads: the staging areas (program, wire
+    rows with their 16-byte lead, codes, qualities, lengths, short flags,
+    three flags) lie 16-byte aligned one after another inside the shared
+    bytes the plan asks for; a staged token row has an odd number of words;
+    every block's span of every output starts 16-byte aligned given an
+    aligned base. It is taken where those bytes fit two blocks an SM (the
+    flagship's, the MDD flagship's and the gather's layouts on every wire,
+    the raw rows), and the column plan elsewhere (long programs, rows too
+    wide to stage, 2048 length columns)."""
     plan = unpack.block_plan(layout, row_bytes)
     reads = plan.reads
-    assert reads >= unpack.MIN_BLOCK_READS and reads % 16 == 0 and reads <= unpack.MAX_BLOCK_READS
-    assert plan.shared_bytes <= unpack.SHARED_BYTES
+    assert reads == unpack.MAX_BLOCK_READS
     slots = len(layout.slots)
     areas = [
-        ("program", 0, 4 * layout.program.size if plan.stage_program else 0),
-        ("wire", plan.wire_at, reads * row_bytes + 16 if plan.stage_wire else 0),
-        ("codes", plan.codes_at, reads * plan.token_pitch if plan.stage_tokens else 0),
-        ("quals", plan.quals_at, reads * plan.token_pitch if plan.stage_tokens else 0),
-        ("lengths", plan.lengths_at, 4 * reads * plan.length_pitch if plan.stage_lengths else 0),
-        ("short", plan.short_at, reads * slots if plan.stage_lengths else 0),
+        ("program", 0, 4 * layout.program.size),
+        ("wire", plan.wire_at, reads * row_bytes + 16),
+        ("codes", plan.codes_at, reads * plan.token_pitch),
+        ("quals", plan.quals_at, reads * plan.token_pitch),
+        ("lengths", plan.lengths_at, 4 * reads * plan.length_pitch),
+        ("short", plan.short_at, reads * slots),
         ("flags", plan.flags_at, 3 * reads),
     ]
     end = 0
@@ -110,70 +112,49 @@ def test_block_plan_fits_and_aligns(label, layout, row_bytes):
             assert (r0 * columns * element) % 16 == 0
     ints = plan.ints()
     assert ints.dtype == np.int32 and ints[0] == reads and ints[-1] == plan.shared_bytes
+    chosen = unpack.unpack_plan(layout, row_bytes)
+    blocked = label.startswith(("flagship", "mdd", "gather", "raw")) and "3000" not in label
+    assert (chosen == plan) == blocked and (plan.shared_bytes <= unpack.BLOCK_SHARED) == blocked
     if label == "program 2048":
-        assert layout.program.size > 2000 and plan.stage_program
-    if label == "program 3000":
-        assert layout.program.size > 2048 and plan.stage_program and plan.reads == unpack.MAX_BLOCK_READS
+        assert layout.program.size > 2000
+    if label in ("program 3000", "program 60000"):
+        assert layout.program.size > 2048
     if label == "program 60000":
-        # its 13,000 token columns are too wide to stage too
-        assert 4 * layout.program.size > unpack.SHARED_BYTES and not plan.stage_program
-        assert not plan.stage_tokens and reads == unpack.MAX_BLOCK_READS
-    if label == "raw 2 x 3000":
-        assert not plan.stage_wire and plan.stage_tokens
+        # the program alone passes a block's shared memory
+        assert 4 * layout.program.size > unpack.SHARED_BYTES
     if label == "lengths 2048":
-        assert layout.length_cols == 2048 and not plan.stage_tokens and not plan.stage_lengths
-        assert plan.stage_program and reads == unpack.MAX_BLOCK_READS
-    else:
-        assert plan.stage_lengths
-    if label.startswith(("flagship", "mdd", "gather", "raw")) and "3000" not in label:
-        assert plan.stage_wire and plan.stage_tokens and reads == unpack.MAX_BLOCK_READS
+        assert layout.length_cols == 2048
 
 
 def test_block_plan_matches_the_kernel():
     """The plan's ints are the kernel's PhqUnpackPlan, field for field, and
-    its read limits the kernel's."""
+    its reads the kernel's."""
     source = (Path(unpack.__file__).parent.parent / "csrc" / "unpack_tokens.cu").read_text()
     struct = re.search(r"struct PhqUnpackPlan \{(.*?)\};", source, re.S).group(1)
     fields = re.findall(r"\w+(?=[,;])", struct)
     plan = unpack.block_plan(CASES[0][1], CASES[0][2])
     assert len(fields) == plan.ints().size == int(re.search(r"#define PHQ_UNPACK_PLAN_INTS (\d+)", source).group(1))
-    names = ["reads", "stage_wire", "stage_tokens", "stage_program", "stage_lengths", "token_pitch", "length_pitch",
-             "wire_at", "codes_at", "quals_at", "lengths_at", "short_at", "flags_at", "shared_bytes"]
+    names = ["reads", "token_pitch", "length_pitch", "wire_at", "codes_at", "quals_at", "lengths_at", "short_at",
+             "flags_at", "shared_bytes"]
     assert fields == names
     assert [getattr(plan, name) for name in names] == [int(x) for x in plan.ints()]
     assert int(re.search(r"#define PHQ_UNPACK_MAX_READS (\d+)", source).group(1)) == unpack.MAX_BLOCK_READS
 
 
 def test_block_plan_steps_down():
-    """Where R = 128 does not fit, the plan takes the most reads that do
-    (in steps of 16), then reads the wire in place, then the program, then
-    writes codes and qualities in place, then lengths and short flags."""
+    """The block plan is taken while its staging fits BLOCK_SHARED (two
+    blocks an SM); one byte less, the layout steps down to the column
+    plan."""
     label, layout, row_bytes = CASES[0]
     full = unpack.block_plan(layout, row_bytes)
-    program = layout.program.size
-    tokens_at_32 = unpack._areas(layout, program, row_bytes, 32, False, True).shared_bytes
-    old = unpack.SHARED_BYTES
+    old = unpack.BLOCK_SHARED
     try:
-        unpack.SHARED_BYTES = full.shared_bytes // 2
-        half = unpack.block_plan(layout, row_bytes)
-        assert half.stage_wire and 32 <= half.reads < 128 and half.shared_bytes <= unpack.SHARED_BYTES
-        unpack.SHARED_BYTES = tokens_at_32
-        tokens_only = unpack.block_plan(layout, row_bytes)
-        assert not tokens_only.stage_wire and tokens_only.stage_tokens and tokens_only.reads == 32
-        unpack.SHARED_BYTES = tokens_at_32 - 1
-        no_program = unpack.block_plan(layout, row_bytes)
-        assert not no_program.stage_wire and no_program.stage_tokens and not no_program.stage_program
-        assert no_program.reads >= 32
-        unpack.SHARED_BYTES = unpack._areas(layout, program, row_bytes, 32, False, True, False).shared_bytes - 1
-        neither = unpack.block_plan(layout, row_bytes)
-        assert not neither.stage_wire and not neither.stage_tokens and neither.reads >= 32
-        assert neither.stage_lengths
-        unpack.SHARED_BYTES = unpack._areas(layout, 0, row_bytes, 32, False, False, False).shared_bytes - 1
-        flags_only = unpack.block_plan(layout, row_bytes)
-        assert not (flags_only.stage_tokens or flags_only.stage_lengths or flags_only.stage_program)
-        assert flags_only.shared_bytes <= unpack.SHARED_BYTES and flags_only.reads >= 32
+        unpack.BLOCK_SHARED = full.shared_bytes
+        assert unpack.unpack_plan(layout, row_bytes) == full
+        unpack.BLOCK_SHARED = full.shared_bytes - 1
+        assert unpack.unpack_plan(layout, row_bytes) == unpack.column_plan(layout, row_bytes)
     finally:
-        unpack.SHARED_BYTES = old
+        unpack.BLOCK_SHARED = old
 
 
 def test_launch_passes_the_cached_plan():

@@ -265,9 +265,9 @@ def _mdd_ontology(words, widths, tolerance, qmt):
 
 @pytest.mark.parametrize("segments,width", [(9, 80), (12, 80), (9, 130), (12, 130)])
 def test_mdd_wide_matches_jax(segments, width):
-    """K6 past 8 segments and 64 positions (the 32-word and looped
-    instances): its two-phase algorithm (the key table's lookup, then the
-    first barcode within every segment's tolerance from the packed words)
+    """K6 past 8 segments and 64 positions (the wide instance): its
+    two-phase algorithm (the key table's lookup, then the first barcode
+    within every segment's tolerance from the key table's bit planes)
     and its plain version against JAX's mdd_classify_device byte for byte,
     at tolerance 1 and at tolerance 2 with quality masking and 3 % of the
     segments short (a tenth of the reads random: misses); its key words
@@ -280,7 +280,11 @@ def test_mdd_wide_matches_jax(segments, width):
         ontology = _mdd_ontology(words, widths, tolerance, qmt)
         reference = jax_compile({"sample": ontology, "input segment cardinality": 1})
         dec = carry_instrument(reference, "cpu").decoders[0]
-        assert dec.key_table.numel() == 2 * 40 * mdd.key_words(width) + 40
+        # the key table past 64 positions: words, sorted keys, index, then
+        # the panel's 4 bit planes per 32 positions (its codes are IUPAC's)
+        assert dec.key_table.numel() == 2 * 40 * mdd.key_words(width) + 40 + 4 * 40 * mdd.groups(width)
+        np.testing.assert_array_equal(mdd.table_planes(dec.key_table, 40, width).numpy(),
+                                      mdd.plane_words(dec.panel_codes_u8.numpy(), 4))
         table = mdd.segment_table(widths, [tolerance] * segments).reshape(segments, -1)
         assert table.shape[1] == 4 + 2 * mdd.mask_words(width) and (table[:, 1] == widths).all()
         n = 512
@@ -316,7 +320,7 @@ def test_unpack_program_past_2048_matches_jax():
     than 2048 ints (three decoders of 90-100 token plans: negative starts
     and ends, reverse complement, several plans into one segment) on the
     j4 and 6-bit wires, against JAX's _unpack_h2d_blob + apply_plans; the
-    kernel's block plan builds for it."""
+    kernel's plan builds for it."""
     rng = np.random.default_rng(13)
     decoders = []
     for d, count in enumerate((100, 95, 90)):
@@ -333,8 +337,8 @@ def test_unpack_program_past_2048_matches_jax():
     for mode in ("j4", 6):
         layout = unpack.token_layout(instrument, wire_widths, mode)
         assert layout.program.size > 2048
-        plan = unpack.block_plan(layout, unpack._segment_table(wire_widths, mode)[1] + 1)
-        assert plan.stage_program and plan.reads >= unpack.MIN_BLOCK_READS
+        plan = unpack.unpack_plan(layout, unpack._segment_table(wire_widths, mode)[1] + 1)
+        assert plan.shared_bytes <= unpack.SHARED_BYTES
         ccb = qcb = lut = None
         if mode == "j4":
             code = np.concatenate([c.ravel() for c, _, _ in segments])
