@@ -14,9 +14,12 @@
                                      # and launches, the plan's choice at
                                      # batch sizes from 16384 to 262144
                                      # and K1's slice unit, K3's column-
-                                     # plan rows and K6's wide rows, the
-                                     # package imported from tree T, a
-                                     # copy of another commit inside this
+                                     # plan rows and K6's wide rows, K4's
+                                     # and K5's rows at 3 to 64 decoders
+                                     # by device time alone with their
+                                     # probes (epilogue), the package
+                                     # imported from tree T, a copy of
+                                     # another commit inside this
                                      # checkout; --sections picks some
 
 It drives six paths of the port, all on the flagship read layout
@@ -94,10 +97,12 @@ any failure propagates and the exit code is not 0:
                   instance at 9 and 12 segments of 80 and 130 positions,
                   K3's column plan on programs of ~3,000 (beside the block
                   plan) and ~10,000 ints and 2048 length columns, K4 and
-                  K5 at 33 and 64 decoders and K5's rows in place,
-                  byte-exact (their edge cases also in the kernels phase);
-                  each timed beside its bound (the kernels line's
-                  extra.wide); the wide flagship (a 96-nt cellular
+                  K5 at 33 and 64 decoders (device time alone: the replay
+                  of a CUDA graph of 10 calls, their plans' groups, reads
+                  a block, shared bytes and ptxas' registers) and K5's
+                  rows in place, byte-exact (their edge cases also in the
+                  kernels phase); each timed beside its bound (the kernels
+                  line's extra.wide); the wide flagship (a 96-nt cellular
                   barcode) hybrid identical to strict on 20k reads, its f64
                   re-resolution rate beside the bound's prediction, its
                   launches, and fast against strict on 200k reads, every
@@ -112,7 +117,11 @@ any failure propagates and the exit code is not 0:
                   4096-barcode cellular panel (K7); the f64 re-resolution
                   rate at most RESOLVED_LIMIT; and the fast port on 1024
                   whitelist reads differing from strict in at most
-                  WHITELIST_FAST_LIMIT records
+                  WHITELIST_FAST_LIMIT records. The 737,280-barcode
+                  instruction compiles once, in a process of its own
+                  while phases 3 and 3b run (PRECOMPILE), and every
+                  whitelist e2e run (here, in throughput and in grid)
+                  runs it on its own inputs (run_e2e's `compiled`)
   5. throughput   the e2e runs at batch 131072: the flagship hybrid on ~2M
                   reads, the MDD flagship hybrid on ~1M, the whitelist fast
                   on 4 batches; run_e2e's stats and each kernel's launch
@@ -188,6 +197,7 @@ Imports nothing of JAX and nothing of the JAX package. Work files live in
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -460,6 +470,17 @@ def counted_device_ms(counter: str, fn, reps: int = 10) -> tuple[float, int]:
     fn()
     launches = launch_counts()[counter] - before
     return device_ms(fn, reps), launches
+
+
+def counted_graph_ms(counter: str, fn, reps: int = 10) -> tuple[float, int]:
+    """(ms a call of `fn` by device time alone, launches of kernel
+    `counter` a call): the replay of a CUDA graph of `reps` calls, the
+    wrappers' counts read at its capture
+    (tools/profile_step.py:graph_ms)."""
+    from pheniqs_tpu_torch.tools.profile_step import graph_ms
+
+    ms, launched = graph_ms(fn, reps)
+    return ms, launched[counter]
 
 
 def held_launches(label: str, launches: int, expected: int) -> int:
@@ -1535,29 +1556,46 @@ def k4_case(name: str, n: int | None = None, seed: int = 5, decoders=None):
     return instrument, arrays
 
 
-def k4_tensors(arrays: dict, device):
-    """(Decisions, pad, forced) of a k4_case's arrays on `device`."""
+def k4_tensors(arrays: dict, device, offset: int = 0):
+    """(Decisions, pad, forced) of a k4_case's arrays on `device`; with
+    `offset`, each tensor starts that many elements into its allocation
+    (contiguous, but too far off alignment for 4 reads a lane)."""
     import torch
 
     from pheniqs_tpu_torch.kernels import Decisions
 
-    t = {key: torch.from_numpy(value).to(device) for key, value in arrays.items()}
+    t = {}
+    for key, value in arrays.items():
+        tensor = torch.from_numpy(value)
+        flat = torch.empty(tensor.numel() + offset, dtype=tensor.dtype, device=device)
+        t[key] = flat[offset:].view(tensor.shape)
+        t[key].copy_(tensor)
     rows = Decisions(**{key: t[key] for key in (
         "decoded", "argmax", "distance", "branch", "confidence", "qcfail", "uncertain")})
     return rows, t["pad"], t["forced"]
 
 
-def k4_hold(label: str, instrument, rows, pad, forced, want_uncertain: bool = True):
+def k4_hold(label: str, instrument, rows, pad, forced, want_uncertain: bool = True, plan=None):
     """K4 on the card, twice, against its plain version on the same
     tensors: every counter byte-identical across the two launches and to
-    the plain version, and one launch counted a call."""
+    the plain version, and one launch counted a call. `plan` another than
+    the instrument's (counters.CounterPlan: the grouped instance where the
+    instrument's is the per-decoder one)."""
+    import functools
+
     import torch
 
     from pheniqs_tpu_torch.kernels import counters
 
+    def call():
+        if plan is None:
+            return counters.counters(instrument, rows, pad, forced, want_uncertain)
+        return counters._sliced(functools.partial(counters._launch, plan=plan), instrument, rows, pad, forced,
+                                want_uncertain)
+
     before = counters.launches
-    first = counters.counters(instrument, rows, pad, forced, want_uncertain)
-    second = counters.counters(instrument, rows, pad, forced, want_uncertain)
+    first = call()
+    second = call()
     plain = counters.counters_plain(instrument, rows, pad, forced, want_uncertain)
     torch.cuda.synchronize()
     slices = len(counters.row_slices(instrument, pad.shape[0]))
@@ -1571,35 +1609,61 @@ def k4_hold(label: str, instrument, rows, pad, forced, want_uncertain: bool = Tr
     return first
 
 
+#: K4's cases held again on rows one element off their allocation (4
+#: reads a lane refused) at the edge checks' large size, a multiple of 4
+K4_OFFSET_CASES = ("flagship", "forced", "extreme confidences", "33 decoders", "64 decoders")
+
+
 def k4_edge_checks(large: int = N_KERNEL) -> int:
-    """K4 held to its plain version byte for byte, two launches equal, on
-    every K4_CASES case, on "one bin" and "ragged" at `large` rows (+ 37:
-    not a multiple of a block's or a warp's share), with and without the
-    uncertain mask, over the whitelist's 737,281 bins and on
-    K4_SLICED_ROWS rows, which K4 sums in row slices. Returns the number
+    """K4 held to its plain version byte for byte, two launches equal,
+    with and without the uncertain mask, under each instance: every case
+    runs the instrument's plan and, where that is the per-decoder
+    instance, the grouped kernel too (CounterPlan.per_decoder off). The
+    cases: every K4_CASES case at its own size and at `large` + 37 rows
+    (not a multiple of a block's, a warp's or a lane's share: one read a
+    lane); K4_OFFSET_CASES at `large` rows one element off alignment (one
+    read a lane on rows a multiple of 4); the whitelist's 737,281 bins at
+    `large`, `large` + 37 and off alignment; and K4_SLICED_ROWS rows,
+    which K4 sums in row slices. The grouped kernel is held at both widths
+    of a lane (launch_arguments' `vec`: 4 reads, or 1). Returns the number
     of cases."""
+    import dataclasses
+
     import torch
 
     from pheniqs_tpu_torch.kernels import counters
 
     cuda = torch.device("cuda")
-    cases = [(name, None) for name in K4_CASES] + [("one bin", large), ("ragged", large + 37)]
-    for name, n in cases:
-        instrument, arrays = k4_case(name, n)
-        for want_uncertain in (True, False):
-            k4_hold(f"K4 case {name}", instrument, *k4_tensors(arrays, cuda), want_uncertain)
-    instrument, arrays = k4_case("whitelist bins", large, decoders=(
-        ("pamld", 96, 16), ("pamld", 737_280, 16), ("naive", 0, 0)))
-    out = k4_hold("K4 over 737,281 bins", instrument, *k4_tensors(arrays, cuda))
-    # past 2^24 / 16 rows on 16 nt decoders: two row slices, summed in float64
-    instrument, arrays = k4_case("row slices", K4_SLICED_ROWS, decoders=K4_FLAGSHIP)
-    sliced = k4_hold("K4 in row slices", instrument, *k4_tensors(arrays, cuda))
-    if sliced.dtype != torch.float64:
-        raise AssertionError(f"K4 in row slices returned {sliced.dtype}")
-    say(f"[k4] byte-identical to the plain version and across two launches on {len(cases)} cases"
-        f" ({', '.join(name for name, _ in cases)}), over 737,281 bins ({out.numel()} counters) and on"
-        f" {K4_SLICED_ROWS} rows in {len(counters.row_slices(instrument, K4_SLICED_ROWS))} row slices")
-    return len(cases) + 2
+    whitelist = (("pamld", 96, 16), ("pamld", 737_280, 16), ("naive", 0, 0))
+    cases = [(name, None, None, 0) for name in K4_CASES]
+    cases += [(name, large + 37, None, 0) for name in K4_CASES if K4_CASES[name][1]]
+    cases += [(name, large, None, 1) for name in K4_OFFSET_CASES]
+    cases += [("whitelist bins", rows, whitelist, offset) for rows, offset in ((large, 0), (large + 37, 0), (large, 1))]
+    cases += [("row slices", K4_SLICED_ROWS, K4_FLAGSHIP, 0)]
+    widths = set()
+    for name, n, decoders, offset in cases:
+        instrument, arrays = k4_case(name, n, decoders=decoders)
+        tensors = k4_tensors(arrays, cuda, offset)
+        plan = counters.counter_plan(instrument)
+        plans = [plan] + ([dataclasses.replace(plan, per_decoder=False)] if plan.per_decoder else [])
+        rows = tensors[1].shape[0]
+        for each in plans:
+            label = (f"K4 case {name}, {rows} rows{' off alignment' if offset else ''},"
+                     f" {'per-decoder' if each.per_decoder else 'grouped'} instance")
+            for want_uncertain in (True, False):
+                out = k4_hold(label, instrument, *tensors, want_uncertain, plan=each)
+            if not each.per_decoder and len(counters.row_slices(instrument, rows)) == 1:
+                widths.add(counters.launch_arguments(instrument, *tensors, True, 132, each)[1]["vec"])
+        if name == "row slices" and out.dtype != torch.float64:
+            raise AssertionError(f"K4 in row slices returned {out.dtype}")
+    if widths != {1, 4}:
+        raise AssertionError(f"K4 edge checks held the grouped kernel at {sorted(widths)} reads a lane, not 1 and 4")
+    say(f"[k4] byte-identical to the plain version and across two launches, with and without the uncertain mask,"
+        f" on {len(cases)} cases under each instance (the grouped kernel at 1 and 4 reads a lane):"
+        f" every K4_CASES case at its size and at {large + 37} rows, {len(K4_OFFSET_CASES)} off alignment at"
+        f" {large}, 737,281 bins at {large}, {large + 37} and off alignment, and {K4_SLICED_ROWS} rows in"
+        f" {len(counters.row_slices(instrument, K4_SLICED_ROWS))} row slices")
+    return len(cases)
 
 
 def k4_threshold_sweep(n: int = N_KERNEL) -> list:
@@ -1616,7 +1680,7 @@ def k4_threshold_sweep(n: int = N_KERNEL) -> list:
     chosen = counters.SHARED_LIMIT
     rows = []
     try:
-        for barcodes in (96, 384, 1024, 2048, 3072, 4096, 4800):
+        for barcodes in (96, 384, 1024, 1536, 2048, 3072, 4096):
             instrument, arrays = k4_case("sweep", n, decoders=(("pamld", barcodes, 16),))
             tensors = k4_tensors(arrays, cuda)
             times = []
@@ -1856,8 +1920,59 @@ class Whitelist:
         self.panels = panel_codes(self.ontology)
         self.instrument = compile_instrument(self.ontology, torch.device("cuda"))
         self.decoder = self.instrument.decoders[2]
+        #: the e2e instruction PRECOMPILE compiled (precompiled), which
+        #: every whitelist e2e run takes
+        self.compiled = None
         say(f"[kernels] whitelist flagship: {self.decoder.barcode_count} x {self.decoder.width} nt"
             f" cellular panel built and placed in {time.perf_counter() - start:.1f} s")
+
+    #: every e2e run of the whitelist writes here
+    output = os.path.join(WORK, "whitelist.sam")
+    #: PRECOMPILE's compiled instruction, pickled
+    instruction = os.path.join(WORK, "whitelist_instruction.pickle")
+
+    def inputs(self, n: int) -> list[str]:
+        from pheniqs_tpu_torch.benchmark import synthesize_fastq_input
+
+        return synthesize_fastq_input(os.path.join(WORK, "whitelist"), n, ontology=self.ontology, panels=self.panels)
+
+
+#: the whitelist's e2e instruction, compiled by a process of its own while
+#: the kernel phases run on the card (its ~80 s of JSON work off the run's
+#: path) on 16 reads, and pickled into Whitelist.instruction
+PRECOMPILE = r"""
+import os, pickle, sys
+
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from pheniqs_tpu_torch.benchmark import e2e_ontology, synthesize_fastq_input
+from pheniqs_tpu_torch.device.flagship import whitelist_flagship_ontology
+
+ontology = whitelist_flagship_ontology()
+paths = synthesize_fastq_input(os.path.join(chip_smoke.WORK, "precompile"), 16, ontology=ontology)
+compiled = e2e_ontology(paths, chip_smoke.Whitelist.output, int(sys.argv[2]), ontology)
+with open(chip_smoke.Whitelist.instruction, "wb") as stream:
+    pickle.dump(compiled, stream, protocol=pickle.HIGHEST_PROTOCOL)
+"""
+
+
+def precompile_whitelist(threads: int) -> subprocess.Popen:
+    """Start PRECOMPILE (its output in WORK)."""
+    with open(os.path.join(WORK, "precompile.log"), "w") as log:
+        return subprocess.Popen([sys.executable, "-c", PRECOMPILE, HERE, str(threads)], stdout=log,
+                                stderr=subprocess.STDOUT, text=True)
+
+
+def precompiled(process: subprocess.Popen, timeout: float = 900) -> dict:
+    """Wait for PRECOMPILE and return its instruction; raise with its
+    output if it failed."""
+    import pickle
+
+    if process.wait(timeout=timeout) != 0:
+        with open(os.path.join(WORK, "precompile.log")) as log:
+            raise AssertionError(f"the whitelist's instruction did not compile:\n{log.read()[-4000:]}")
+    with open(Whitelist.instruction, "rb") as stream:
+        return pickle.load(stream)
 
 
 def whitelist_checks(whitelist: Whitelist, n: int = N_KERNEL) -> dict:
@@ -2324,16 +2439,23 @@ def wide_checks(n: int = N_KERNEL) -> dict:
         entries["unpack_tokens"].append(entry)
         say(f"[wide] {label}, N={n}: byte-exact, two launches identical; kernel {ms:.4f} ms (device time over 10"
             f" calls, {launches} launch a call), plain {plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms (bytes)")
+    from pheniqs_tpu_torch.kernels import counters
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    k4_ptxas = {instance: ptxas_report(f"phq_counters_{instance}") for instance in ("accumulate", "decoder")}
+    k5_ptxas = ptxas_report("phq_pack_kernel")
     for d in WIDE_DECODERS:
         decoders = ((("pamld", 96, 16), ("mdd", 40, 8), ("naive", 0, 0)) * 22)[:d]
         instrument, arrays = k4_case(f"{d} decoders", n, decoders=decoders)
         rows, pad, forced = k4_tensors(arrays, cuda)
         k4_hold(f"K4 {d} decoders N={n}", instrument, rows, pad, forced)
-        from pheniqs_tpu_torch.kernels import counters
-
-        ms, launches = counted_event_ms("counters", lambda: counters.counters(instrument, rows, pad, forced, True))
+        ms, launches = counted_graph_ms("counters", lambda: counters.counters(instrument, rows, pad, forced, True))
+        _, args = counters.launch_arguments(instrument, rows, pad, forced, True, sms)
         entry = {"decoders": d, "N": n, "bytes": k4_bytes(instrument, n), "ms": ms,
                  "launches": held_launches(f"K4 {d} decoders", launches, len(counters.row_slices(instrument, n))),
+                 "per_decoder": args["per_decoder"], "groups": args["groups"], "reads_per_block": args["tile"],
+                 "shared_bytes": args["shared_bytes"],
+                 "reads_a_lane": args["vec"], "ptxas": k4_ptxas["decoder" if args["per_decoder"] else "accumulate"],
                  "plain_ms": once_ms(lambda: counters.counters_plain(instrument, rows, pad, forced, True))[1],
                  "library_ms": segment_sums_ms(instrument, rows)}
         entry["bound_ms"], entry["bound_by"] = bound(entry)
@@ -2341,18 +2463,26 @@ def wide_checks(n: int = N_KERNEL) -> dict:
         instrument, decisions, forced = pack_case([(a, b) for a, b, _ in decoders], n, d, cuda)
         hold_pack(f"{d} decoders N={n}", instrument, decisions, forced, True)
         plan = pack.pack_plan(instrument, True)
-        ms, launches = counted_event_ms("pack_outputs", lambda: pack.pack_outputs(instrument, decisions, forced, True))
+        ms, launches = counted_graph_ms("pack_outputs", lambda: pack.pack_outputs(instrument, decisions, forced, True))
         pentry = {"decoders": d, "N": n, "row_bytes": plan.layout["total"], "reads_per_block": plan.reads,
+                  "fields": len(plan.fields), "sources": len(plan.sources), "shared_bytes": plan.block_bytes,
+                  "ptxas": k5_ptxas,
                   "bytes": pack_bytes(plan, d, n, True), "ms": ms,
                   "launches": held_launches(f"K5 {d} decoders", launches, 1),
                   "plain_ms": once_ms(lambda: pack.pack_outputs_plain(instrument, decisions, forced, True))[1]}
         pentry["bound_ms"], pentry["bound_by"] = bound(pentry)
         entries["pack_outputs"].append(pentry)
-        say(f"[wide] {d} decoders N={n}: K4 byte-exact, two launches identical, kernel {entry['ms']:.4f} ms, plain"
+        instance = "the per-decoder instance" if args["per_decoder"] else (
+            f"the grouped kernel: {entry['groups']} groups, {entry['reads_per_block']} reads a block")
+        say(f"[wide] {d} decoders N={n}: K4 byte-exact, two launches identical ({instance},"
+            f" {entry['shared_bytes']} shared bytes), kernel"
+            f" {entry['ms']:.4f} ms (device time, the replay of a CUDA graph of 10 calls), plain"
             f" {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms, index_add_ yardstick"
-            f" {entry['library_ms']:.4f} ms; K5 ({plan.layout['total']} B a row, R ="
-            f" {plan.reads}) byte-exact, kernel {pentry['ms']:.4f} ms, plain {pentry['plain_ms']:.4f} ms, bound"
+            f" {entry['library_ms']:.4f} ms; K5 ({plan.layout['total']} B a row, R = {plan.reads},"
+            f" {len(plan.fields)} fields of {len(plan.sources)} sources, {plan.block_bytes} shared bytes)"
+            f" byte-exact, kernel {pentry['ms']:.4f} ms (the same clock), plain {pentry['plain_ms']:.4f} ms, bound"
             f" {pentry['bound_ms']:.4f} ms")
+    say(f"[wide] ptxas: K4 {json.dumps(k4_ptxas)}; K5 {json.dumps(k5_ptxas)}")
     d, m = WIDE_PACK_IN_PLACE
     instrument, decisions, forced = pack_case((("pamld", 40_000),) * d, m, d, cuda)
     hold_pack(f"{d} decoders, rows in place, N={m}", instrument, decisions, forced, True)
@@ -2482,23 +2612,29 @@ def wide_e2e(card: str, threads: int) -> dict:
 
 
 def decisions_vs_strict(label: str, ontology, n: int, threads: int, fidelity: str = "hybrid", limit: int = 0,
-                        keep_strict: bool = False, resolved_limit: float | None = RESOLVED_LIMIT):
+                        keep_strict: bool = False, resolved_limit: float | None = RESOLVED_LIMIT,
+                        paths: list[str] | None = None, port_sam: str | None = None, compiled: dict | None = None):
     """The port's SAM decisions against the strict f64 engine's on `n`
-    reads of `ontology`: hybrid identical, re-resolving at most
-    `resolved_limit` of them (None: any share); fast (no re-resolution)
-    differing in at most `limit` records. With `keep_strict`, returns
-    (input paths, the strict SAM's path) and keeps that file; else the
-    port's run's stats."""
+    reads of `ontology` (`paths`, else synthesized): hybrid identical,
+    re-resolving at most `resolved_limit` of them (None: any share); fast
+    (no re-resolution) differing in at most `limit` records. Both runs
+    write `port_sam` (the strict one's output then moved aside), and take
+    `compiled` (run_e2e's) where given. With `keep_strict`, returns (input
+    paths, the strict SAM's path) and keeps that file; else the port's
+    run's stats."""
     from pheniqs_tpu_torch.benchmark import run_e2e, sam_decisions, synthesize_fastq_input
 
-    paths = synthesize_fastq_input(os.path.join(WORK, f"decisions_{label.replace(' ', '_')}"), n, ontology=ontology)
+    if paths is None:
+        paths = synthesize_fastq_input(os.path.join(WORK, f"decisions_{label.replace(' ', '_')}"), n,
+                                       ontology=ontology)
     strict_sam = os.path.join(WORK, f"strict_{label.replace(' ', '_')}.sam")
-    port_sam = os.path.join(WORK, f"{fidelity}.sam")
+    port_sam = port_sam or os.path.join(WORK, f"{fidelity}.sam")
     # batches small enough that every strict worker classifies a share
-    run_e2e(paths, strict_sam, fidelity="strict", threads=threads, batch_size=min(16384, -(-n // threads)),
-            device="cuda", ontology=ontology)
+    run_e2e(paths, port_sam, fidelity="strict", threads=threads, batch_size=min(16384, -(-n // threads)),
+            device="cuda", ontology=ontology, compiled=compiled)
+    os.replace(port_sam, strict_sam)
     stats = run_e2e(paths, port_sam, fidelity=fidelity, threads=threads, batch_size=BATCH, device="cuda",
-                    ontology=ontology)
+                    ontology=ontology, compiled=compiled)
     strict_decisions = sam_decisions(strict_sam)
     port_decisions = sam_decisions(port_sam)
     if len(strict_decisions) != n or len(port_decisions) != n:
@@ -2536,11 +2672,16 @@ def throughput(card: str, threads: int, whitelist: Whitelist) -> tuple[dict, lis
     inputs = {}
     for path, ontology, n, fidelity in runs:
         start = time.perf_counter()
-        paths = inputs[path] = synthesize_fastq_input(os.path.join(WORK, f"throughput_{path}"), n, ontology=ontology)
-        out = os.path.join(WORK, "throughput.sam")
+        compiled = None
+        if path == "whitelist":
+            paths, out, compiled = whitelist.inputs(n), whitelist.output, whitelist.compiled
+        else:
+            paths = synthesize_fastq_input(os.path.join(WORK, f"throughput_{path}"), n, ontology=ontology)
+            out = os.path.join(WORK, "throughput.sam")
+        inputs[path] = paths
         reset_launch_counts()
         stats = run_e2e(paths, out, fidelity=fidelity, threads=threads, batch_size=BATCH, device="cuda",
-                        ontology=ontology)
+                        ontology=ontology, compiled=compiled)
         counts = launch_counts()
         os.unlink(out)
         say(f"[throughput] {card} | {path} {fidelity} e2e {json.dumps(stats)}")
@@ -2561,7 +2702,7 @@ def throughput(card: str, threads: int, whitelist: Whitelist) -> tuple[dict, lis
 
 
 TP_RANK = r"""
-import json, os, sys, time
+import json, os, pickle, sys, time
 
 import torch
 
@@ -2571,10 +2712,14 @@ from pheniqs_tpu_torch.device import tp
 from pheniqs_tpu_torch.device.flagship import flagship_ontology, whitelist_flagship_ontology
 from pheniqs_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-paths, out, threads, cellular, batch, fidelity, report, record = json.loads(sys.argv[2])
+paths, out, threads, cellular, batch, fidelity, report, record, instruction = json.loads(sys.argv[2])
 ontology = whitelist_flagship_ontology() if cellular == "whitelist" else flagship_ontology(cellular_barcodes=cellular)
 kept = {"signature": [], "wire": [], "blob": [], "batch_s": []}
+compiled = None
 if int(os.environ["RANK"]) == 0:
+    if instruction is not None:
+        with open(instruction, "rb") as stream:
+            compiled = pickle.load(stream)
     # rank 0 times each batch from its dispatch to its decisions on the
     # host, and keeps its wire rows and decision rows
     from pheniqs_tpu_torch.engine.device import TorchDeviceEngine
@@ -2610,7 +2755,7 @@ if int(os.environ["RANK"]) == 0:
         tp.share_instrument = kept_share
 reset_launch_counts()
 stats = run_e2e(paths, out, fidelity=fidelity, threads=threads, batch_size=batch, device="cuda", ontology=ontology,
-                report_url=report)
+                report_url=report, compiled=compiled)
 counts = launch_counts()
 if record:
     torch.save(kept, record)
@@ -2627,7 +2772,8 @@ def tp_role(rank: int, panel: int) -> str:
 
 
 def rank_run(shape: str, paths, out: str, threads: int, cellular=K7_PANEL, fidelity: str = "hybrid",
-             nccl: bool = False, report: str | None = None, record: str | None = None) -> tuple[list, float]:
+             nccl: bool = False, report: str | None = None, record: str | None = None,
+             instruction: str | None = None) -> tuple[list, float]:
     """run_e2e on every rank of PHENIQS_TP=`shape` (threshold TP_THRESHOLD),
     one process a rank, on the flagship with a `cellular`-barcode panel or
     the whitelist flagship: the ranks share the first card (gloo) or, with
@@ -2637,14 +2783,16 @@ def rank_run(shape: str, paths, out: str, threads: int, cellular=K7_PANEL, fidel
     sets its launch counts to 0 just before its run. Rank 0 writes
     `report`, times each batch from its dispatch to its decisions on the
     host, and with `record` keeps each batch's wire rows and decision rows
-    there, and the instrument it compiled (on the CPU). Returns each rank's line (its group line added) and
-    the seconds of the ranks' processes."""
+    there, and the instrument it compiled (on the CPU); with `instruction`,
+    a pickled compiled instruction, rank 0 runs it (run_e2e's `compiled`).
+    Returns each rank's line (its group line added) and the seconds of the
+    ranks' processes."""
     import torch
 
     reads, panel = (int(x) for x in shape.split(":"))
     ranks = reads * panel
     store = torch.distributed.TCPStore("localhost", 0, world_size=ranks, is_master=True, wait_for_workers=False)
-    argument = json.dumps([paths, out, threads, cellular, BATCH, fidelity, report, record])
+    argument = json.dumps([paths, out, threads, cellular, BATCH, fidelity, report, record, instruction])
     env = dict(os.environ, PHENIQS_TP=shape, PHENIQS_TP_THRESHOLD=str(TP_THRESHOLD), WORLD_SIZE=str(ranks),
                LOCAL_WORLD_SIZE=str(ranks), MASTER_ADDR="localhost", MASTER_PORT=str(store.port),
                TORCHELASTIC_USE_AGENT_STORE="True")
@@ -2799,7 +2947,7 @@ def grid(card: str, threads: int, whitelist: Whitelist, tp_paths, tp_strict: str
     of the same batches (grid_vs_one_row), with rank 0's batch seconds and
     each rank's collective seconds. Returns the launches summed over the
     ranks of every run."""
-    from pheniqs_tpu_torch.benchmark import sam_decisions, synthesize_fastq_input
+    from pheniqs_tpu_torch.benchmark import sam_decisions
 
     start = time.perf_counter()
     report = os.path.join(WORK, "grid_report.json")
@@ -2809,10 +2957,9 @@ def grid(card: str, threads: int, whitelist: Whitelist, tp_paths, tp_strict: str
     say(f"[grid] {card} | PHENIQS_TP=2:2 report equal to 1:2's (integers exact, floats within rtol 1e-6)")
     if nccl:
         return total
-    paths = synthesize_fastq_input(os.path.join(WORK, "grid_whitelist"), N_GRID_WHITELIST,
-                                   ontology=whitelist.ontology)
-    out, record = os.path.join(WORK, "grid.sam"), os.path.join(WORK, "grid.pt")
-    lines, seconds = rank_run("2:2", paths, out, threads, cellular="whitelist", fidelity="fast", record=record)
+    paths, out, record = whitelist.inputs(N_GRID_WHITELIST), whitelist.output, os.path.join(WORK, "grid.pt")
+    lines, seconds = rank_run("2:2", paths, out, threads, cellular="whitelist", fidelity="fast", record=record,
+                              instruction=whitelist.instruction)
     records = sam_decisions(out)
     os.unlink(out)
     for name, count in tp_launches(card, "2:2", lines).items():
@@ -3379,27 +3526,108 @@ def slice_rule_times(takes_plan: bool) -> dict:
     return times
 
 
-def variant_library(source: str, define: str):
+def variant_library(source: str, define: str | None = None, swap: tuple[str, str] | None = None):
     """A diagnostic copy of one kernel source of the imported tree, built
-    alone with `define` set and loaded (argtypes as the package's), or None
-    where the source has no such macro (another commit)."""
+    alone and loaded (argtypes as the package's): with `define` set, or
+    with the text `swap[0]` replaced by `swap[1]` (a copy written into
+    WORK); None where the source has no such macro or text (another
+    commit)."""
+    return variant_libraries({define or swap[0]: (source, define, swap)})[define or swap[0]]
+
+
+def variant_libraries(variants: dict) -> dict:
+    """variant_library for each of `variants` (name -> (source, define,
+    swap)), their nvcc processes started together. Returns name ->
+    library or None."""
     import ctypes
+    import hashlib
 
     from pheniqs_tpu_torch.kernels import build
 
-    path = build.CSRC / source
-    if define.split("=")[0] not in path.read_text():
-        return None
     os.makedirs(WORK, exist_ok=True)
-    target = os.path.join(WORK, f"{path.stem}.{define.replace('=', '_')}.so")
-    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, f"-D{define}", "-shared", "-o", target, str(path)],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(target)
-    for name, argtypes in build.SIGNATURES.items():
-        if hasattr(lib, name):
-            getattr(lib, name).argtypes = list(argtypes)
-            getattr(lib, name).restype = ctypes.c_int
-    return lib
+    builds = {}
+    for name, (source, define, swap) in variants.items():
+        path = build.CSRC / source
+        text = path.read_text()
+        if (define.split("=")[0] if define else swap[0]) not in text:
+            builds[name] = None
+            continue
+        stem = hashlib.sha256(f"{source} {define} {swap}".encode()).hexdigest()[:12]
+        flags = [f"-D{define}"] if define else []
+        if swap:
+            path = os.path.join(WORK, f"{stem}.cu")
+            with open(path, "w") as stream:
+                stream.write(text.replace(swap[0], swap[1], 1))
+        target = os.path.join(WORK, f"{stem}.so")
+        builds[name] = (target, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, *flags, f"-I{build.CSRC}", "-shared", "-o", target, str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libraries = {}
+    for name, started in builds.items():
+        if started is None:
+            libraries[name] = None
+            continue
+        target, process = started
+        output, _ = process.communicate()
+        if process.returncode != 0:
+            raise RuntimeError(f"variant {name} did not build:\n{output[-4000:]}")
+        lib = ctypes.CDLL(target)
+        for entry, argtypes in build.SIGNATURES.items():
+            if hasattr(lib, entry):
+                getattr(lib, entry).argtypes = list(argtypes)
+                getattr(lib, entry).restype = ctypes.c_int
+        libraries[name] = lib
+    return libraries
+
+
+@contextlib.contextmanager
+def kernels_from(lib):
+    """The wrappers launch from `lib` (a variant_library) inside the
+    block: kernels.build.library swapped for it."""
+    from pheniqs_tpu_torch.kernels import build
+
+    library = build.library
+    build.library = lambda: lib
+    try:
+        yield
+    finally:
+        build.library = library
+
+
+def step_rows(ontology, instrument, n: int, seed: int, panels=None):
+    """The decision rows the decode step of `instrument` hands K4 and K5
+    on a j4 batch of `n` reads (flagship_blob): K3, then each decoder's
+    classify kernel, chained as the step chains them. Returns (Decisions,
+    tokens)."""
+    import torch
+
+    from pheniqs_tpu_torch.device import wire
+    from pheniqs_tpu_torch.device.step import DecodeStep
+    from pheniqs_tpu_torch.kernels import Decisions, mdd, pamld, unpack
+
+    cuda = torch.device("cuda")
+    widths, *arrays = flagship_blob(ontology, instrument, n, seed=seed, panels=panels)
+    blob, ccb, qcb = (torch.from_numpy(x).to(cuda) for x in arrays)
+    layout = DecodeStep(instrument, widths, wire.JOINT4, want_uncertain=True).layout
+    program = torch.from_numpy(layout.program).to(cuda)
+    tokens = unpack.unpack_tokens(instrument, layout, program, blob, ccb, qcb)
+    decisions = Decisions.zeros(len(instrument.decoders), n, cuda)
+    qcfail = tokens.qcfail
+    slot = 0
+    for k, dec in enumerate(instrument.decoders):
+        row = decisions.row(k)
+        if dec.algorithm in ("pamld", "mdd") and dec.plans:
+            codes, quals, lengths, short_rows = tokens.observation(layout, slot)
+            slot += 1
+            if dec.algorithm == "mdd":
+                mdd.mdd_classify(dec, codes, quals, lengths, qcfail, out=row)
+            else:
+                pamld.pamld_classify(dec, codes, quals, qcfail, tpq_constants=instrument.tpq_constants,
+                                     want_uncertain=True, eps=instrument.tpq_analytic_eps, short=short_rows, out=row)
+        else:
+            row["qcfail"].copy_(qcfail)
+        qcfail = row["qcfail"]
+    return decisions, tokens
 
 
 def wide_times() -> dict:
@@ -3462,7 +3690,7 @@ def unpack_mdd_times() -> dict:
     from pheniqs_tpu_torch.device.flagship import flagship_ontology, mdd_flagship_ontology
     from pheniqs_tpu_torch.device.instrument import compile_instrument
     from pheniqs_tpu_torch.device.step import DecodeStep
-    from pheniqs_tpu_torch.kernels import Decisions, mdd, pack, pamld, unpack
+    from pheniqs_tpu_torch.kernels import mdd, pack, pamld, unpack
     from pheniqs_tpu_torch.kernels.counters import counters
 
     cuda = torch.device("cuda")
@@ -3498,20 +3726,7 @@ def unpack_mdd_times() -> dict:
                     times[f"K6 {label} N={n} key table alone"] = device_ms(
                         lambda: mdd._launch(no_scan, dec, codes, quals, lengths, tokens.qcfail, out, stream))
             if label == "flagship" and n == N_KERNEL:
-                decisions = Decisions.zeros(len(instrument.decoders), n, cuda)
-                qcfail = tokens.qcfail
-                slot = 0
-                for k, dec in enumerate(instrument.decoders):
-                    row = decisions.row(k)
-                    if dec.algorithm == "pamld" and dec.plans:
-                        codes, quals, _, short_rows = tokens.observation(layout, slot)
-                        slot += 1
-                        pamld.pamld_classify(dec, codes, quals, qcfail, tpq_constants=instrument.tpq_constants,
-                                             want_uncertain=True, eps=instrument.tpq_analytic_eps,
-                                             short=short_rows, out=row)
-                    else:
-                        row["qcfail"].copy_(qcfail)
-                    qcfail = row["qcfail"]
+                decisions, tokens = step_rows(ontology, instrument, n, seed=96)
                 times["K4 flagship"] = device_ms(
                     lambda: counters(instrument, decisions, tokens.pad, tokens.forced, True))
                 times["K5 flagship"] = device_ms(
@@ -3535,7 +3750,149 @@ def unpack_mdd_times() -> dict:
 
 
 #: --times' sections, in the order they run (kernel_times)
-TIME_SECTIONS = ("pamld", "steps", "whitelist", "wide", "unpack_mdd", "wide_unpack_mdd", "rules")
+TIME_SECTIONS = ("pamld", "steps", "whitelist", "wide", "unpack_mdd", "wide_unpack_mdd", "rules", "epilogue")
+
+#: --times' K4 decoders beside WIDE_DECODERS' (epilogue_times)
+EPILOGUE_K4 = {
+    "flagship": K4_FLAGSHIP,
+    "mdd flagship": (("mdd", 96, 16), ("pamld", 384, 16), ("naive", 0, 0)),
+    "whitelist": (("pamld", 96, 16), ("pamld", 737_280, 16), ("naive", 0, 0)),
+}
+#: --times' K5 layouts (PACK_LAYOUTS' positions): the three paths' and
+#: WIDE_DECODERS'
+EPILOGUE_K5 = {"flagship": 0, "MDD flagship": 2, "whitelist fast": 3, "33 decoders": 8, "64 decoders": 9}
+#: --times' decoder counts where K4 runs under both instances, each on two
+#: patterns of decoders whose histograms all fit SHARED_LIMIT
+EPILOGUE_INSTANCES = (3, 4, 6, 8, 9, 12, 16, 24, 33)
+EPILOGUE_PATTERNS = {"flagship decoders": K4_FLAGSHIP,
+                     "wide decoders": (("pamld", 96, 16), ("mdd", 40, 8), ("naive", 0, 0))}
+#: --times' probes: diagnostic copies of K4's and K5's sources, each with
+#: one part taken out or one setting changed (variant_libraries' swaps)
+EPILOGUE_PROBES = {
+    "K4 without flush": ("counters.cu", None, ("  for (int d = first; d < stop; ++d) {\n    const int* entry",
+                                                "  for (int d = stop; d < stop; ++d) {\n    const int* entry")),
+    "K4 flags only": ("counters.cu", None, ("for (int c = t / 32; c < (stop - first) * chunks;",
+                                             "for (int c = t / 32; c < 0;")),
+    "K4 4 blocks an SM": ("counters.cu", None, ("#define PHQ_COUNTER_BLOCKS_PER_SM 3",
+                                                 "#define PHQ_COUNTER_BLOCKS_PER_SM 4")),
+    "K5 without fields": ("pack.cu", None, ("  if (n_fields > warps) {\n    int4* copy",
+                                             "  n_fields = 0;\n  if (n_fields > warps) {\n    int4* copy")),
+    "K5 4 rows at a time": ("pack.cu", None, ("#define PHQ_PACK_ROWS 8", "#define PHQ_PACK_ROWS 4")),
+}
+
+
+def epilogue_times() -> dict:
+    """--times' K4 and K5 rows at N_KERNEL reads by device time alone
+    (graph_ms: CUDA events around 3 replays of a CUDA graph of 10 calls)
+    and by torch.profiler (device_ms), each beside its bound: K4 on the
+    flagship's, the MDD flagship's and the whitelist's decoders (737,281
+    bins) and at WIDE_DECODERS (k4_case rows), K4 and K5 on the whitelist
+    step's own rows (step_rows: K7's decisions on a batch of its panel) in
+    hybrid and in fast mode, and K5 on random rows of EPILOGUE_K5's layouts
+    (pack_case). On a tree whose K4 takes a plan (counters.CounterPlan):
+    K4 under both instances at EPILOGUE_INSTANCES decoders of each of
+    EPILOGUE_PATTERNS, the grouped kernel where the plan is per-decoder,
+    at 1, 2 and 4 blocks an SM (counters.WAVES) and built as
+    EPILOGUE_PROBES' copies, and K5 as its probes and at 128 reads a
+    block (pack.MAX_BLOCK_READS); each probe as it stands: the rows it
+    leaves are not held."""
+    import dataclasses
+
+    import torch
+
+    from pheniqs_tpu_torch.kernels import counters, pack
+    from pheniqs_tpu_torch.tools.profile_step import graph_ms
+
+    cuda = torch.device("cuda")
+    times = {}
+    planned = hasattr(counters, "CounterPlan")
+    probes = variant_libraries(EPILOGUE_PROBES) if planned else {}
+    k4 = dict(EPILOGUE_K4, **{f"{d} decoders": ((("pamld", 96, 16), ("mdd", 40, 8), ("naive", 0, 0)) * 22)[:d]
+                               for d in WIDE_DECODERS})
+    for label, decoders in k4.items():
+        instrument, arrays = k4_case(label, N_KERNEL, decoders=decoders)
+        rows, pad, forced = k4_tensors(arrays, cuda)
+
+        def call(**kwargs):
+            return counters._launch(instrument, rows, pad, forced, True, **kwargs)
+
+        times[f"K4 {label}"] = graph_ms(call)[0]
+        times[f"K4 {label} profiler"] = device_ms(call)
+        times[f"K4 {label} bound"] = bound({"bytes": k4_bytes(instrument, N_KERNEL)})[0]
+        if not planned:
+            continue
+        plan = counters.counter_plan(instrument)
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        times[f"K4 {label} plan"] = {"groups": len(plan.groups), "tile": plan.tile(N_KERNEL, sms),
+                                     "per_decoder": plan.per_decoder}
+        grouped = dataclasses.replace(plan, per_decoder=False)
+        if plan.per_decoder:
+            times[f"K4 {label} grouped"] = graph_ms(lambda: call(plan=grouped))[0]
+        waves = counters.WAVES
+        try:
+            for blocks in (1, 2, 4):
+                counters.WAVES = blocks
+                times[f"K4 {label} grouped, waves {blocks}"] = graph_ms(lambda: call(plan=grouped))[0]
+            for name in ("K4 without flush", "K4 flags only", "K4 4 blocks an SM"):
+                counters.WAVES = 4 if name == "K4 4 blocks an SM" else waves
+                with kernels_from(probes[name]):
+                    times[f"{name}, {label}"] = graph_ms(lambda: call(plan=grouped))[0]
+        finally:
+            counters.WAVES = waves
+    if planned:
+        for pattern, unit in EPILOGUE_PATTERNS.items():
+            for d in EPILOGUE_INSTANCES:
+                instrument, arrays = k4_case(pattern, N_KERNEL, decoders=(unit * 11)[:d])
+                rows, pad, forced = k4_tensors(arrays, cuda)
+                plan = counters.counter_plan(instrument)
+                for per_decoder in (True, False):
+                    other = dataclasses.replace(plan, per_decoder=per_decoder)
+                    times[f"K4 {d} {pattern} {'per-decoder' if per_decoder else 'grouped'}"] = graph_ms(
+                        lambda: counters._launch(instrument, rows, pad, forced, True, plan=other))[0]
+                times[f"K4 {d} {pattern} planned"] = "per-decoder" if plan.per_decoder else "grouped"
+    whitelist = Whitelist()
+    decisions, tokens = step_rows(whitelist.ontology, whitelist.instrument, N_KERNEL, seed=737,
+                                  panels=whitelist.panels)
+    for mode, hybrid in (("hybrid", True), ("fast", False)):
+        def counted():
+            return counters.counters(whitelist.instrument, decisions, tokens.pad, tokens.forced, hybrid)
+
+        def packed():
+            return pack.pack_outputs(whitelist.instrument, decisions, tokens.forced, hybrid)
+
+        times[f"K4 whitelist step rows, {mode}"] = graph_ms(counted)[0]
+        times[f"K4 whitelist step rows, {mode}, profiler"] = device_ms(counted)
+        times[f"K5 whitelist step rows, {mode}"] = graph_ms(packed)[0]
+    valid = ~tokens.pad & ~counters.uncertain_any(whitelist.instrument, decisions, tokens.forced, True)
+    times["whitelist step rows, valid share in hybrid"] = f"{float(valid.float().mean()):.6f}"
+    for label, layout in EPILOGUE_K5.items():
+        _, decoders, hybrid = PACK_LAYOUTS[layout]
+        instrument, decisions, forced = pack_case(decoders, N_KERNEL, seed=layout, device=cuda)
+        plan = pack.pack_plan(instrument, hybrid)
+
+        def call():
+            return pack.pack_outputs(instrument, decisions, forced, hybrid)
+
+        times[f"K5 {label}"] = graph_ms(call)[0]
+        times[f"K5 {label} profiler"] = device_ms(call)
+        times[f"K5 {label} bound"] = bound({"bytes": pack_bytes(plan, len(decoders), N_KERNEL, hybrid)})[0]
+        if not planned:
+            continue
+        for name in ("K5 without fields", "K5 4 rows at a time"):
+            with kernels_from(probes[name]):
+                times[f"{name}, {label}"] = graph_ms(call)[0]
+        reads = pack.MAX_BLOCK_READS
+        try:
+            pack.MAX_BLOCK_READS = 128
+            half, _, _ = pack_case(decoders, N_KERNEL, seed=layout, device=cuda)
+            times[f"K5 {label} 128 reads a block"] = graph_ms(lambda: pack.pack_outputs(half, decisions, forced,
+                                                                                      hybrid))[0]
+        finally:
+            pack.MAX_BLOCK_READS = reads
+    for key, value in times.items():
+        say(f"[times] {key}: {value if isinstance(value, (dict, str)) else f'{value:.4f} ms'}")
+    shutil.rmtree(WORK, ignore_errors=True)
+    return times
 
 
 def wide_unpack_mdd_times() -> dict:
@@ -3666,6 +4023,8 @@ def kernel_times(card: str, tree: str, sections=TIME_SECTIONS):
         times.update(slice_rule_times(takes_plan))
         if takes_plan:
             times["cut sweep"] = slice_cut_sweep()
+    if "epilogue" in sections:
+        times.update(epilogue_times())
     say(json.dumps({"tree": tree, "card": card, "n": N_KERNEL, "device_ms": times}))
 
 
@@ -3709,6 +4068,7 @@ def main() -> int:
         laps[name] = round(now - clock[0], 1)
         clock[0] = now
 
+    compiler = None
     try:
         build_kernels()
         lap("build")
@@ -3719,6 +4079,7 @@ def main() -> int:
             say(json.dumps({"ok": True, "device": {
                 "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
             return 0
+        compiler = precompile_whitelist(threads)
         measured = kernel_checks()
         lap("kernels")
         k4_edge_checks()
@@ -3760,6 +4121,7 @@ def main() -> int:
                 f" max |kernel - plain| {m['max_abs_err']:.3e}")
         b, ms, plain_ms = measured["chunked_4096"]
         say(f"[kernels] {card} | pamld_chunked B={b} N={N_KERNEL}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        whitelist.compiled = precompiled(compiler)
         decided = decisions_vs_strict("flagship", flagship_ontology(), N_DECISIONS, threads, keep_strict=True)
         decisions_vs_strict("mdd flagship", mdd_flagship_ontology(), N_DECISIONS, threads)
         tp_paths, tp_strict = decisions_vs_strict(
@@ -3767,7 +4129,8 @@ def main() -> int:
             keep_strict=True,
         )
         decisions_vs_strict("whitelist flagship", whitelist.ontology, N_WHITELIST_STRICT, threads,
-                            fidelity="fast", limit=WHITELIST_FAST_LIMIT)
+                            fidelity="fast", limit=WHITELIST_FAST_LIMIT, paths=whitelist.inputs(N_WHITELIST_STRICT),
+                            port_sam=whitelist.output, compiled=whitelist.compiled)
         lap("decisions")
         counts, flagship_paths = throughput(card, threads, whitelist)
         lap("throughput")
@@ -3802,6 +4165,9 @@ def main() -> int:
         tools(card, threads, flagship_paths)
         lap("tools")
     finally:
+        if compiler is not None and compiler.poll() is None:
+            compiler.kill()
+            compiler.wait()
         shutil.rmtree(WORK, ignore_errors=True)
 
     standalone_check()

@@ -61,11 +61,13 @@ def synthesize_fastq_input(
     seed: int = 20260818,
     chunk: int = 1 << 17,
     ontology: dict | None = None,
+    panels=None,
 ) -> list[str]:
     """Write the flagship workload (reads drawn from the panels of
-    `ontology`, the flagship's by default) as 4 per-segment FASTQ files
-    (R1, I7, I5, R2). Returns their paths; a finished set for the same
-    (directory, size, seed) is reused."""
+    `ontology`, the flagship's by default; `panels` its panel_codes where
+    the caller holds them) as 4 per-segment FASTQ files (R1, I7, I5, R2).
+    Returns their paths; a finished set for the same (directory, size,
+    seed) is reused."""
     from .native import fastq_format_batch
 
     directory = f"{directory}_{n_reads}_{seed}"
@@ -79,7 +81,7 @@ def synthesize_fastq_input(
         return paths
 
     ontology = ontology if ontology is not None else flagship_ontology()
-    panels = panel_codes(ontology)
+    panels = panel_codes(ontology) if panels is None else panels
     streams = [open(p, "wb") for p in paths]
     try:
         written = 0
@@ -162,6 +164,22 @@ def e2e_ontology(paths: list[str], output_url: str, threads: int, base: dict | N
         return job.compiler.compile()
     finally:
         os.unlink(config_path)
+
+
+def with_inputs(compiled: dict, paths: list[str]) -> dict:
+    """`compiled` (an instruction e2e_ontology compiled) reading `paths`,
+    files of the same layout, in place of its own inputs: its input URLs
+    and input feeds replaced, every other part shared with it. So a
+    whitelist-sized codec, ~80 s of compiling, serves runs over several
+    inputs."""
+    if len(paths) != len(compiled["input"]):
+        raise ValueError(f"with_inputs: {len(paths)} paths for {len(compiled['input'])} inputs")
+    urls = {url: os.path.abspath(path) + url[len(url.split("?")[0]):] for url, path in zip(compiled["input"], paths)}
+    feeds: dict = {}
+    feed = dict(compiled["feed"])
+    for key in ("input feed", "input feed by segment"):
+        feed[key] = [feeds.setdefault(id(f), dict(f, url=urls[f["url"]])) for f in feed[key]]
+    return dict(compiled, input=[urls[url] for url in compiled["input"]], feed=feed)
 
 
 class _TimedMixin:
@@ -273,6 +291,7 @@ def run_e2e(
     ontology: dict | None = None,
     devices=None,
     report_url: str | None = None,
+    compiled: dict | None = None,
 ) -> dict:
     """Run the end-to-end engine over `paths` with the decoders of
     `ontology` (the flagship's by default), returning throughput stats
@@ -282,7 +301,10 @@ def run_e2e(
     slices a device engine cut each batch into (0 for strict).
     ``devices`` is a count, the ontology's ``"devices"`` cap on the local
     cards, or a list of devices (cards may repeat). ``report_url`` names a
-    file to write the run's report to as JSON. Under ``PHENIQS_TP`` every
+    file to write the run's report to as JSON. ``compiled`` is the
+    instruction e2e_ontology compiled for the same decoders, output and
+    threads on other inputs of this layout, run on `paths` (with_inputs)
+    where it would be compiled again. Under ``PHENIQS_TP`` every
     rank calls it: rank 0 runs the engine; the leader of each other row
     decodes its row's slices (``tp.lead_row``) and every other rank
     follows its row's device steps (``tp.follow``); those return None."""
@@ -294,7 +316,10 @@ def run_e2e(
         (lead_row if is_row_leader() else follow)(device)
         return None
     base = ontology if ontology is not None else flagship_ontology()
-    ontology = e2e_ontology(paths, output_url, threads, base)
+    if compiled is not None:
+        ontology = with_inputs(compiled, paths)
+    else:
+        ontology = e2e_ontology(paths, output_url, threads, base)
     if isinstance(devices, int):
         ontology["devices"] = devices
         devices = None

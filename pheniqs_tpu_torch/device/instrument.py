@@ -165,9 +165,11 @@ class DeviceInstrument:
     tpq_constants: torch.Tensor  # (24,) f32 on device (tpq_constants())
     used_segments: tuple[int, ...] = ()
     tpq_analytic_eps: float = 0.0
-    #: K5's plans by want_uncertain (kernels/pack.py:pack_plan), made on
+    #: K5's plans by want_uncertain (kernels/pack.py:pack_plan) and K4's
+    #: with their device tables (kernels/counters.py:counter_plan), made on
     #: first use; dataclasses.replace starts a new instrument's afresh
     pack_plans: dict = field(default_factory=dict, init=False, repr=False, compare=False)
+    counter_plans: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
 
 def _plans_from_rule(spec: DecoderSpec) -> tuple[list[TokenPlan], list[int]]:

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from ..errors import ConfigurationError
@@ -150,10 +149,3 @@ def uncertain_mask(instrument, want_uncertain: bool) -> int:
     return sum(
         1 << k for k, dec in enumerate(instrument.decoders) if dec.algorithm == "pamld"
     )
-
-
-def mask_words(mask: int, decoders: int) -> np.ndarray:
-    """A decoder bit mask as the kernels take it: ceil(decoders / 32)
-    uint32 words (at least one), bit k & 31 of word k >> 5 for decoder k."""
-    words = max(1, -(-decoders // 32))
-    return np.array([(mask >> (32 * k)) & 0xFFFFFFFF for k in range(words)], dtype=np.uint32)

@@ -50,8 +50,8 @@ SIGNATURES = {
     "phq_mdd": (_P,) * 14,
     "phq_tpq_eval": (_P, _I, _P, _P, _P),
     "phq_features": (_P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P),
-    "phq_counters": (_I,) * 5 + (_P,) * 13,
-    "phq_pack": (_I, _I, _P) + (_I,) * 7 + (_P,) * 7,
+    "phq_counters": (_I,) * 11 + (_P,) * 12,
+    "phq_pack": (_I,) * 6 + (_P,) * 8,
 }
 
 _LIBRARY = None
@@ -108,6 +108,8 @@ def build() -> Path:
         for source, process in zip(sources(), compiles)
         if process.returncode != 0
     ]
+    # the failed sources' own output: the others' ptxas reports would bury it
+    failures = "".join(text for text, process in zip(logs, compiles) if process.returncode != 0)
     partial = target.with_suffix(f".{os.getpid()}.tmp")
     if not failed:
         link = subprocess.run(
@@ -123,7 +125,7 @@ def build() -> Path:
         obj.unlink(missing_ok=True)
     if failed:
         partial.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({'; '.join(failed)}):\n{log[-6000:]}")
+        raise RuntimeError(f"nvcc failed ({'; '.join(failed)}):\n{(failures or log)[-6000:]}")
     os.replace(partial, target)
     return target
 

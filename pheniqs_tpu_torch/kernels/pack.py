@@ -8,8 +8,10 @@ chained qcfail bits and, in hybrid mode, the uncertain byte
 On a CPU tensor the plain version below builds the same bytes with torch
 views (the port of the pack_outputs block of
 ``pheniqs_tpu.device.step.make_decode_step``). ``pack_plan`` holds what
-the kernel takes for one instrument: the layout, its masks and the reads
-a block."""
+the kernel takes for one instrument: the layout, the reads a block, and
+the fields of a row with the input rows each reads (its sources);
+``pack_outputs_sources`` assembles the fields in torch, as the kernel
+does."""
 
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from ..device.wire import d2h_layout
-from . import Decisions, mask_words, uncertain_mask
+from . import Decisions, uncertain_mask
 from .counters import uncertain_any
 
 #: launches of the CUDA kernel in this process
@@ -34,6 +36,13 @@ SHARED_BYTES = 48 * 1024
 #: the fewest reads a block stages: past SHARED_BYTES / 32 bytes a row
 #: (some 250 decoders) the rows are assembled in place
 MIN_STAGED_READS = 32
+#: a source's input array (csrc/pack.cu): 4-byte decoded and confidence
+#: rows, then byte rows
+DECODED, CONFIDENCE, QCFAIL, UNCERTAIN, FORCED = range(5)
+#: a field of the row: one source's low `size` bytes stored; a qcfail
+#: byte, bit j its j-th source's (value != 0); the uncertain byte, 1 where
+#: any of its sources is nonzero
+STORE, BITS, ANY = range(3)
 
 
 @dataclass(frozen=True)
@@ -41,8 +50,10 @@ class PackPlan:
     """What K5 takes for one instrument and hybrid flag: the d2h layout
     (device.wire.d2h_layout), the bit masks of the decoders with a decoded
     index, a confidence and an uncertain row that counts, ``reads`` a
-    block, and whether the block stages its rows in shared memory
-    (``staged``) or assembles them in place."""
+    block, whether the block stages its rows in shared memory (``staged``)
+    or assembles them in place, the input rows the fields read
+    (``sources``: array, row) and the row's ``fields`` in layout order
+    (kind, first source, sources, byte of the row, bytes)."""
 
     layout: dict
     decoded_mask: int
@@ -51,18 +62,52 @@ class PackPlan:
     reads: int
     staged: bool = True
     decoders: int = 0
+    sources: tuple[tuple[int, int], ...] = ()
+    fields: tuple[tuple[int, int, int, int, int], ...] = ()
 
     @property
     def shared_bytes(self) -> int:
+        """Shared bytes of the block's assembled rows."""
         return (self.reads * self.layout["total"] + 15) // 16 * 16 if self.staged else 0
 
-    def masks(self) -> np.ndarray:
-        """The three masks as the kernel takes them: decoded, confidence,
-        uncertain, each kernels.mask_words of the decoder count, one uint32
-        array."""
-        d = self.decoders
-        return np.concatenate([mask_words(m, d) for m in (self.decoded_mask, self.confidence_mask,
-                                                           self.uncertain_mask)])
+    @property
+    def block_bytes(self) -> int:
+        """Every shared byte a block takes: its rows and, where there are
+        more fields than warps, a copy of the table (16 bytes a source and
+        a field; csrc/pack.cu)."""
+        if not self.staged:
+            return 0
+        table = 16 * (len(self.sources) + len(self.fields)) if len(self.fields) > self.reads // 32 else 0
+        return self.shared_bytes + table
+
+    def ints(self) -> np.ndarray:
+        """The table as the kernel takes it: an int4 a source (array, row,
+        0, 0), then an int4 a field (kind | bytes << 4, first source,
+        sources, byte of the row)."""
+        rows = [(array, row, 0, 0) for array, row in self.sources]
+        rows += [(kind | size << 4, first, count, offset) for kind, first, count, offset, size in self.fields]
+        return np.array([x for r in rows for x in r], dtype=np.int32)
+
+
+def _fields(layout: dict, decoders: int, uncertain: int, want_uncertain: bool) -> tuple[tuple, tuple]:
+    """(sources, fields): each field of a row in layout order, each
+    decoded index and confidence stored, each qcfail byte packed from up
+    to 8 decoders' rows and, in hybrid mode, the uncertain byte from the
+    counted uncertain rows and the forced row; its sources consecutive."""
+    size = layout["index_size"]
+    fields = [(STORE, [(DECODED, k)], size * j, size) for j, k in enumerate(layout["decoded_positions"])]
+    fields += [(STORE, [(CONFIDENCE, k)], layout["float_offset"] + 4 * j, 4)
+               for j, k in enumerate(layout["confidence_positions"])]
+    fields += [(BITS, [(QCFAIL, k) for k in range(8 * byte, min(decoders, 8 * byte + 8))],
+                layout["qcfail_offset"] + byte, 1) for byte in range(layout["qcfail_bytes"])]
+    if want_uncertain:
+        rows = [(UNCERTAIN, k) for k in range(decoders) if (uncertain >> k) & 1] + [(FORCED, 0)]
+        fields.append((ANY, rows, layout["uncertain_offset"], 1))
+    sources, placed = [], []
+    for kind, rows, offset, size in fields:
+        placed.append((kind, len(sources), len(rows), offset, size))
+        sources.extend(rows)
+    return tuple(sources), tuple(placed)
 
 
 def pack_plan(instrument, want_uncertain: bool) -> PackPlan:
@@ -75,28 +120,54 @@ def pack_plan(instrument, want_uncertain: bool) -> PackPlan:
         layout = d2h_layout(instrument, want_uncertain)
         reads = min(MAX_BLOCK_READS, SHARED_BYTES // layout["total"] // 32 * 32)
         staged = reads >= MIN_STAGED_READS
+        reads = reads if staged else MAX_BLOCK_READS
+        decoders = len(instrument.decoders)
+        uncertain = uncertain_mask(instrument, want_uncertain)
+        sources, fields = _fields(layout, decoders, uncertain, want_uncertain)
         plans[want_uncertain] = PackPlan(
             layout=layout,
             decoded_mask=sum(1 << k for k in layout["decoded_positions"]),
             confidence_mask=sum(1 << k for k in layout["confidence_positions"]),
-            uncertain_mask=uncertain_mask(instrument, want_uncertain),
-            reads=reads if staged else MAX_BLOCK_READS,
+            uncertain_mask=uncertain,
+            reads=reads,
             staged=staged,
-            decoders=len(instrument.decoders),
+            decoders=decoders,
+            sources=sources,
+            fields=fields,
         )
     return plans[want_uncertain]
 
 
-_MASKS: dict = {}
+def _device_table(instrument, plan: PackPlan, device) -> torch.Tensor:
+    """The plan's table (PackPlan.ints) on `device`, made once and cached
+    on the instrument beside the plan."""
+    key = (plan.layout["total"], plan.uncertain_mask, str(device))
+    plans = instrument.pack_plans
+    if key not in plans:
+        plans[key] = torch.from_numpy(plan.ints()).to(device)
+    return plans[key]
 
 
-def _device_masks(plan: PackPlan, device) -> torch.Tensor:
-    """The plan's masks (PackPlan.masks) on `device`, made once."""
-    masks = plan.masks()
-    key = (masks.tobytes(), str(device))
-    if key not in _MASKS:
-        _MASKS[key] = torch.from_numpy(masks.view(np.int32)).to(device)
-    return _MASKS[key]
+def pack_outputs_sources(plan: PackPlan, decisions: Decisions, forced) -> torch.Tensor:
+    """The kernel's assembly of its plan's fields, in torch: the (N *
+    total,) uint8 blob; for the tests."""
+    n = decisions.decoded.shape[1]
+    out = torch.zeros((n, plan.layout["total"]), dtype=torch.int64, device=decisions.decoded.device)
+    arrays = {DECODED: decisions.decoded.view(torch.int32), CONFIDENCE: decisions.confidence.view(torch.int32),
+              QCFAIL: decisions.qcfail, UNCERTAIN: decisions.uncertain}
+
+    def value(source):
+        array, row = plan.sources[source]
+        return (forced if array == FORCED else arrays[array][row]).to(torch.int64) & 0xFFFFFFFF
+
+    for kind, first, count, offset, size in plan.fields:
+        if kind == STORE:
+            for b in range(size):
+                out[:, offset + b] = (value(first) >> (8 * b)) & 0xFF
+        else:
+            bits = [(value(first + j) != 0).to(torch.int64) << (j if kind == BITS else 0) for j in range(count)]
+            out[:, offset] = torch.stack(bits).amax(0) if kind == ANY else torch.stack(bits).sum(0)
+    return out.to(torch.uint8).reshape(-1)
 
 
 def pack_outputs_plain(instrument, decisions: Decisions, forced, want_uncertain: bool):
@@ -159,14 +230,11 @@ def _launch(lib, instrument, decisions: Decisions, forced, want_uncertain, out, 
     from .build import check
 
     plan = pack_plan(instrument, want_uncertain)
-    layout = plan.layout
-    d, n = decisions.decoded.shape
-    masks = _device_masks(plan, decisions.decoded.device)
+    n = decisions.decoded.shape[1]
+    table = _device_table(instrument, plan, decisions.decoded.device)
     status = lib.phq_pack(
-        n, d, masks.data_ptr(), masks.numel() // 3,
-        layout["index_size"], layout["qcfail_bytes"], int(want_uncertain),
-        layout["total"], plan.reads, int(plan.staged),
-        decisions.decoded.data_ptr(), decisions.confidence.data_ptr(),
+        n, plan.layout["total"], plan.reads, int(plan.staged), len(plan.sources), len(plan.fields),
+        table.data_ptr(), decisions.decoded.data_ptr(), decisions.confidence.data_ptr(),
         decisions.qcfail.data_ptr(), decisions.uncertain.data_ptr(),
         forced.data_ptr() if want_uncertain else None, out.data_ptr(), stream,
     )

@@ -23,8 +23,9 @@ Each rung reports latency (synchronize after every call), pipelined time
 (``--depth`` calls in flight, then synchronize on the oldest, as the
 engine's lookahead keeps calls in flight), both as reads/s, and on a GPU
 ``device_ms``, the summed time of the CUDA kernels and copies of one call
-(torch.profiler), and ``launches``, the device activities one call puts on
-the card. The gap between latency and device time is the host's launch
+(torch.profiler; where a trace drops a kernel, the replay of a CUDA graph
+of the calls, ``graph_ms``), and ``launches``, the device activities one
+call puts on the card. The gap between latency and device time is the host's launch
 cost. Calls cycle distinct resident buffers. ``full`` also runs a
 batch-size sweep (``--sweep``): if reads/s grows with the batch while the
 latency stays flat, the per-call cost is the wall; each full rung is held
@@ -138,7 +139,7 @@ KERNEL_SYMBOLS = (
     (("unpack_tokens",), ("phq_unpack_kernel", "phq_unpack_columns_kernel")),
     (("pamld_classify", "pamld_chunked", "pamld_panel_sharded"), ("phq_pamld_kernel", "phq_pamld_merge_kernel")),
     (("mdd_classify",), ("phq_mdd_kernel", "phq_mdd_wide_kernel")),
-    (("counters",), ("phq_counters_accumulate",)),
+    (("counters",), ("phq_counters_accumulate", "phq_counters_decoder")),
     (("pack_outputs",), ("phq_pack_kernel",)),
 )
 
@@ -198,14 +199,51 @@ def _counts(short: dict) -> str:
     return ", ".join(f"{names}: {have} in the trace, {want} launched" for names, (want, have) in short.items())
 
 
+def graph_ms(fn, reps: int = 10, replays: int = 3) -> tuple[float, dict]:
+    """(milliseconds a call, {kernel: launches a call}) of `fn` by device
+    time alone: after a warm-up call, `reps` calls captured into one CUDA
+    graph, the wrappers' launch counts (kernels.launch_counts) read just
+    before and just after the capture; then CUDA events around `replays`
+    replays of the graph, after one untimed. A replay puts the captured
+    kernels and copies on the card back to back, so neither the host's
+    time nor a launch gap between the calls is counted. Raises
+    RuntimeError where `fn` cannot be captured (it waits on the card) or a
+    kernel's launches are not the same in every call."""
+    from ..kernels import launch_counts
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = launch_counts()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    launched = {name: count - before[name] for name, count in launch_counts().items()}
+    uneven = {name: count for name, count in launched.items() if count % reps}
+    if uneven:
+        raise RuntimeError(f"launches over {reps} captured calls not a multiple of them: {uneven}")
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * reps), {name: count // reps for name, count in launched.items()}
+
+
 def device_ms(fn, reps: int = 10) -> float:
     """Device milliseconds per call of `fn`: the summed time of the CUDA
     kernels and copies it launched, from torch.profiler over `reps` calls
     (host launch overhead between them is not counted). A trace that holds
     fewer of a wrapper's kernels than it launched (profiled) is taken
     again; after a second such try, or a trace with no device time, the
-    time comes from CUDA events (event_ms, launch gaps included) and a
-    line on standard error gives the counts."""
+    time comes from the replay of a CUDA graph of `reps` calls (graph_ms:
+    device time alone) and a line on standard error gives the counts;
+    only where `fn` cannot be captured, from CUDA events over back-to-back
+    calls (event_ms, launch gaps included), and the line says so."""
     fn()
     torch.cuda.synchronize()
     prof, short = profiled(fn, reps)
@@ -216,8 +254,15 @@ def device_ms(fn, reps: int = 10) -> float:
         why = "no device time"
     else:
         why = f"no whole trace of the kernels' launches, twice ({_counts(short)})"
-    print(f"[profile_step] torch.profiler held {why}: timed with CUDA events", file=sys.stderr, flush=True)
-    return event_ms(fn, reps)
+    try:
+        ms = graph_ms(fn, reps)[0]
+    except RuntimeError as error:
+        print(f"[profile_step] torch.profiler held {why}, and the calls could not be captured in a CUDA graph"
+              f" ({error}): timed with CUDA events, launch gaps included", file=sys.stderr, flush=True)
+        return event_ms(fn, reps)
+    print(f"[profile_step] torch.profiler held {why}: timed by the replay of a CUDA graph", file=sys.stderr,
+          flush=True)
+    return ms
 
 
 def device_launches(fn, tries: int = 2) -> dict:

@@ -76,3 +76,43 @@ def test_strict_runs_compile_with_the_reference_compiler(tmp_path):
     for key in ("program", "full command"):
         reference.pop(key), port.pop(key)
     assert reference == port
+
+
+def test_with_inputs_runs_a_compiled_instruction_on_other_inputs(tmp_path, monkeypatch):
+    """An instruction compiled on some inputs, pointed at other files of
+    the same layout, equals the instruction compiled on those (but for the
+    name of the temporary configuration it was read from), leaves the
+    compiled one as it was, and runs (twice, compiling nothing) to the
+    same SAM as a run that compiles."""
+    import copy
+
+    from pheniqs_tpu_torch.device.flagship import flagship_ontology
+
+    ontology = flagship_ontology()
+    small = benchmark.synthesize_fastq_input(str(tmp_path / "small"), 16, ontology=ontology)
+    large = benchmark.synthesize_fastq_input(str(tmp_path / "large"), 64, ontology=ontology)
+    out = str(tmp_path / "out.sam")
+    compiled = benchmark.e2e_ontology(small, out, 2, ontology)
+    kept = copy.deepcopy(compiled)
+    volatile = ("full command", "program")
+    moved = benchmark.with_inputs(compiled, large)
+    fresh = benchmark.e2e_ontology(large, out, 2, ontology)
+    assert {k: v for k, v in moved.items() if k not in volatile} == {
+        k: v for k, v in fresh.items() if k not in volatile}
+    assert compiled == kept
+    with pytest.raises(ValueError):
+        benchmark.with_inputs(compiled, large[:3])
+
+    benchmark.run_e2e(large, out, fidelity="strict", threads=2, batch_size=32, device="cpu", ontology=ontology)
+    expected = benchmark.sam_decisions(out)
+    import pheniqs_tpu_torch.job as job
+
+    built = []
+    original = job.TranscodeJob
+    monkeypatch.setattr(job, "TranscodeJob", lambda *args: built.append(args) or original(*args))
+    for _ in range(2):
+        os.unlink(out)
+        stats = benchmark.run_e2e(large, out, fidelity="strict", threads=2, batch_size=32, device="cpu",
+                                  ontology=ontology, compiled=compiled)
+        assert stats["reads"] == 64 and benchmark.sam_decisions(out) == expected
+    assert not built and compiled == kept

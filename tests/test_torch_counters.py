@@ -130,7 +130,8 @@ def test_decoder_table_follows_counter_layout(monkeypatch):
             assert b1 == dec.barcode_count + 1
             assert kind == {"pamld": 2, "mdd": 1}.get(dec.algorithm, 0)
             assert wide_at == (wide if kind == 2 else -1)
-            histogram = b1 * (4 * cols + 16 * (kind == 2))
+            # a PAMLD decoder's two fixed-point sums in three 4-byte pieces each
+            histogram = b1 * (4 * cols + 24 * (kind == 2))
             assert shared == (histogram if histogram <= counters.SHARED_LIMIT else 0)
             offset += b1 * cols
             wide += 2 * b1 if kind == 2 else 0
@@ -219,3 +220,171 @@ def test_counters_slice_a_batch_past_the_f32_limit():
         np.testing.assert_array_equal(got, expected.astype(np.float64), err_msg=f"{dec.algorithm} {column}")
         big = max(big, int(expected.max()))
     assert big > 2**24 and big % 2 == 1
+
+
+#: K4 plan cases: name -> decoders as (algorithm, barcodes, width)
+PLAN_CASES = {
+    "1 decoder": (("pamld", 96, 16),),
+    "flagship": (("pamld", 96, 16), ("pamld", 384, 16), ("naive", 0, 0)),
+    "whitelist": (("pamld", 96, 16), ("pamld", 737_280, 16), ("naive", 0, 0)),
+    "33 decoders": (("pamld", 96, 16), ("mdd", 40, 8), ("naive", 0, 0)) * 11,
+    "64 decoders": ((("pamld", 96, 16), ("mdd", 40, 8), ("naive", 0, 0)) * 22)[:64],
+    "300 decoders": (("pamld", 96, 16), ("mdd", 40, 8), ("naive", 0, 0)) * 100,
+}
+
+
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+@pytest.mark.parametrize("n", [1, 4096 + 37, 131072, 2**20 - 1])
+def test_counter_plan_covers_every_decoder_and_read(name, n):
+    """K4's plan: every decoder in exactly one group, the groups in order
+    and each histogram 16-byte aligned inside its group's bytes; a group
+    of several decoders within GROUP_BYTES; every read in exactly one tile
+    (a multiple of TILE_UNIT, at most MAX_TILE); a block's shared bytes
+    within SHARED_MAX; the grid about WAVES blocks an SM of an H100 where
+    the batch allows; the flagship's decoders in one group."""
+    instrument, _ = k4_case(name, 0, decoders=PLAN_CASES[name])
+    plan = counters.counter_plan(instrument)
+    d = len(instrument.decoders)
+    assert [first for first, _, _ in plan.groups] == [0] + [stop for _, stop, _ in plan.groups[:-1]]
+    assert plan.groups[-1][1] == d and all(first < stop for first, stop, _ in plan.groups)
+    for first, stop, group_bytes in plan.groups:
+        sizes = [-(-row[5] // 16) * 16 for row in plan.table.rows[first:stop]]
+        assert [plan.smem[k] for k in range(first, stop)] == [sum(sizes[:j]) for j in range(len(sizes))]
+        assert group_bytes == sum(sizes) and group_bytes % 16 == 0
+        assert stop - first == 1 or group_bytes <= counters.GROUP_BYTES
+    tile = plan.tile(n, 132)
+    tiles = -(-n // tile)
+    assert tile % counters.TILE_UNIT == 0 and tile <= counters.MAX_TILE
+    assert (tiles - 1) * tile < n <= tiles * tile
+    assert plan.shared_bytes(tile) <= counters.SHARED_MAX and plan.flags_at % 16 == 0
+    # the shortest tile whose grid stays within about WAVES blocks an SM
+    target = -(-counters.WAVES * 132 // len(plan.groups))
+    assert tiles <= target or tile == counters.MAX_TILE
+    if tile > counters.TILE_UNIT:
+        assert -(-n // (tile - counters.TILE_UNIT)) > target
+    if name in ("1 decoder", "flagship", "whitelist"):
+        assert len(plan.groups) == 1
+    # the per-decoder instance: every histogram shared, small together
+    assert plan.per_decoder == (name in ("1 decoder", "flagship", "33 decoders"))
+    assert plan.decoder_bytes <= max(row[5] for row in plan.table.rows) or not plan.per_decoder
+    assert plan.uncertain_rows == tuple(k for k, dec in enumerate(instrument.decoders) if dec.algorithm == "pamld")
+
+
+#: K4's instances timed on the card (chip_smoke.py --times, epilogue;
+#: PERF.md PR 16): (decoders repeated, count) -> whether the per-decoder
+#: instance was the faster by more than 3 % (the counts where the two
+#: were closer are left out)
+INSTANCE_READINGS = {
+    **{(K4_CASES["flagship"][0], d): d < 8 for d in (3, 4, 12, 16, 24, 33)},
+    **{(K4_CASES["33 decoders"][0][:3], d): True for d in (3, 4, 6, 8, 9, 12, 16, 24, 33)},
+}
+
+
+@pytest.mark.parametrize("unit, d", list(INSTANCE_READINGS), ids=[
+    f"{'wide' if unit[1][0] == 'mdd' else 'flagship'}-{d}" for unit, d in INSTANCE_READINGS])
+def test_instance_is_the_one_the_card_timed_faster(unit, d):
+    """counter_plan takes the per-decoder instance exactly where the
+    card timed it faster than the grouped kernel, on flagship-like
+    decoders (PAMLD 96 and 384, naive) and on small ones (PAMLD 96, MDD
+    40, naive), by the histograms' bytes together (PER_DECODER_BYTES)."""
+    instrument, _ = k4_case("instances", 0, decoders=(unit * 11)[:d])
+    plan = counters.counter_plan(instrument)
+    assert plan.per_decoder == INSTANCE_READINGS[unit, d]
+    if plan.per_decoder:
+        assert plan.decoder_bytes <= counters.SHARED_LIMIT
+
+
+def test_counter_plan_is_made_once_per_instrument(monkeypatch):
+    """The plan (decoder table, groups, uncertain rows, rows a slice) and
+    its device table are made once and cached on the instrument: a
+    batch's launch arguments walk no decoder; another SHARED_LIMIT makes
+    another plan; dataclasses.replace starts afresh."""
+    import dataclasses
+
+    import torch
+
+    from pheniqs_tpu_torch.device.flagship import flagship_ontology
+    from pheniqs_tpu_torch.device.instrument import compile_instrument
+
+    instrument = compile_instrument(flagship_ontology(), "cpu")
+    plan = counters.counter_plan(instrument)
+    table = counters._device_table(instrument, plan, torch.device("cpu"))
+    assert counters._device_table(instrument, plan, torch.device("cpu")) is table
+    np.testing.assert_array_equal(table.numpy(), plan.ints())
+    made = []
+    monkeypatch.setattr(counters, "decoder_table", lambda inst: made.append(inst))
+    monkeypatch.setattr(counters, "slice_rows", lambda inst: made.append(inst))
+    _, arrays = k4_case("flagship", 4096)
+    rows, pad, forced = k4_tensors(arrays, "cpu")
+    for _ in range(2):
+        again, args = counters.launch_arguments(instrument, rows, pad, forced, True, 132)
+        assert again is plan and counters.row_slices(instrument, 4096) == [(0, 4096)]
+    assert not made
+    assert (args["decoders"], args["groups"], args["uncertain"], args["per_decoder"]) == (3, 1, 2, 1)
+    assert args["shared_bytes"] == plan.decoder_bytes == 385 * (4 * 8 + 16)
+    assert counters.launch_arguments(instrument, rows, pad, forced, False, 132)[1]["uncertain"] == 0
+    assert dataclasses.replace(instrument).counter_plans == {}
+
+
+def test_shared_limit_makes_another_plan(monkeypatch):
+    """k4_threshold_sweep sets SHARED_LIMIT around its calls: the plan
+    cached under one limit is not the other's."""
+    instrument, _ = k4_case("sweep", 0, decoders=(("pamld", 4096, 16),))
+    shared = counters.counter_plan(instrument)
+    monkeypatch.setattr(counters, "SHARED_LIMIT", counters.SHARED_MAX)
+    wider = counters.counter_plan(instrument)
+    monkeypatch.setattr(counters, "SHARED_LIMIT", 0)
+    none = counters.counter_plan(instrument)
+    assert shared.table.rows[0][5] == 0 and wider.table.rows[0][5] > 0 and none.table.rows[0][5] == 0
+    assert wider.groups[0][2] > 0 and none.groups[0][2] == 0
+
+
+@pytest.mark.parametrize("n,offset,vec", [(4096, 0, 4), (4096 + 37, 0, 1), (4096, 1, 1)])
+def test_launch_arguments_take_four_reads_a_lane_only_on_aligned_rows(n, offset, vec):
+    """Four reads a lane (int4, float4 and 4-byte loads) where the batch is
+    a multiple of 4 reads and every row is aligned for it; else one."""
+    import torch
+
+    instrument, arrays = k4_case("flagship", n)
+    rows, pad, forced = k4_tensors(arrays, "cpu")
+    if offset:
+        pad = torch.cat([torch.zeros(offset, dtype=torch.bool), pad])[offset:]
+    assert counters.launch_arguments(instrument, rows, pad, forced, True, 132)[1]["vec"] == vec
+
+
+def _tiled(instrument, arrays, want_uncertain, sms=132):
+    """The accumulate kernel's walk in torch: per (group, tile) the tile's
+    valid flags from pad, forced and the plan's uncertain rows, then each
+    decoder of the group summed over the tile (the plain version's
+    arithmetic); each decoder's columns added over the tiles in float64."""
+    import torch
+
+    plan = counters.counter_plan(instrument)
+    n = arrays["pad"].shape[0]
+    tile = plan.tile(n, sms)
+    sums = {}
+    for first, stop, _ in plan.groups:
+        for t0 in range(0, n, tile):
+            part = {key: torch.from_numpy(np.ascontiguousarray(value[..., t0 : t0 + tile]))
+                    for key, value in arrays.items()}
+            bad = part["pad"] | part["forced"] if want_uncertain else part["pad"]
+            for k in plan.uncertain_rows if want_uncertain else ():
+                bad = bad | part["uncertain"][k]
+            for k in range(first, stop):
+                row = {key: part[key][k] for key in ("decoded", "argmax", "distance", "branch", "confidence", "qcfail")}
+                columns = counters._decoder_counters_plain(instrument.decoders[k], row, ~bad)
+                sums[k] = [c.double() + s for c, s in zip(columns, sums[k])] if k in sums else [c.double() for c in columns]
+    return torch.cat([column for k in range(len(instrument.decoders)) for column in sums[k]]).numpy()
+
+
+@pytest.mark.parametrize("name", ["flagship", "forced", "33 decoders", "64 decoders"])
+@pytest.mark.parametrize("want_uncertain", [True, False])
+def test_tiles_and_groups_sum_to_the_plain_counters(name, want_uncertain):
+    """Every (group, tile) block's sums, added, give the plain version's
+    counters: the plan misses no read and no decoder and takes the
+    uncertain rows the reference ORs (integer columns exact; the
+    confidence sums within the f32 rounding of each tile's part)."""
+    instrument, arrays = k4_case(name, 3 * 1024 + 37)
+    mine = _tiled(instrument, arrays, want_uncertain)
+    plain = counters.counters_plain(instrument, *k4_tensors(arrays, "cpu"), want_uncertain).numpy()
+    np.testing.assert_allclose(mine, plain, rtol=1e-6, atol=1e-6)

@@ -89,7 +89,9 @@ def test_former_limit_has_a_kernel_plan(name):
     elif name == "decoders":
         layout = wire.d2h_layout(instrument, True)
         plan = pack.pack_plan(instrument, True)
-        assert plan.staged and plan.masks().shape == (6,) and layout["qcfail_bytes"] == 5
+        assert plan.staged and layout["qcfail_bytes"] == 5
+        qcfail = [(offset, count) for kind, _, count, offset, *_ in plan.fields if kind == pack.BITS]
+        assert qcfail == [(layout["qcfail_offset"] + byte, 8 if byte < 4 else 1) for byte in range(5)]
         assert len(counters.decoder_table(instrument).rows) == 33
     else:
         layout = unpack.token_layout(instrument, [32], wire.JOINT4)
@@ -216,7 +218,7 @@ def test_flagship_plans_unchanged(ontology):
     plan = unpack.block_plan(layout, row_bytes)
     assert unpack.unpack_plan(layout, row_bytes) == plan and plan.reads == 128
     packed = pack.pack_plan(instrument, True)
-    assert packed.staged and packed.reads == 256 and packed.masks().shape == (3,)
+    assert packed.staged and packed.reads == 256 and packed.shared_bytes <= pack.SHARED_BYTES
 
 
 def test_wrapper_refuses_with_the_same_type():

@@ -34,12 +34,13 @@ def test_kernels_match_plain_versions(cuda):
 
 @pytest.mark.cuda
 def test_counters_kernel_matches_plain(cuda):
-    """K4 byte-identical to its plain version and across two launches, on
-    every chip_smoke.K4_CASES case, at 131,072 rows, over 737,281 bins and
-    on a batch it sums in row slices."""
-    from chip_smoke import K4_CASES, k4_edge_checks
+    """K4 byte-identical to its plain version and across two launches,
+    under each instance, on every chip_smoke.K4_CASES case at its size and
+    at 131,072 + 37 rows, on K4_OFFSET_CASES off alignment, over 737,281
+    bins and on a batch it sums in row slices."""
+    from chip_smoke import K4_CASES, K4_OFFSET_CASES, k4_edge_checks
 
-    assert k4_edge_checks() == len(K4_CASES) + 4
+    assert k4_edge_checks() == 2 * len(K4_CASES) - 1 + len(K4_OFFSET_CASES) + 4
 
 
 @pytest.mark.cuda

@@ -6,6 +6,7 @@ single-buffer Decisions the decode step allocates."""
 import dataclasses
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -72,7 +73,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(name):
 
 @pytest.mark.parametrize("d", [33, 64, 300])
 def test_wrapper_takes_any_number_of_decoders(d):
-    """More than 32 decoders: the masks are ceil(D / 32) words each, and
+    """More than 32 decoders: a source for each decoder's index,
+    confidence, qcfail bit and uncertain row, and one for the forced row;
     the plan stages its rows while 32 of them fit the shared bytes, else
     assembles them in place."""
     instrument = _stand_in([("pamld", 40_000)] * d)
@@ -80,10 +82,10 @@ def test_wrapper_takes_any_number_of_decoders(d):
     plan = pack.pack_plan(instrument, True)
     out = torch.empty(4 * plan.layout["total"], dtype=torch.uint8)
     pack._check(instrument, decisions, torch.zeros(4, dtype=torch.bool), True, out, torch.device("cpu"))
-    masks = plan.masks()
-    words = -(-d // 32)
-    assert masks.shape == (3 * words,)
-    assert [int(x) for x in masks[:words]] == [0xFFFFFFFF] * (d // 32) + ([(1 << (d % 32)) - 1] if d % 32 else [])
+    arrays = [source[0] for source in plan.sources]
+    assert [arrays.count(a) for a in (pack.DECODED, pack.CONFIDENCE, pack.QCFAIL, pack.UNCERTAIN, pack.FORCED)] == [
+        d, d, d, d, 1]
+    assert [row for array, row, *_ in plan.sources if array == pack.DECODED] == list(range(d))
     assert plan.staged == (plan.layout["total"] * 32 <= pack.SHARED_BYTES)
     assert plan.staged or (plan.reads == pack.MAX_BLOCK_READS and plan.shared_bytes == 0)
 
@@ -145,3 +147,66 @@ def test_decisions_share_one_zeroed_buffer(d, n):
     spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
                    for t in (getattr(decisions, name) for name in FIELDS))
     assert all(end <= start for (_, end), (start, _) in zip(spans, spans[1:]))
+
+
+#: K5 plan cases: decoders as (algorithm, barcodes), at the decoder counts
+#: of K4's plan tests (tests/test_torch_counters.py) and the widest rows
+PLAN_CASES = {
+    "1 decoder": (("pamld", 96),),
+    "flagship": (("pamld", 96), ("naive", 0), ("pamld", 384)),
+    "whitelist": (("pamld", 96), ("naive", 0), ("pamld", 737_280)),
+    "33 decoders": (("pamld", 96), ("mdd", 40), ("naive", 0)) * 11,
+    "64 decoders": ((("pamld", 96), ("mdd", 40), ("naive", 0)) * 22)[:64],
+    "300 decoders": (("pamld", 96), ("mdd", 40), ("naive", 0)) * 100,
+    "300 wide decoders (in place)": (("pamld", 40_000),) * 300,
+}
+
+
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+@pytest.mark.parametrize("hybrid", [True, False])
+def test_pack_plan_covers_the_row_within_its_budget(name, hybrid):
+    """K5's plan: the fields in layout order cover the row byte for byte,
+    each naming its own consecutive sources (a stored field one, a qcfail
+    byte up to 8 decoders' rows, the uncertain byte the counted rows and
+    forced); a block's rows within 48 KB, and with the table's copy
+    (more fields than warps) within the 227 KB an H100 block may take;
+    rows in place take none."""
+    plan = pack.pack_plan(_stand_in(PLAN_CASES[name]), hybrid)
+    assert [f[1] for f in plan.fields] == list(np.cumsum([0] + [f[2] for f in plan.fields[:-1]]))
+    assert sum(f[2] for f in plan.fields) == len(plan.sources)
+    covered = [offset + b for _, _, _, offset, size in plan.fields for b in range(size)]
+    assert covered == list(range(plan.layout["total"]))
+    for kind, first, count, _, size in plan.fields:
+        arrays = {array for array, _ in plan.sources[first : first + count]}
+        assert (kind, size) in ((pack.STORE, plan.layout["index_size"]), (pack.STORE, 4), (pack.BITS, 1), (pack.ANY, 1))
+        assert count == 1 if kind == pack.STORE else arrays <= ({pack.QCFAIL} if kind == pack.BITS else
+                                                                {pack.UNCERTAIN, pack.FORCED})
+    assert plan.shared_bytes <= pack.SHARED_BYTES and plan.block_bytes <= 227 * 1024
+    assert (plan.block_bytes > plan.shared_bytes) == (plan.staged and len(plan.fields) > plan.reads // 32)
+    assert plan.staged == (name != "300 wide decoders (in place)")
+
+
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+@pytest.mark.parametrize("hybrid", [True, False])
+@pytest.mark.parametrize("n", [1, 17, 257])
+def test_fields_assemble_the_plain_blob(name, hybrid, n):
+    """The kernel's assembly of its plan's fields (pack_outputs_sources,
+    in torch) gives the plain version's bytes: every index, confidence,
+    qcfail bit and uncertain byte from the sources the plan names."""
+    import chip_smoke
+
+    instrument, decisions, forced = chip_smoke.pack_case(PLAN_CASES[name], n, seed=n, device="cpu")
+    plan = pack.pack_plan(instrument, hybrid)
+    assert torch.equal(pack.pack_outputs_sources(plan, decisions, forced),
+                       pack.pack_outputs_plain(instrument, decisions, forced, hybrid))
+
+
+def test_device_table_is_made_once():
+    """The plan's table reaches a device once (cached on the instrument
+    beside the plan): an int4 a source and a field."""
+    instrument = compile_instrument(flagship_ontology(), "cpu")
+    plan = pack.pack_plan(instrument, True)
+    table = pack._device_table(instrument, plan, torch.device("cpu"))
+    assert pack._device_table(instrument, plan, torch.device("cpu")) is table
+    assert table.numel() == 4 * (len(plan.sources) + len(plan.fields))
+    assert pack._device_table(instrument, pack.pack_plan(instrument, False), torch.device("cpu")) is not table

@@ -367,12 +367,87 @@ def test_device_launches_refuses_a_short_trace(monkeypatch, dropped):
 
 def test_device_ms_falls_back_on_a_short_trace(monkeypatch, capsys):
     """device_ms gives no reading from a short trace: after two it times
-    with CUDA events and says so with both counts; a whole trace gives its
-    device time per call."""
+    by the replay of a CUDA graph of the calls (graph_ms, device time
+    alone) and says so with both counts; a whole trace gives its device
+    time per call."""
     short = _Trace([UNPACK] * 4 + [PACK] * 3 + [TORCH], device_us=50.0)  # K5 3 times for 4 calls
     _stub_profiler(monkeypatch, [short, short])
-    monkeypatch.setattr(profile_step, "event_ms", lambda fn, reps: 7.5)
+    monkeypatch.setattr(profile_step, "graph_ms", lambda fn, reps: (7.5, {}))
+    monkeypatch.setattr(profile_step, "event_ms", lambda fn, reps: pytest.fail("timed with launch gaps"))
     assert profile_step.device_ms(_launching, reps=4) == 7.5
-    assert "pack_outputs: 3 in the trace, 4 launched" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "pack_outputs: 3 in the trace, 4 launched" in err and "CUDA graph" in err
     _stub_profiler(monkeypatch, [short, _Trace([UNPACK, PACK] * 4, device_us=2000.0)])
     assert profile_step.device_ms(_launching, reps=4) == 0.5
+
+
+def test_device_ms_times_with_events_only_where_the_calls_cannot_be_captured(monkeypatch, capsys):
+    """Where a short trace's calls cannot be captured in a CUDA graph
+    (graph_ms raises), device_ms times them with CUDA events and says that
+    the launch gaps are counted."""
+    short = _Trace([UNPACK] * 3, device_us=50.0)
+    _stub_profiler(monkeypatch, [short, short])
+
+    def refuse(fn, reps):
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    monkeypatch.setattr(profile_step, "graph_ms", refuse)
+    monkeypatch.setattr(profile_step, "event_ms", lambda fn, reps: 9.25)
+    assert profile_step.device_ms(_launching, reps=4) == 9.25
+    assert "launch gaps included" in capsys.readouterr().err
+
+
+class _Graph:
+    """torch.cuda.CUDAGraph and torch.cuda.graph without a card: the
+    captured calls run once, at capture; a replay runs nothing."""
+
+    replays = 0
+
+    def replay(self):
+        _Graph.replays += 1
+
+
+class _Event:
+    times = iter((2.0, 14.0))
+
+    def __init__(self, enable_timing=False):
+        pass
+
+    def record(self):
+        self.at = next(_Event.times)
+
+    def elapsed_time(self, end):
+        return end.at - self.at
+
+
+@pytest.mark.parametrize("calls", [_launching, "uneven"])
+def test_graph_ms_reads_the_launches_at_capture(monkeypatch, calls):
+    """graph_ms reads the wrappers' launch counts just before and just
+    after the capture of `reps` calls (one warm-up call before it, not
+    counted), times only the replays (one untimed, then `replays` between
+    two events) and gives the time and the launches a call; launches that
+    differ between the captured calls are refused."""
+    import contextlib
+
+    from pheniqs_tpu_torch.kernels import launch_counts, unpack
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph, raising=False)
+    monkeypatch.setattr(torch.cuda, "graph", lambda graph: contextlib.nullcontext(), raising=False)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(_Event, "times", iter((2.0, 14.0)))
+    monkeypatch.setattr(_Graph, "replays", 0)
+    if calls == "uneven":
+        state = iter(range(100))
+
+        def calls():
+            unpack.launches += next(state) % 2
+
+        with pytest.raises(RuntimeError, match="not a multiple"):
+            profile_step.graph_ms(calls, reps=4)
+        return
+    before = launch_counts()
+    ms, launched = profile_step.graph_ms(calls, reps=4, replays=3)
+    assert ms == (14.0 - 2.0) / (3 * 4) and _Graph.replays == 1 + 3
+    assert {name: n for name, n in launched.items() if n} == {"unpack_tokens": 1, "pack_outputs": 1}
+    assert launch_counts()["unpack_tokens"] == before["unpack_tokens"] + 1 + 4

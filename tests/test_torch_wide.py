@@ -426,7 +426,7 @@ def test_forty_decoders_blob_matches_jax(forty_case):
     """K5's plain version with 40 decoders (two mask words, five qcfail
     bytes) against the JAX pack: the uncertain byte exact, the indices,
     qcfail bits and confidences (rtol 1e-5) on settled rows; the kernel's
-    plan and masks."""
+    plan: its uncertain byte's rows, past 32 decoders."""
     ours, layout, mine, theirs, _, _ = forty_case
     assert layout["qcfail_bytes"] == 5
     u = layout["uncertain_offset"]
@@ -443,7 +443,8 @@ def test_forty_decoders_blob_matches_jax(forty_case):
     plan = pack.pack_plan(ours, True)
     pamld_rows = [k for k, dec in enumerate(ours.decoders) if dec.algorithm == "pamld"]
     assert len(pamld_rows) == 19 and max(pamld_rows) >= 32
-    assert plan.staged and plan.masks().shape == (6,) and plan.uncertain_mask == sum(1 << k for k in pamld_rows)
+    assert plan.staged and plan.uncertain_mask == sum(1 << k for k in pamld_rows)
+    assert [row for array, row in plan.sources if array == pack.UNCERTAIN] == pamld_rows
 
 
 def test_forty_decoders_counters_match_jax(forty_case):

@@ -143,11 +143,26 @@ def test_plain_unpack_matches_jax(mode):
         np.testing.assert_array_equal(flag.numpy(), np.asarray(reference))
 
 
+def _decoders(d: int):
+    """A stand-in instrument of `d` decoders cycling PAMLD 96, MDD 40 and
+    naive (chip_smoke's WIDE_DECODERS rows): both layouts read only each
+    decoder's algorithm and barcode count."""
+    from types import SimpleNamespace
+
+    cycle = (("pamld", 96), ("mdd", 40), ("naive", 0))
+    return SimpleNamespace(decoders=[SimpleNamespace(algorithm=a, barcode_count=b) for a, b in (cycle * d)[:d]])
+
+
 @pytest.mark.parametrize("want_uncertain", [True, False])
 def test_layouts_match(want_uncertain):
-    reference = flagship_instrument()
-    ours = compile_instrument(flagship_ontology(), "cpu")
-    assert wire.counter_layout(ours) == jax_step.counter_layout(reference)
-    assert wire.d2h_layout(ours, want_uncertain) == jax_step.d2h_layout(
-        reference, want_uncertain
-    )
+    """The flagship's layouts, and those of 33 and 64 decoders (the
+    decoder masks and qcfail bytes past one 32-bit word), equal the
+    reference's."""
+    cases = [(flagship_instrument(), compile_instrument(flagship_ontology(), "cpu"))]
+    cases += [(_decoders(d), _decoders(d)) for d in (33, 64)]
+    for reference, ours in cases:
+        assert wire.counter_layout(ours) == jax_step.counter_layout(reference)
+        assert wire.d2h_layout(ours, want_uncertain) == jax_step.d2h_layout(
+            reference, want_uncertain
+        )
+    assert [wire.d2h_layout(ours, want_uncertain)["qcfail_bytes"] for _, ours in cases[1:]] == [5, 8]
