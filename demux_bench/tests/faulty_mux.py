@@ -1,0 +1,60 @@
+"""``python -m pheniqs_tpu_torch`` with one fault planted in its timed path,
+for the tests that see ``correct`` come out false:
+
+    python faulty_mux.py <fault> mux --config ...
+
+- ``unchanged``: the decode step hands back what it started from, no
+  barcode decoded and no confidence;
+- ``half``: each batch's render writes only the first half of its records;
+- ``altered``: the sample decision of each batch's first read is moved to
+  the next barcode where the step produces it.
+"""
+
+import sys
+
+import numpy as np
+
+from pheniqs_tpu_torch.cli.main import main
+from pheniqs_tpu_torch.engine import device, stream
+
+
+def unchanged(classify):
+    def step(self, batch):
+        results = classify(self, batch)
+        n = batch.size
+        return [{"decoded": np.zeros(n, dtype=np.int32), "confidence": np.zeros(n),
+                 "qcfail": np.zeros(n, dtype=bool)} for _ in results]
+    return step
+
+
+def altered(classify):
+    def step(self, batch):
+        results = classify(self, batch)
+        decoded = results[0]["decoded"].copy()
+        decoded[0] = decoded[0] % self.instrument.decoders[0].barcode_count + 1
+        results[0] = dict(results[0], decoded=decoded)
+        return results
+    return step
+
+
+def half(engine):
+    chunk = {}
+    for url, feed in engine.feeds_by_url.items():
+        lines = bytes(feed.take()).split(b"\n")[:-1]
+        if lines:
+            chunk[url] = b"".join(line + b"\n" for line in lines[: len(lines) // 2])
+    return chunk
+
+
+if __name__ == "__main__":
+    fault = sys.argv.pop(1)
+    engine = device.TorchDeviceEngine
+    if fault == "unchanged":
+        engine._classify_batch_on_device = unchanged(engine._classify_batch_on_device)
+    elif fault == "altered":
+        engine._classify_batch_on_device = altered(engine._classify_batch_on_device)
+    elif fault == "half":
+        stream._collect_chunk = half
+    else:
+        raise SystemExit(f"unknown fault {fault}")
+    sys.exit(main(sys.argv))

@@ -1,0 +1,59 @@
+"""A whole run on the CPU at a size a test can hold (the program's plain
+kernels, 512-read batches): sound, it comes out correct; with the timed
+path broken underneath (tests/faulty_mux.py), or with the bfloat16
+control in the program's place, it does not. The look for a card is
+skipped; everything else is the run's."""
+
+import sys
+from pathlib import Path
+
+import pytest
+
+from demux_bench import cells, check, run, traffic
+
+FAULTY = str(Path(__file__).with_name("faulty_mux.py"))
+#: each cell of BENCHMARK.json with the whitelist and library sizes at
+#: which a CPU holds it (multiples of the 96 maps its traffic puts
+#: barcodes through)
+CELLS = {"tenx-v2-fast": (96 * 42, 96 * 4)}
+
+
+def small(workload):
+    cell = cells.load(workload)
+    cell.traffic.update(batch_size=512, pool_batches=2, warmup_batches=1, threads=2)
+    cell.config["decoders"][1]["barcodes"], cell.traffic["vary"]["barcodes"] = CELLS[workload]
+    return cell
+
+
+def correct(cell, program=None, seed=20261018):
+    outcome, numbers, _ = run.run_cell(cell, seed, 1.0, traced=False, device="cpu", program=program)
+    line = run.result_line(outcome, numbers, False, {})
+    return line["correct"], numbers
+
+
+@pytest.mark.parametrize("workload", sorted(CELLS))
+def test_sound_run_is_correct(workload):
+    ok, numbers = correct(small(workload))
+    assert ok, numbers
+
+
+@pytest.mark.parametrize("workload", sorted(CELLS))
+@pytest.mark.parametrize("fault, broken", [
+    ("unchanged", "decisions_apart"), ("half", "missing"), ("altered", "decisions_apart")])
+def test_fault_is_caught(workload, fault, broken):
+    ok, numbers = correct(small(workload), program=[sys.executable, FAULTY, fault])
+    assert not ok and numbers[broken] > 0, numbers
+
+
+@pytest.mark.parametrize("workload", sorted(CELLS))
+def test_control_is_caught(workload):
+    # 16384 reads; the whitelist's shape at 8064 barcodes, summed as the
+    # reference sums the whitelist (a product of one-hot rows)
+    cell = cells.load(workload)
+    cell.traffic.update(batch_size=4096, pool_batches=4)
+    cell.config["decoders"][1]["barcodes"] = 96 * 84
+    cell.traffic["vary"]["barcodes"] = 96 * 84
+    inst = traffic.instrument(cell.config, 7, cell.traffic)
+    numbers, _ = check.control(inst, traffic.pool(inst, cell.traffic, 7), cell.traffic["check"], 10)
+    limits = cell.traffic["check"]["limits"]
+    assert any(numbers[name] > limits[name] for name in numbers), numbers
