@@ -2,11 +2,12 @@
 to the reference's for the same reads.
 
 The answers are each record's decisions as the SAM tags render them
-(RG: the sample barcode or ``undetermined``; CB: the cellular barcode,
-``=`` a position when unclassified; OX: the UMI as read; the QC-fail flag) and the
-decoders' confidences (XB, XC: 1 - confidence as a float32 printed with
-``%g``, absent at 0 or 1), and the report's counts a barcode. Numbers
-compared, each against its limit in the cell's traffic file:
+(RG: the sample barcode or ``undetermined``; CB: the cellular barcodes
+joined, ``=`` a position of one unclassified; OX: the UMI as read; the
+QC-fail flag) and the decoders' confidences (XB, XC: 1 - confidence as a
+float32 printed with ``%g``, absent at 0 or 1; XC's confidence the
+product of the cellular decoders'), and the report's counts a barcode.
+Numbers compared, each against its limit in the cell's traffic file:
 
 - ``missing``: records of the captured range that never came or came
   out of order, and records sent but never written;
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from .reference import pamld
+from .report import Counts, Report
 from .traffic import CODE_TO_ASCII, Batch, Instrument, parse_name
 
 QCFAIL = 0x200
@@ -111,12 +113,15 @@ def _printed(confidence: np.ndarray) -> np.ndarray:
 def reference_answers(inst: Instrument, ref: dict, rows: np.ndarray,
                       variant: np.ndarray | None = None) -> Answers:
     """What the reference's decisions render as, for pool reads `rows`
-    written through the traffic's maps `variant` (none: as drawn)."""
+    written through the traffic's maps `variant` (none: as drawn). CB
+    joins the cellular decoders' barcodes in order; XC is one less the
+    product of their confidences, 0 where any is unclassified (the
+    program's combined cellular confidence)."""
     rg = np.full(rows.shape[0], b"undetermined", dtype=object)
     cb = np.full(rows.shape[0], b"", dtype=object)
     ox = np.full(rows.shape[0], b"", dtype=object)
     xb = np.zeros(rows.shape[0])
-    xc = np.zeros(rows.shape[0])
+    cellular = np.ones(rows.shape[0])
     for decoder in chain(inst):
         r = ref[id(decoder)]
         if decoder.algorithm != "pamld":
@@ -127,14 +132,15 @@ def reference_answers(inst: Instrument, ref: dict, rows: np.ndarray,
         if variant is not None:
             decoded = decoder.remap(variant, decoded)
         # an unclassified barcode renders as its panel row 0: BAM code 0, "="
-        strings = np.concatenate([[b"=" * decoder.width], decoder.strings()]).astype(object)
+        strings = np.where(decoded > 0, decoder.strings()[np.maximum(decoded, 1) - 1],
+                           b"=" * decoder.width).astype(object)
         if decoder.role == "sample":
-            rg = np.where(decoded > 0, strings[decoded], b"undetermined")
+            rg = np.where(decoded > 0, strings, b"undetermined")
             xb = _printed(r["confidence"][rows])
         else:
-            cb = cb + strings[decoded]
-            xc = _printed(r["confidence"][rows])
-    return Answers(rg, cb, ox, ref["qcfail"][rows], xb, xc)
+            cb = cb + strings
+            cellular = np.where(decoded > 0, cellular * r["confidence"][rows], 0.0)
+    return Answers(rg, cb, ox, ref["qcfail"][rows], xb, _printed(cellular))
 
 
 def parse_records(data: bytes, first: int, count: int, batch: int, pool: int):
@@ -196,9 +202,9 @@ def describe(inst: Instrument, ref: dict, rows: np.ndarray, program: Answers, wa
                            bool(answers.qcfail[k]), answers.xb[k], answers.xc[k]]
         for decoder in inst.pamld():
             r = ref[id(decoder)]
-            entry[decoder.role] = {"confidence": float(r["confidence"][rows[k]]),
-                                   "gap": float(r["gap"][rows[k]]),
-                                   "sigma_best": float(r["sigma_best"][rows[k]])}
+            entry.setdefault(decoder.role, []).append({"confidence": float(r["confidence"][rows[k]]),
+                                                       "gap": float(r["gap"][rows[k]]),
+                                                       "sigma_best": float(r["sigma_best"][rows[k]])})
         out.append(entry)
     return out
 
@@ -220,51 +226,95 @@ def sends(inst: Instrument, pool: int, sent_batches: int) -> dict:
     return out
 
 
-def reference_counts(inst: Instrument, ref: dict, sent: dict, batch: int) -> dict:
-    """{(decoder position, barcode or b""): (count, pf count)} over every
-    read sent (`sent` as ``sends`` gives it); b"" stands for the
-    unclassified."""
-    out = {}
-    for position, decoder in enumerate(d for d in chain(inst) if d.algorithm == "pamld"):
+def counted(inst: Instrument) -> list[tuple[str, int]]:
+    """Where the report keeps each PAMLD decoder's counts, in the chain's
+    order: its role, and its position among that role's decoders."""
+    order = chain(inst)
+    return [(d.role, [e for e in order if e.role == d.role].index(d)) for d in order if d.algorithm == "pamld"]
+
+
+def reference_counts(inst: Instrument, ref: dict, sent: dict, batch: int) -> list:
+    """Each PAMLD decoder's (count, pf count) a panel row (row 0 the
+    unclassified) over every read sent (`sent` as ``sends`` gives it), in
+    the chain's order. A pool batch's counts are taken once; a varied
+    decoder's maps permute whole orbits of its panel, so the replays of a
+    batch add its counts of each orbit to the orbits the maps send it to:
+    one product by a (maps x maps) matrix of how many times each orbit
+    went where."""
+    out = []
+    for decoder in (d for d in chain(inst) if d.algorithm == "pamld"):
         r = ref[id(decoder)]
         size = decoder.barcodes + 1
-        count = np.zeros(size, dtype=np.int64)
-        pf = np.zeros(size, dtype=np.int64)
-        for (p, v), times in sent.items():
+        count, pf = np.zeros(size, dtype=np.int64), np.zeros(size, dtype=np.int64)
+        for p in sorted({p for p, _ in sent}):
             rows = slice(p * batch, (p + 1) * batch)
-            decoded = decoder.remap(v, r["decoded"][rows])
-            count += times * np.bincount(decoded, minlength=size)
-            pf += times * np.bincount(decoded[~r["qcfail"][rows]], minlength=size)
-        keys = [b""] + decoder.strings().tolist()
-        out.update(zip(((position, key) for key in keys), zip(count.tolist(), pf.tolist())))
+            decoded = r["decoded"][rows]
+            times = sum(k for (q, _), k in sent.items() if q == p)
+            if decoder.variants is not None:
+                maps = decoder.variants.size
+                moved = np.zeros((maps, maps))  # [to, from]: times an orbit went there
+                for (q, v), k in sent.items():
+                    if q == p:
+                        moved[decoder.variants.compose[v], np.arange(maps)] += k
+            for total, seen in ((count, decoded), (pf, decoded[~r["qcfail"][rows]])):
+                histogram = np.bincount(seen, minlength=size)
+                if decoder.variants is None:
+                    total += times * histogram
+                    continue
+                total[0] += times * histogram[0]
+                # whole counts well under 2^53: the float64 product is exact
+                total[1:] += np.rint(moved @ histogram[1:].reshape(maps, -1)).astype(np.int64).reshape(-1)
+        out.append((count, pf))
     return out
 
 
-def report_counts(inst: Instrument, report: dict) -> dict:
-    """The same counts from the program's report, its barcodes by sequence."""
-    out = {}
-    cellular = iter(report.get("cellular", []))
-    for position, decoder in enumerate(d for d in chain(inst) if d.algorithm == "pamld"):
-        entry = report.get("sample", {}) if decoder.role == "sample" else next(cellular, {})
-        unclassified = entry.get("unclassified", {})
-        out[(position, b"")] = (int(unclassified.get("count", 0)), int(unclassified.get("pf count", 0)))
-        for barcode in entry.get("classified", []):
-            key = "".join(barcode["barcode"]).encode()
-            out[(position, key)] = (int(barcode.get("count", 0)), int(barcode.get("pf count", 0)))
-    return out
+def as_report(inst: Instrument, counts: list, reads: int) -> Report:
+    """Counts as a report that lists every barcode of every panel gives
+    them."""
+    decoders = [Counts((int(c[0]), int(p[0])), d.strings(), c[1:], p[1:])
+                for d, (c, p) in zip((d for d in chain(inst) if d.algorithm == "pamld"), counts)]
+    return Report(reads, decoders)
 
 
-def report_apart(program: dict, expected: dict, reads_in: int, sent: int, allowance: int) -> int:
-    total = abs(reads_in - sent)
-    for key in set(program) | set(expected):
-        a = program.get(key, (0, 0))
-        b = expected.get(key, (0, 0))
-        total += abs(a[0] - b[0]) + abs(a[1] - b[1])
+def _counts_apart(strings: np.ndarray, got: Counts, count: np.ndarray, pf: np.ndarray) -> int:
+    """The summed gaps between a decoder's counts in a report and the
+    reference's, each barcode (and the unclassified, b"") taken by its
+    sequence: a barcode on one side only counts whole, and where the
+    report lists one twice its last entry stands."""
+    if got.barcodes.shape == strings.shape and bool((got.barcodes == strings).all()):
+        return int(abs(got.unclassified[0] - count[0]) + abs(got.unclassified[1] - pf[0])
+                   + np.abs(got.count - count[1:]).sum() + np.abs(got.pf - pf[1:]).sum())
+    keys = np.concatenate([np.array([b""]), got.barcodes])
+    values = np.stack([np.concatenate([[got.unclassified[0]], got.count]),
+                       np.concatenate([[got.unclassified[1]], got.pf])], axis=1).astype(np.int64)
+    keys, last = np.unique(keys[::-1], return_index=True)
+    values = values[::-1][last]
+    wanted = np.concatenate([np.array([b""]), strings])
+    expected = np.stack([count, pf], axis=1).astype(np.int64)
+    width = np.dtype(f"S{max(keys.dtype.itemsize, wanted.dtype.itemsize)}")
+    keys, wanted = keys.astype(width), wanted.astype(width)
+    order = np.argsort(wanted)
+    at = np.minimum(np.searchsorted(wanted[order], keys), wanted.size - 1)
+    hit = wanted[order][at] == keys
+    matched = order[at[hit]]
+    alone = np.ones(wanted.size, dtype=bool)
+    alone[matched] = False
+    return int(np.abs(values[hit] - expected[matched]).sum() + values[~hit].sum() + expected[alone].sum())
+
+
+def report_apart(inst: Instrument, program: Report, expected: list, sent: int, allowance: int) -> int:
+    """The report's counts (each barcode's count and pf count, and the
+    reads in) apart from the reference's over every read sent, less what
+    reads set aside may move."""
+    total = abs(program.incoming - sent)
+    for decoder, got, (count, pf) in zip((d for d in chain(inst) if d.algorithm == "pamld"),
+                                         program.decoders, expected):
+        total += _counts_apart(decoder.strings(), got, count, pf)
     return max(0, total - allowance)
 
 
 def compare(inst: Instrument, batches: list[Batch], check: dict, kept: bytes, first: int,
-            count: int, batch: int, sent_batches: int, records_out: int, report: dict,
+            count: int, batch: int, sent_batches: int, records_out: int, report: Report,
             device="cpu") -> tuple[dict, dict]:
     """(numbers compared, what was compared) for one run."""
     ref = reference(inst, batches, device=device)
@@ -278,8 +328,7 @@ def compare(inst: Instrument, batches: list[Batch], check: dict, kept: bytes, fi
     weights = replays(keep_pool.shape[0], batch, sent_batches)
     allowance = int((weights * ~keep_pool).sum()) * 4 * len(inst.pamld())
     expected = reference_counts(inst, ref, sends(inst, len(batches), sent_batches), batch)
-    counts = report_apart(report_counts(inst, report), expected,
-                          int(report.get("incoming", {}).get("count", 0)), sent_batches * batch, allowance)
+    counts = report_apart(inst, report, expected, sent_batches * batch, allowance)
     numbers = {"missing": missing, "decisions_apart": int(apart.size), "confidence_gap": gap,
                "report_apart": counts}
     seen = {"records_compared": int(keep.sum()), "records_set_aside": int((~keep).sum()),
@@ -305,7 +354,7 @@ def control(inst: Instrument, batches: list[Batch], check: dict, sent_batches: i
     allowance = int((weights * ~keep).sum()) * 4 * len(inst.pamld())
     sent = sends(inst, len(batches), sent_batches)
     reads = sent_batches * batch
-    counts = report_apart(reference_counts(inst, low, sent, batch), reference_counts(inst, ref, sent, batch),
-                          reads, reads, allowance)
+    counts = report_apart(inst, as_report(inst, reference_counts(inst, low, sent, batch), reads),
+                          reference_counts(inst, ref, sent, batch), reads, allowance)
     numbers = {"missing": 0, "decisions_apart": apart, "confidence_gap": gap, "report_apart": counts}
     return numbers, {"records_compared": int(keep.sum()), "records_set_aside": int((~keep).sum())}

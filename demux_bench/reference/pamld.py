@@ -20,7 +20,11 @@ Two ways to sum, one result:
   read's (position, base) cost table; the normaliser a plain sum. Sums
   in another order, so read near a tie or a threshold it is not exact:
   each result carries the margins (``gap``, ``sigma_best``,
-  ``confidence``) that let a comparison set such reads aside.
+  ``confidence``) that let a comparison set such reads aside. A block's
+  (reads, barcodes) sigma is read three times past the product: once
+  for the two smallest (by chunks of barcodes, the runner-up then found
+  in the best one's chunk alone), once to turn it into likelihoods in
+  place, once to sum them.
 
 ``dtype`` is float64 for the reference and bfloat16 for the control.
 """
@@ -35,6 +39,8 @@ import torch
 from .phred import PHRED_BASE, STRICT_CODES, substitution_lut
 
 _LUT = substitution_lut()
+#: barcodes a chunk of the gemm path's search for the two smallest sigma
+CHUNK = 8192
 
 
 def classify(
@@ -64,6 +70,7 @@ def classify(
     lut = torch.as_tensor(_LUT, dtype=dtype, device=device)
     e = torch.as_tensor(panel.astype(np.int64), device=device)
     adjusted_noise = noise * random_barcode_probability
+    onehot = None if ordered else _onehot(e, lut.dtype)
     out = {key: [] for key in ("decoded", "confidence", "gap", "sigma_best", "conditional")}
     # ordered: the gather in blocks of ~2^25 (read, barcode, position)
     # terms, the barcode loop over blocks of ~2^27 (read, barcode) pairs;
@@ -80,7 +87,7 @@ def classify(
             result["sigma_best"] = low[:, 0]
             result["gap"] = low[:, 1] - low[:, 0] if b > 1 else torch.full_like(low[:, 0], math.inf)
         else:
-            sigma = _gemm_sigma(lut, e, *_reads(obs_code, obs_qual, lo, hi, device))
+            sigma = _gemm_sigma(lut, onehot, *_reads(obs_code, obs_qual, lo, hi, device))
             result = _summed_posterior(sigma, concentration, adjusted_noise)
         for key in out:
             out[key].append(result[key].to(torch.float64).cpu().numpy())
@@ -150,34 +157,66 @@ def _ordered_posterior(sigma, concentration, adjusted_noise):
     return _decision(conditional, index, best / total)
 
 
-def _gemm_sigma(lut, e, o, q):
-    """(n, B): the panel's one-hot rows times each read's (position, base)
-    cost table."""
+def _onehot(e, dtype):
+    """(B, W * 4): each barcode's one-hot row over (position, base)."""
     bases = torch.as_tensor(STRICT_CODES, device=e.device)
     if not bool(torch.isin(e, bases).all()):
         raise ValueError("the gemm sum takes panels of A, C, G and T only")
+    return (e[:, :, None] == bases[None, None, :]).to(dtype).reshape(e.shape[0], -1)
+
+
+def _gemm_sigma(lut, onehot, o, q):
+    """(n, B): the panel's one-hot rows times each read's (position, base)
+    cost table."""
+    bases = torch.as_tensor(STRICT_CODES, device=o.device)
     table = lut[q[:, :, None], bases[None, None, :], o[:, :, None]]  # (n, W, 4)
-    onehot = (e[:, :, None] == bases[None, None, :]).to(lut.dtype)  # (B, W, 4)
-    return table.reshape(table.shape[0], -1) @ onehot.reshape(onehot.shape[0], -1).T
+    return table.reshape(table.shape[0], -1) @ onehot.T
+
+
+def _two_smallest(sigma, chunk: int | None = None):
+    """(smallest, its first index, the smallest of the others) of each row
+    of `sigma`, reading it once: the least of each chunk of `chunk`
+    barcodes, then the runner-up from the best chunk's own values and
+    the other chunks' least."""
+    n, b = sigma.shape
+    chunk = min(chunk or CHUNK, b)
+    whole = b // chunk * chunk
+    parts = []
+    if whole:
+        parts.append(sigma[:, :whole].view(n, b // chunk, chunk).min(dim=2))
+    if whole < b:
+        tail = sigma[:, whole:].min(dim=1)
+        parts.append((tail.values[:, None], tail.indices[:, None]))
+    lows = torch.cat([p[0] for p in parts], dim=1)  # (n, chunks)
+    ats = torch.cat([p[1] for p in parts], dim=1)
+    low, best_chunk = lows.min(dim=1)
+    start = best_chunk * chunk
+    at = start + ats.gather(1, best_chunk[:, None])[:, 0]
+    if b == 1:
+        return low, at, torch.full_like(low, math.inf)
+    columns = start[:, None] + torch.arange(chunk, device=sigma.device)
+    inside = sigma.gather(1, columns.clamp(max=b - 1))
+    inside.masked_fill_((columns >= b) | (columns == at[:, None]), math.inf)
+    lows.scatter_(1, best_chunk[:, None], math.inf)
+    return low, at, torch.minimum(inside.min(dim=1).values, lows.min(dim=1).values)
 
 
 def _summed_posterior(sigma, concentration, adjusted_noise):
-    """The normaliser a plain sum; the two smallest sigma by two passes
-    (sigma is overwritten)."""
+    """The normaliser a plain sum; the decision the first smallest sigma
+    (sigma is overwritten with the likelihoods)."""
     base = torch.tensor(PHRED_BASE, dtype=sigma.dtype, device=sigma.device)
-    conditional = torch.pow(base, sigma)
-    best, index = torch.max(conditional, dim=1)
-    total = conditional.sum(dim=1) * concentration + adjusted_noise
-    result = _decision(conditional, torch.where(best > 0, index + 1, 0), best * concentration / total)
-    del conditional
-    low, at = sigma.min(dim=1)
-    if sigma.shape[1] > 1:
-        sigma.scatter_(1, at[:, None], math.inf)
-        result["gap"] = sigma.min(dim=1).values - low
-    else:
-        result["gap"] = torch.full_like(low, math.inf)
-    result["sigma_best"] = low
-    return result
+    low, at, second = _two_smallest(sigma)
+    best = torch.pow(base, low)
+    torch.pow(base, sigma, out=sigma)
+    total = sigma.sum(dim=1) * concentration + adjusted_noise
+    index = torch.where(best > 0, at + 1, 0)
+    return {
+        "decoded": index,
+        "confidence": best * concentration / total,
+        "conditional": torch.where(index > 0, best, torch.zeros_like(best)),
+        "gap": second - low,
+        "sigma_best": low,
+    }
 
 
 def _decision(conditional, index, confidence):

@@ -26,7 +26,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 
-from . import cells, check, pipes, proc, traffic, trace
+from . import cells, check, pipes, proc, report as reports, traffic, trace
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "pheniqs_tpu")
 #: the longest a run may wait on the program, compiling included
@@ -52,7 +52,7 @@ class Run:
     records_out: int = 0
     child_wall_s: float = 0.0
     stderr: str = ""
-    report: dict = field(default_factory=dict)
+    report: reports.Report | None = None
     trace: trace.Window | None = None
     instrument: traffic.Instrument | None = None
 
@@ -104,8 +104,7 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, traced: bool, device: 
         for path in inputs + [output]:
             os.mkfifo(path)
         job = os.path.join(workdir, "job.json")
-        with open(job, "w") as stream:
-            stream.write(traffic.instruction_text(inst, inputs, output, report))
+        traffic.write_instruction(job, inst, inputs, output, report)
         feeder = pipes.Feeder(inputs, traffic.Stream(inst, batches))
         feeder.minimum = capture_batch + pool_size
         child = None
@@ -178,8 +177,9 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, traced: bool, device: 
         run.sent_batches = feeder.stop_at
         run.records_out = drain.records
         run.window_records = drain.window_records
-        with open(report) as stream:
-            run.report = json.load(stream)
+        reading = time.perf_counter()
+        run.report = reports.read(report, check.counted(inst))
+        report_s = time.perf_counter() - reading
         if traced:
             run.trace = trace.load(os.path.join(workdir, "profile"), run.opened_wall, run.closed_wall)
         shm = proc.shm_left(run.pids)
@@ -198,6 +198,7 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, traced: bool, device: 
             n, run.sent_batches, run.records_out, run.report, device=reference_device(device))
         numbers["shm_left"] = len(shm)
         seen["check_s"] = round(time.perf_counter() - checking, 3)
+        seen["report_read_s"] = round(report_s, 3)
         return run, numbers, seen
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

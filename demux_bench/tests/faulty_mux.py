@@ -6,8 +6,9 @@ for the tests that see ``correct`` come out false:
 - ``unchanged``: the decode step hands back what it started from, no
   barcode decoded and no confidence;
 - ``half``: each batch's render writes only the first half of its records;
-- ``altered``: the sample decision of each batch's first read is moved to
-  the next barcode where the step produces it.
+- ``altered``: the first decision of each batch's first read (the
+  sample's, where there is a sample decoder) is moved to the next barcode
+  where the step produces it.
 """
 
 import sys
@@ -30,9 +31,10 @@ def unchanged(classify):
 def altered(classify):
     def step(self, batch):
         results = classify(self, batch)
-        decoded = results[0]["decoded"].copy()
-        decoded[0] = decoded[0] % self.instrument.decoders[0].barcode_count + 1
-        results[0] = dict(results[0], decoded=decoded)
+        k = next(k for k, d in enumerate(self.instrument.decoders) if d.barcode_count)
+        decoded = results[k]["decoded"].copy()
+        decoded[0] = decoded[0] % self.instrument.decoders[k].barcode_count + 1
+        results[k] = dict(results[k], decoded=decoded)
         return results
     return step
 

@@ -2,7 +2,9 @@
 kernels, 512-read batches): sound, it comes out correct; with the timed
 path broken underneath (tests/faulty_mux.py), or with the bfloat16
 control in the program's place, it does not. The look for a card is
-skipped; everything else is the run's."""
+skipped; everything else is the run's. Each cell of BENCHMARK.json is
+run so, and a two-round combinatorial instrument whose two cellular
+decoders the check holds as the program tags them (tests/shapes.py)."""
 
 import sys
 from pathlib import Path
@@ -10,19 +12,9 @@ from pathlib import Path
 import pytest
 
 from demux_bench import cells, check, run, traffic
+from demux_bench.tests.shapes import CELLS, INSTRUMENTS, small
 
 FAULTY = str(Path(__file__).with_name("faulty_mux.py"))
-#: each cell of BENCHMARK.json with the whitelist and library sizes at
-#: which a CPU holds it (multiples of the 96 maps its traffic puts
-#: barcodes through)
-CELLS = {"tenx-v2-fast": (96 * 42, 96 * 4)}
-
-
-def small(workload):
-    cell = cells.load(workload)
-    cell.traffic.update(batch_size=512, pool_batches=2, warmup_batches=1, threads=2)
-    cell.config["decoders"][1]["barcodes"], cell.traffic["vary"]["barcodes"] = CELLS[workload]
-    return cell
 
 
 def correct(cell, program=None, seed=20261018):
@@ -31,13 +23,13 @@ def correct(cell, program=None, seed=20261018):
     return line["correct"], numbers
 
 
-@pytest.mark.parametrize("workload", sorted(CELLS))
+@pytest.mark.parametrize("workload", INSTRUMENTS)
 def test_sound_run_is_correct(workload):
     ok, numbers = correct(small(workload))
     assert ok, numbers
 
 
-@pytest.mark.parametrize("workload", sorted(CELLS))
+@pytest.mark.parametrize("workload", INSTRUMENTS)
 @pytest.mark.parametrize("fault, broken", [
     ("unchanged", "decisions_apart"), ("half", "missing"), ("altered", "decisions_apart")])
 def test_fault_is_caught(workload, fault, broken):
@@ -51,8 +43,8 @@ def test_control_is_caught(workload):
     # reference sums the whitelist (a product of one-hot rows)
     cell = cells.load(workload)
     cell.traffic.update(batch_size=4096, pool_batches=4)
-    cell.config["decoders"][1]["barcodes"] = 96 * 84
-    cell.traffic["vary"]["barcodes"] = 96 * 84
+    cell.config["decoders"][1]["barcodes"] = 192 * 42
+    cell.traffic["vary"]["barcodes"] = 192 * 42
     inst = traffic.instrument(cell.config, 7, cell.traffic)
     numbers, _ = check.control(inst, traffic.pool(inst, cell.traffic, 7), cell.traffic["check"], 10)
     limits = cell.traffic["check"]["limits"]

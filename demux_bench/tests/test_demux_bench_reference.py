@@ -81,3 +81,76 @@ def test_unclassified_renders_as_the_program_renders_it():
     assert list(answers.rg) == [b"undetermined", sample.strings()[1]]
     assert list(answers.cb) == [b"=" * 16, cellular.strings()[2]]
     assert list(answers.xb) == [0.0, 0.5] and list(answers.xc) == [0.0, 0.0]
+
+
+def random_panel(rng, b, w, n, error=0.1):
+    codes = np.array([A, C, G, 8], dtype=np.uint8)
+    panel = codes[rng.integers(4, size=(b, w))]
+    truth = panel[rng.integers(b, size=n)]
+    wrong = rng.random((n, w)) < error
+    reads = np.where(wrong, codes[rng.integers(4, size=(n, w))], truth).astype(np.uint8)
+    quals = np.array([2, 12, 23, 37], dtype=np.uint8)[rng.integers(4, size=(n, w))]
+    return panel, reads, quals
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64, pamld.CHUNK])
+@pytest.mark.parametrize("b", [1, 2, 63, 64, 65, 200])
+def test_two_smallest_by_chunks(chunk, b):
+    # ties included: sigma drawn from few values
+    rng = np.random.default_rng(b * 100 + chunk)
+    sigma = torch.as_tensor(rng.integers(0, 6, size=(50, b)).astype(np.float64))
+    low, at, second = pamld._two_smallest(sigma.clone(), chunk)
+    assert torch.equal(low, sigma.min(dim=1).values)
+    assert torch.equal(at, torch.argmax((sigma == low[:, None]).to(torch.int8), dim=1))  # the first
+    rest = sigma.clone()
+    rest[torch.arange(50), at] = math.inf
+    assert torch.equal(second, rest.min(dim=1).values)
+
+
+def frozen_gemm(panel, reads, quals, **kwargs):
+    """The gemm path as it was: the whole of classify with its two block
+    functions swapped for the frozen ones."""
+    from demux_bench.tests import frozen
+
+    saved = pamld._gemm_sigma, pamld._summed_posterior, pamld._onehot
+    pamld._gemm_sigma, pamld._summed_posterior = frozen._gemm_sigma, frozen._summed_posterior
+    pamld._onehot = lambda e, dtype: e
+    try:
+        return pamld.classify(panel, 0.95 / panel.shape[0], 0.05, 1e-9, 0.95, 30, 0, reads, quals,
+                              np.zeros(reads.shape[0], dtype=bool), ordered=False, **kwargs)
+    finally:
+        pamld._gemm_sigma, pamld._summed_posterior, pamld._onehot = saved
+
+
+@pytest.mark.parametrize("b, chunk", [(3, pamld.CHUNK), (500, 64), (5000, 1024), (20000, pamld.CHUNK)])
+def test_gemm_blocks_as_before(b, chunk, monkeypatch):
+    # the same decisions, confidences, gaps and best sigma as the gemm
+    # path before its blocks were rebuilt, to 1e-9 relative (a gap at a
+    # tie to 1e-12 absolute), over chunks whole and ragged
+    rng = np.random.default_rng(b)
+    panel, reads, quals = random_panel(rng, b, 16, 3000)
+    before = frozen_gemm(panel, reads, quals)
+    monkeypatch.setattr(pamld, "CHUNK", chunk)
+    after = pamld.classify(panel, 0.95 / b, 0.05, 1e-9, 0.95, 30, 0, reads, quals, np.zeros(3000, dtype=bool),
+                           ordered=False)
+    settled = before["gap"] > 1e-9
+    assert np.array_equal(after["decoded"][settled], before["decoded"][settled])
+    assert np.array_equal(after["qcfail"][settled], before["qcfail"][settled])
+    for key in ("confidence", "sigma_best"):
+        assert np.allclose(after[key], before[key], rtol=1e-9, atol=0)
+    assert np.allclose(after["gap"], before["gap"], rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("b", [5, 96, 384])
+def test_gemm_as_the_ordered_sum(b):
+    # on small panels the gemm path decides as the exact ordered one
+    # wherever the two best lie farther apart than rounding
+    rng = np.random.default_rng(b + 1)
+    panel, reads, quals = random_panel(rng, b, 12, 2000)
+    args = (panel, 0.95 / b, 0.05, 1e-9, 0.95, 30, 0, reads, quals, np.zeros(2000, dtype=bool))
+    exact, gemm = pamld.classify(*args, ordered=True), pamld.classify(*args, ordered=False)
+    settled = exact["gap"] > 1e-9
+    assert settled.mean() > 0.5
+    assert np.array_equal(gemm["decoded"][settled], exact["decoded"][settled])
+    assert np.allclose(gemm["confidence"], exact["confidence"], rtol=1e-9, atol=0)
+    assert np.allclose(gemm["sigma_best"], exact["sigma_best"], rtol=1e-9, atol=0)

@@ -16,10 +16,10 @@ from demux_bench.reference import pamld
 @pytest.fixture(scope="module")
 def cell():
     config = json.loads((cells.HERE / "configs" / "tenx-3p-v2.json").read_text())
-    config["decoders"][1]["barcodes"] = 96 * 4  # the whitelist's shape, a test's size
+    config["decoders"][1]["barcodes"] = 192 * 4  # the whitelist's shape, a test's size
     plan = json.loads((cells.HERE / "traffic" / "tenx-v2-fast.json").read_text())
     plan.update(batch_size=300, pool_batches=2)
-    plan["vary"]["barcodes"] = 96 * 2
+    plan["vary"]["barcodes"] = 192 * 2
     return cells.Cell("tenx-v2-fast", 1, config, plan, [], [])
 
 
@@ -68,31 +68,32 @@ def test_barcodes_land_on_their_tokens(cell):
 
 def test_instruction_names_every_decoder(cell):
     inst = traffic.instrument(cell.config, 3, cell.traffic)
-    body = json.loads(traffic.instruction_text(inst, ["a", "b", "c", "d"], "o.sam", "r.json"))
-    assert body["input"] == ["a", "b", "c", "d"] and body["output"] == ["o.sam"]
-    assert body["sample"]["transform"]["token"] == ["1::8", "2::8"]
-    assert len(body["sample"]["codec"]) == 96 and len(body["cellular"][0]["codec"]) == 384
-    assert body["molecular"][0]["transform"]["token"] == ["3:16:26"]
+    body = json.loads(traffic.instruction_text(inst, ["a", "b", "c"], "o.sam", "r.json"))
+    assert body["input"] == ["a", "b", "c"] and body["output"] == ["o.sam"]
+    assert body["sample"]["transform"]["token"] == ["1::8"]
+    assert len(body["sample"]["codec"]) == 96 and len(body["cellular"][0]["codec"]) == 768
+    assert body["cellular"][0]["transform"]["token"] == ["2::16"]
+    assert body["molecular"][0]["transform"]["token"] == ["2:16:26"]
 
 
 def test_panel_closed_under_the_maps(cell):
     inst = traffic.instrument(cell.config, 11, cell.traffic)
     varied = inst.varied()
-    assert varied.role == "cellular" and varied.variants.size == 96
+    assert varied.role == "cellular" and varied.variants.size == 192
     keys = traffic.word_keys(varied.words)
     assert np.unique(keys).size == keys.size
     rows = np.arange(1, varied.barcodes + 1)
-    for v in (1, 23, 24, 50, 95):
+    for v in (1, 23, 24, 50, 95, 191):
         # map v of barcode row r is the panel's row remap(v, r)
         mapped = traffic.word_keys(varied.variants.apply(v, varied.words))
         assert np.array_equal(mapped, keys[varied.remap(v, rows) - 1])
-        for w in (0, 7, 70):
+        for w in (0, 7, 70, 170):
             both = varied.variants.apply(v, varied.variants.apply(w, varied.words))
             assert np.array_equal(both, varied.variants.apply(int(varied.variants.compose[v, w]), varied.words))
     assert list(varied.remap(5, np.array([0]))) == [0]
     # the reads' barcodes: the library's two orbits, a set every map keeps
     drawn = varied.draw(np.random.default_rng(1), 5000)
-    library = np.unique(np.concatenate([np.arange(96) * 4 + j for j in range(2)]))  # 4 orbits in all
+    library = np.unique(np.concatenate([np.arange(192) * 4 + j for j in range(2)]))  # 4 orbits in all
     assert np.array_equal(np.unique(drawn), library)
     assert np.array_equal(np.unique(varied.remap(37, library + 1)), library + 1)
 
@@ -115,7 +116,7 @@ def test_mapped_reads_decode_to_mapped_barcodes(cell):
     code, qual = pool[0].observations[at]
     base = decide(code, qual)
     for replay in (1, 30, 41):
-        rows = stream.records(2 * replay, 3)
+        rows = stream.records(2 * replay, 2)
         seq = rows[:, 17:17 + 26]
         q = rows[:, 20 + 26:20 + 26 + 26] - 33
         got = decide(traffic.BASE_CODES[traffic.ASCII_TO_INDEX[seq[:, :16]]], q[:, :16].copy())
@@ -123,7 +124,7 @@ def test_mapped_reads_decode_to_mapped_barcodes(cell):
         want = varied.remap(inst.variant(replay), base["decoded"])
         assert np.array_equal(got["decoded"][settled], want[settled])
         assert np.allclose(got["confidence"], base["confidence"], rtol=1e-9, atol=1e-12)
-        raw = pool[0].records[3]
+        raw = pool[0].records[2]
         assert np.array_equal(seq[:, 16:], raw[:, 17 + 16:17 + 26])
 
 

@@ -211,13 +211,19 @@ def instrument(config: dict, seed: int, plan: dict | None = None) -> Instrument:
     """The configuration's decoders with their panels drawn from `seed`;
     the one that the traffic mix `plan` varies (``vary``: its role, its
     rotations and the barcodes its reads come from) drawn closed under its
-    maps."""
+    maps: the first decoder of that role, and no other."""
     vary = (plan or {}).get("vary")
+    varied = None
+    if vary is not None:
+        roles = [entry["role"] for entry in config["decoders"]]
+        if vary["role"] not in roles:
+            raise ValueError(f"no {vary['role']} decoder for the traffic to vary")
+        varied = roles.index(vary["role"])
     rng = np.random.default_rng([seed, 1])
     decoders = []
-    for entry in config["decoders"]:
+    for at, entry in enumerate(config["decoders"]):
         decoder = Decoder(entry["role"], entry["algorithm"], entry["tokens"], entry)
-        if vary is not None and vary["role"] == decoder.role:
+        if at == varied:
             if decoder.algorithm != "pamld" or len(decoder.tokens) != 1:
                 raise ValueError("a varied decoder is a PAMLD decoder over one token")
             decoder.variants = Variants(decoder.width, vary["rotations"])
@@ -233,28 +239,15 @@ def instrument(config: dict, seed: int, plan: dict | None = None) -> Instrument:
     return Instrument(list(config["segments"]), decoders)
 
 
-def _decoder_json(decoder: Decoder, index: int) -> dict:
+def _decoder_json(decoder: Decoder, index: int, codec: str) -> dict:
+    """A decoder's entry of the instruction, `codec` standing in for its
+    codec (PAMLD only), which ``_codec_chunks`` renders."""
     spec = decoder.spec
     out = {"algorithm": decoder.algorithm, "index": index,
            "transform": {"token": [token_string(t) for t in decoder.tokens]}}
     if decoder.algorithm != "pamld":
         return out
-    widths = [end - start for _, start, end in decoder.tokens]
-    cuts = np.cumsum([0] + widths)
-    strings = [s.decode() for s in decoder.strings()]
-    concentration = decoder.concentration()
-    # a codec is a JSON object: the program takes its barcodes in the
-    # order of their sorted keys ("1", "10", "100", ...), which decides a
-    # tie; the panel's row i gets the i-th key in that order
-    keys = sorted(str(i + 1) for i in range(len(strings)))
-    out["codec"] = {
-        key: {
-            "barcode": [word[cuts[k]:cuts[k + 1]] for k in range(len(widths))],
-            "concentration": concentration,
-            "index": int(key),
-        }
-        for key, word in zip(keys, strings)
-    }
+    out["codec"] = codec
     out.update({
         "noise": spec["noise"],
         "confidence threshold": spec["confidence_threshold"],
@@ -267,24 +260,114 @@ def _decoder_json(decoder: Decoder, index: int) -> dict:
     return out
 
 
-def instruction_text(inst: Instrument, inputs: list[str], output: str, report: str) -> str:
+def sorted_keys(count: int) -> tuple[np.ndarray, np.ndarray]:
+    """1..count in the order of their decimal strings ("1", "10", "100",
+    ..., "2", ...), and how many digits each has: a codec is a JSON
+    object, the program takes its barcodes in the order of their sorted
+    keys, which decides a tie, and the panel's row i gets the i-th key in
+    that order."""
+    numbers = np.arange(1, count + 1, dtype=np.int64)
+    width = len(str(count))
+    places = np.ones(count, dtype=np.int64)
+    for power in range(1, width):
+        places += numbers >= 10 ** power
+    # two keys' strings compare as their digits padded with zeros to the
+    # width do, the shorter (a prefix of the other) first
+    order = np.argsort(numbers * 10 ** (width - places) * (width + 1) + places)
+    return numbers[order], places[order]
+
+
+def _codec_chunks(decoder: Decoder, rows: int = 1 << 19):
+    """The decoder's codec as json.dumps writes it, in pieces of `rows`
+    barcodes: ``{"<key>": {"barcode": [<token strings>], "concentration":
+    <c>, "index": <key>}, ...}``, its keys sorted as strings. Each piece
+    is a matrix of fixed-width rows, blank key digits taken out."""
+    count = decoder.barcodes
+    if count == 0:
+        yield b"{}"
+        return
+    keys, places = sorted_keys(count)
+    width = len(str(count))
+    text = LETTERS[decoder.words]
+    pieces = [b'"', width, b'": {"barcode": [']
+    at = 0
+    for k, (_, start, end) in enumerate(decoder.tokens):
+        pieces += [b", " if k else b"", b'"', (at, at + end - start), b'"']
+        at += end - start
+    pieces += [b'], "concentration": ' + repr(decoder.concentration()).encode() + b', "index": ', width,
+               b"}", b", "]
+    layout, slots, columns = [], [], []
+    for piece in pieces:
+        begin = sum(len(x) for x in layout)
+        if isinstance(piece, bytes):
+            layout.append(np.frombuffer(piece, dtype=np.uint8))
+        elif isinstance(piece, int):  # a key's digits
+            slots.append(begin)
+            layout.append(np.zeros(piece, dtype=np.uint8))
+        else:  # a token's bases
+            columns.append((begin, piece))
+            layout.append(np.zeros(piece[1] - piece[0], dtype=np.uint8))
+    template = np.concatenate(layout)
+    yield b"{"
+    for lo in range(0, count, rows):
+        hi = min(count, lo + rows)
+        n = hi - lo
+        block = np.tile(template, (n, 1))
+        keep = np.ones(block.shape, dtype=bool)
+        # the keys' digits left-aligned: those of the keys padded with zeros
+        left = digits(keys[lo:hi] * 10 ** (width - places[lo:hi]), width)
+        blank = np.arange(width) >= places[lo:hi, None]
+        for slot in slots:
+            block[:, slot:slot + width] = left
+            keep[:, slot:slot + width] = ~blank
+        for begin, (a, b) in columns:
+            block[:, begin:begin + b - a] = text[lo:hi, a:b]
+        if hi == count:
+            keep[-1, -2:] = False
+        yield block[keep].tobytes()
+    yield b"}"
+
+
+def instruction_chunks(inst: Instrument, inputs: list[str], output: str, report: str):
     """The program's instruction (the shape of ``benchmark.instruction``):
     reads from `inputs`, segment 0 out as one SAM record, the report to
-    `report`. One string: json.dump would stream a whitelist-sized codec
-    through the pure-Python encoder."""
+    `report`, as the bytes of json.dumps of it, in pieces: a whitelist's
+    codec is rendered by NumPy, never held as objects."""
     body: dict = {
         "input": list(inputs),
         "template": {"transform": {"token": ["0::"]}},
         "output": [output],
         "report url": report,
     }
+    # json.dumps writes all but the codecs, each a marker string in its place
+    codecs = {}
     for index, decoder in enumerate(inst.decoders, start=1):
-        entry = _decoder_json(decoder, index)
+        marker = f"\0codec {index}"
+        entry = _decoder_json(decoder, index, marker)
+        if "codec" in entry:
+            codecs[json.dumps(marker)] = decoder
         if decoder.role == "sample":
             body["sample"] = entry
         else:
             body.setdefault(decoder.role, []).append(entry)
-    return json.dumps(body)
+    text = json.dumps(body)
+    at = 0
+    for marker, decoder in sorted(codecs.items(), key=lambda item: text.index(item[0])):
+        found = text.index(marker)
+        yield text[at:found].encode()
+        yield from _codec_chunks(decoder)
+        at = found + len(marker)
+    yield text[at:].encode()
+
+
+def write_instruction(path: str, inst: Instrument, inputs: list[str], output: str, report: str):
+    with open(path, "wb") as stream:
+        for chunk in instruction_chunks(inst, inputs, output, report):
+            stream.write(chunk)
+
+
+def instruction_text(inst: Instrument, inputs: list[str], output: str, report: str) -> str:
+    return b"".join(instruction_chunks(inst, inputs, output, report)).decode()
 
 
 @dataclass
