@@ -7,8 +7,10 @@ Standard output's last line is the result; standard error carries the
 per-batch times and what was compared, and ends with each number
 compared beside its limit. The run exits non-zero, with no result, where
 there is no card (or fewer than the cell asks for), where the program
-fails, and where ``jax``, ``jaxlib``, ``flax`` or ``pheniqs_tpu`` is
-loaded in this process once the window has closed.
+fails or its window does not open by the traffic's ``setup_deadline_s``
+(seconds from the launch, where the mix sets one), and where ``jax``,
+``jaxlib``, ``flax`` or ``pheniqs_tpu`` is loaded in this process once
+the window has closed.
 """
 
 from __future__ import annotations
@@ -26,10 +28,11 @@ import threading
 import time
 from dataclasses import dataclass, field
 
-from . import cells, check, pipes, proc, report as reports, traffic, trace
+from . import cells, check, pipes, proc, report as reports, spans, traffic, trace
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "pheniqs_tpu")
-#: the longest a run may wait on the program, compiling included
+#: the longest a run may wait on the program, compiling included; a
+#: traffic mix may also bound the set-up alone (``setup_deadline_s``)
 DEADLINE_S = 1100.0
 
 
@@ -54,6 +57,7 @@ class Run:
     stderr: str = ""
     report: reports.Report | None = None
     trace: trace.Window | None = None
+    spans: spans.Spans | None = None
     instrument: traffic.Instrument | None = None
 
     @property
@@ -96,6 +100,7 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, traced: bool, device: 
     n, pool_size, warmup = plan["batch_size"], plan["pool_batches"], plan["warmup_batches"]
     capture_batch = math.ceil(warmup / pool_size) * pool_size
     run = Run(cell, seconds, instrument=inst)
+    setup_deadline = plan.get("setup_deadline_s")
     workdir = tempfile.mkdtemp(prefix="demux_bench-")
     try:
         inputs = [os.path.join(workdir, f"in_s{s + 1:02d}.fastq") for s in range(len(inst.segments))]
@@ -143,8 +148,12 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, traced: bool, device: 
                 if time.perf_counter() - looked >= proc.LOOK_S:  # the program's processes, for shm_left
                     looked = time.perf_counter()
                     run.pids |= proc.tree_cpu(child.pid)[1]
-                if time.perf_counter() - run.launched > DEADLINE_S:
+                waited = time.perf_counter() - run.launched
+                if waited > DEADLINE_S:
                     failed = "the program passed the run's deadline"
+                    break
+                if setup_deadline is not None and run.opened is None and waited > setup_deadline:
+                    failed = f"the window did not open within {setup_deadline:g} s of the launch"
                     break
                 if feeder.errors or drain.error:
                     failed = "; ".join(feeder.errors + [drain.error or ""])
@@ -181,7 +190,9 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, traced: bool, device: 
         run.report = reports.read(report, check.counted(inst))
         report_s = time.perf_counter() - reading
         if traced:
-            run.trace = trace.load(os.path.join(workdir, "profile"), run.opened_wall, run.closed_wall)
+            profile = os.path.join(workdir, "profile")
+            run.trace = trace.load(profile, run.opened_wall, run.closed_wall)
+            run.spans = spans.load(profile, run.opened_wall, run.closed_wall)
         shm = proc.shm_left(run.pids)
         checking = time.perf_counter()
         for line in run.stderr.splitlines():
@@ -232,6 +243,9 @@ def result_line(run: Run, numbers: dict, traced: bool, device: dict) -> dict:
     }
     if traced and run.trace is not None:
         line["breakdown"] = run.trace.breakdown()
+        by_span = spans.idle_gaps_by_span(run.trace, run.spans)
+        if by_span is not None:
+            line["breakdown"]["idle_gaps_by_span"] = by_span
     line["limits"] = {name: {"value": numbers[name], "limit": limits[name]} for name in limits}
     return line
 

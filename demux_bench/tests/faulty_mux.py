@@ -8,15 +8,18 @@ for the tests that see ``correct`` come out false:
 - ``half``: each batch's render writes only the first half of its records;
 - ``altered``: the first decision of each batch's first read (the
   sample's, where there is a sample decoder) is moved to the next barcode
-  where the step produces it.
+  where the step produces it;
+- ``stall``: the program starts a child process, writes its own pid and
+  the child's to the file ``STALL_PIDS`` names (where it names one) and
+  sleeps before it reads any input, so the window never opens.
 """
 
+import os
+import subprocess
 import sys
+import time
 
 import numpy as np
-
-from pheniqs_tpu_torch.cli.main import main
-from pheniqs_tpu_torch.engine import device, stream
 
 
 def unchanged(classify):
@@ -48,8 +51,21 @@ def half(engine):
     return chunk
 
 
+def stall():
+    child = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(3600)"])
+    if os.environ.get("STALL_PIDS"):
+        with open(os.environ["STALL_PIDS"], "w") as stream:
+            stream.write(f"{os.getpid()} {child.pid}")
+    time.sleep(3600)
+
+
 if __name__ == "__main__":
     fault = sys.argv.pop(1)
+    if fault == "stall":
+        stall()
+    from pheniqs_tpu_torch.cli.main import main
+    from pheniqs_tpu_torch.engine import device, stream
+
     engine = device.TorchDeviceEngine
     if fault == "unchanged":
         engine._classify_batch_on_device = unchanged(engine._classify_batch_on_device)

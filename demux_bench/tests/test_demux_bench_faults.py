@@ -4,9 +4,12 @@ path broken underneath (tests/faulty_mux.py), or with the bfloat16
 control in the program's place, it does not. The look for a card is
 skipped; everything else is the run's. Each cell of BENCHMARK.json is
 run so, and a two-round combinatorial instrument whose two cellular
-decoders the check holds as the program tags them (tests/shapes.py)."""
+decoders the check holds as the program tags them (tests/shapes.py). A
+program that stalls before it reads any input ends the run at the
+traffic's ``setup_deadline_s``, its whole process group with it."""
 
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -49,3 +52,29 @@ def test_control_is_caught(workload):
     numbers, _ = check.control(inst, traffic.pool(inst, cell.traffic, 7), cell.traffic["check"], 10)
     limits = cell.traffic["check"]["limits"]
     assert any(numbers[name] > limits[name] for name in numbers), numbers
+
+
+def alive(pid):
+    """Whether `pid` runs (a zombie has ended)."""
+    try:
+        with open(f"/proc/{pid}/stat", "rb") as stream:
+            text = stream.read()
+    except OSError:
+        return False
+    return text[text.rindex(b")") + 2:][:1] != b"Z"
+
+
+def test_setup_deadline_ends_a_stalled_program(tmp_path, monkeypatch):
+    pids = tmp_path / "pids"
+    monkeypatch.setenv("STALL_PIDS", str(pids))
+    monkeypatch.setattr(run, "DEADLINE_S", 60.0)  # a run that misses the deadline fails sooner
+    cell = small("tenx-v2-fast")
+    cell.traffic["setup_deadline_s"] = 5
+    began = time.perf_counter()
+    with pytest.raises(RuntimeError, match="the window did not open within 5 s of the launch"):
+        run.run_cell(cell, 20261019, 1.0, traced=False, device="cpu",
+                     program=[sys.executable, FAULTY, "stall"])
+    assert time.perf_counter() - began < 5 + 30
+    stalled = [int(pid) for pid in pids.read_text().split()]
+    assert len(stalled) == 2
+    assert not any(alive(pid) for pid in stalled), stalled

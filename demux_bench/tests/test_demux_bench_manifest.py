@@ -1,12 +1,15 @@
 """BENCHMARK.json against the benchmark's contract: keys, names, units,
-and a file for every configuration, traffic mix and metric it names."""
+and a file for every configuration, traffic mix and metric it names; and
+each traffic file's optional keys."""
 
 import json
+import numbers
 import re
 
 import pytest
 
-from demux_bench.cells import ROOT
+from demux_bench.cells import HERE, ROOT
+from demux_bench.run import DEADLINE_S
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -86,3 +89,26 @@ def test_every_cell_reports_enough(manifest):
         ends = mine(manifest["end_to_end"])
         assert "setup_s" in [m["name"] for m in ends] and len(ends) >= 2
         assert mine(manifest["per_layer"])
+
+
+def setup_deadline_ok(plan):
+    """A traffic file's ``setup_deadline_s``, where it has one: a positive
+    number of seconds, no later than the run's own deadline."""
+    value = plan.get("setup_deadline_s")
+    if value is None:
+        return "setup_deadline_s" not in plan
+    return isinstance(value, numbers.Real) and not isinstance(value, bool) and 0 < value <= DEADLINE_S
+
+
+@pytest.mark.parametrize("path", sorted((HERE / "traffic").glob("*.json")), ids=lambda p: p.stem)
+def test_traffic_files(path):
+    assert setup_deadline_ok(json.loads(path.read_text()))
+
+
+@pytest.mark.parametrize("value, accepted", [
+    (180, True), (4.5, True), (DEADLINE_S, True),
+    (0, False), (-1, False), ("180", False), (True, False), (None, False), (DEADLINE_S + 1, False)])
+def test_setup_deadline_in_a_traffic_file(value, accepted):
+    plan = json.loads((HERE / "traffic" / "tenx-v2-fast.json").read_text())
+    plan["setup_deadline_s"] = value
+    assert setup_deadline_ok(json.loads(json.dumps(plan))) == accepted

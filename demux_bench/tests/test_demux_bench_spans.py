@@ -3,7 +3,9 @@ a profiler trace with the ``phq.clock`` annotation and spans files from
 two processes and a third (a second render worker). The anchor's offset
 moves every span; spans are cut to the window; self time; the five
 span readers; the idle gap named by the span over it; and ``trace.load``
-still takes the profiler's trace with spans files beside it."""
+still takes the profiler's trace with spans files beside it. Then a
+whole traced run of the cut cell on the CPU: the run hands the program's
+spans to the five readers, and its breakdown names the gaps by span."""
 
 import json
 import os
@@ -11,7 +13,8 @@ from types import SimpleNamespace
 
 import pytest
 
-from demux_bench import cells, spans, trace
+from demux_bench import cells, run as runs, spans, trace
+from demux_bench.tests.shapes import small
 
 BASE_NS = 1_700_000_000_000_000_000
 BASE_S = BASE_NS / 1e9
@@ -114,3 +117,29 @@ def test_trace_load_takes_the_profilers_trace(run, tmp_path):
     assert run.trace is not None and run.trace.covers()
     assert {name for name, *_ in run.trace.device} == {"phq_pamld_kernel"}
     assert spans.load(str(tmp_path / "none"), 0, 1) is None
+
+
+@pytest.fixture(scope="module")
+def traced_cpu_run():
+    """A whole traced run of the cut cell on the CPU (the program's plain
+    kernels, its profiler and spans on)."""
+    outcome, numbers, _ = runs.run_cell(small("tenx-v2-fast"), 20261019, 1.0, traced=True, device="cpu")
+    return outcome, numbers
+
+
+def test_traced_run_loads_the_programs_spans(traced_cpu_run):
+    outcome, numbers = traced_cpu_run
+    assert outcome.spans is not None and outcome.spans.main_thread() is not None
+    assert (outcome.spans.start, outcome.spans.stop) == (outcome.opened_wall, outcome.closed_wall)
+    line = runs.result_line(outcome, numbers, True, {})
+    assert line["correct"], numbers
+    gaps = line["breakdown"]["idle_gaps_by_span"]
+    assert gaps and all(name.startswith("phq.") and seconds > 0 for name, seconds in gaps)
+
+
+@pytest.mark.parametrize("name", sorted(METRICS))
+def test_span_readers_read_a_traced_run(traced_cpu_run, name):
+    outcome, numbers = traced_cpu_run
+    value = cells.reader(name)(outcome)
+    assert isinstance(value, float) and value >= 0.0
+    assert name in runs.metrics(outcome, True)
